@@ -1,0 +1,36 @@
+"""GLM coefficients.
+
+Port of ``Coefficients`` in photon_ml_tpu/models/glm.py: host numpy means
+(and optional variances) with their raw dot-product score.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.core.batch import full_f32_matmul
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class Coefficients:
+    """means[d] + optional variances[d]."""
+
+    means: np.ndarray
+    variances: Optional[np.ndarray] = None
+
+    @property
+    def dim(self) -> int:
+        return self.means.shape[-1]
+
+    def score(self, x: Tensor) -> Tensor:
+        """Raw dot-product scores x @ means, in x's and the means' common dtype."""
+        w = torch.as_tensor(self.means, device=x.device)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        full_f32_matmul()
+        return torch.mv(x.to(dt), w.to(dt))
