@@ -7,8 +7,8 @@ Phases, each printing its result and wall time on its own line:
 
 1. the device (torch's name, and nvidia-smi's name and power limit);
 2. the build of every CUDA kernel from ``photon_ml_tpu_torch/csrc`` (nvcc,
-   sm_90a, one process per source, all at once), with ptxas's register and
-   spill summary;
+   sm_90a, one process per source, all at once), with ptxas's registers
+   and spill-store bytes for every template instantiation;
 3. ``fused_value_and_grad`` against its plain PyTorch version on the card:
    the main path's shape (n = 8,388,608, d = 512, float32), d in
    {1, 100, 8192} with ragged n, all four losses, weight-0 rows, float32
@@ -58,8 +58,6 @@ F32_PATH_RTOL = 5e-3  # card vs CPU fits, float32: both stop at the working-
 # direction that leaves the coefficients ~1e-3 relative apart
 AUC_FLOOR = 0.75  # the task's Bayes AUC is ~0.8
 
-DEVICE = "cuda"
-SCALE = 1  # glmix_chip scale: 1 = full depth
 MAIN_N, MAIN_D = 8_388_608, 512
 MAIN_CAP, MAIN_DU, MAIN_USERS = 32, 4, 131_072
 REDUCED_USERS = 4096
@@ -85,13 +83,6 @@ def abs_err(a, b) -> float:
     import torch
 
     return float((torch.as_tensor(a).double() - torch.as_tensor(b).double()).abs().max())
-
-
-def sync() -> None:
-    import torch
-
-    if DEVICE == "cuda":
-        torch.cuda.synchronize()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -143,6 +134,23 @@ def phase_device():
     return name, count, line
 
 
+def ptxas_table(report: str) -> dict:
+    """ptxas -v output -> {(kernel, dtype, other template ints): {first
+    template int: (registers, spill-store bytes)}}; a kernel templated on
+    the type alone has first int None."""
+    table: dict = {}
+    entries = re.findall(r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
+                         r"(\d+) bytes spill stores.*\n.*Used (\d+) registers", report)
+    for fn, spill, regs in entries:
+        m = re.search(r"\d+([a-z_]+_kernel)I([fd])((?:Li\d+E)*)E", fn)
+        if m is None:
+            raise AssertionError(f"unrecognised kernel symbol {fn}")
+        ints = [int(i) for i in re.findall(r"Li(\d+)E", m.group(3))] or [None]
+        key = (m.group(1), {"f": "float32", "d": "float64"}[m.group(2)], tuple(ints[1:]))
+        table.setdefault(key, {})[ints[0]] = (int(regs), int(spill))
+    return table
+
+
 def phase_build():
     from photon_ml_tpu_torch.ops import _build
 
@@ -151,15 +159,16 @@ def phase_build():
     log(f"built {sorted(secs) or 'nothing (cached)'} in {time.perf_counter() - t0:.2f} s "
         f"into {_build.build_dir()}")
     for name in _build.SOURCES:
-        report = _build.ptxas_report(name) or ""
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
-        funcs = re.findall(r"Function properties for (\S+)", report)
-        spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores", report)]
-        spilling = [(f, s) for f, s in zip(funcs, spills) if s > 0]
-        log(f"ptxas {name}: {len(regs)} kernels, registers max {max(regs, default=0)}, "
-            f"{len(spilling)} with spill stores (max {max(spills, default=0)} bytes)")
-        for f, s in spilling[:9]:
-            log(f"  spill: {s} bytes in {f}")
+        table = ptxas_table(_build.ptxas_report(name) or "")
+        if not table:
+            raise AssertionError(f"no ptxas report for {name}")
+        for (kernel, dt, rest), by_first in sorted(table.items(), key=str):
+            star = ", *" if None not in by_first else ""
+            cells = " ".join(f"{r}/{s}" if k is None else f"*={k}: {r}/{s}"
+                             for k, (r, s) in sorted(by_first.items(),
+                                                     key=lambda kv: kv[0] or 0))
+            log(f"ptxas {kernel}<{dt}{star}{''.join(f', {i}' for i in rest)}> "
+                f"registers/spill-store bytes: {cells}")
 
 
 def _glm_batch(n, d, dtype, gen, scale=0.05):
@@ -167,7 +176,7 @@ def _glm_batch(n, d, dtype, gen, scale=0.05):
 
     from photon_ml_tpu_torch.core.batch import DenseBatch
 
-    dev = DEVICE
+    dev = "cuda"
     x = torch.randn((n, d), generator=gen, device=dev, dtype=dtype)
     y = (torch.rand(n, generator=gen, device=dev) < 0.4).to(dtype)
     off = torch.randn(n, generator=gen, device=dev, dtype=dtype) * 0.1
@@ -185,7 +194,7 @@ def phase_fused_glm(stats: dict):
                                                    fused_value_and_grad_plain)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 yardstick and plain
-    gen = torch.Generator(device=DEVICE)
+    gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     losses = (L.logistic_loss, L.squared_loss, L.poisson_loss, L.smoothed_hinge_loss)
     shift = 0.03
@@ -197,7 +206,7 @@ def phase_fused_glm(stats: dict):
         for loss in losses:
             k = fused_value_and_grad(loss, w, b, margin_shift=shift)
             p = fused_value_and_grad_plain(loss, w, b, margin_shift=shift)
-            sync()
+            torch.cuda.synchronize()
             errs = [rel_err(a, c) for a, c in zip(k, p)]
             ok = all(e <= tol for e in errs) and all(bool(torch.isfinite(t).all()) for t in k)
             log(f"fused_value_and_grad n={n} d={d} {str(dt)[6:]} {loss.name}: rel err "
@@ -212,7 +221,7 @@ def phase_fused_glm(stats: dict):
             loss = L.logistic_loss
             ms = cuda_ms(lambda: fused_value_and_grad(loss, w, b, shift), 10)
             plain_ms = cuda_ms(lambda: fused_value_and_grad_plain(loss, w, b, shift), 10)
-            r = torch.rand(n, generator=gen, device=DEVICE, dtype=dt)
+            r = torch.rand(n, generator=gen, device="cuda", dtype=dt)
             lib_ms = cuda_ms(lambda: (torch.mv(b.x, w), torch.mv(b.x.T, r)), 10)
             nbytes = (n * d + 3 * n + d + d + 2) * b.x.element_size()
             flops = 4 * n * d
@@ -233,7 +242,7 @@ def phase_fused_glm(stats: dict):
 def _soa_inputs(d, cap, num_l, dtype, gen):
     import torch
 
-    dev = DEVICE
+    dev = "cuda"
     x = torch.randn((cap, d, num_l), generator=gen, device=dev, dtype=dtype)
     y = (torch.rand((cap, num_l), generator=gen, device=dev) < 0.5).to(dtype)
     off = torch.randn((cap, num_l), generator=gen, device=dev, dtype=dtype) * 0.1
@@ -263,7 +272,7 @@ def phase_soa_newton(stats: dict):
     from photon_ml_tpu_torch.core import losses as L
     from photon_ml_tpu_torch.ops.soa_newton import newton_step, newton_step_plain
 
-    gen = torch.Generator(device=DEVICE)
+    gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     worst = 0.0
     cases = [(d, cap, nl, torch.float32) for d in (1, 4, 16) for cap in (16, 32)
@@ -274,7 +283,7 @@ def phase_soa_newton(stats: dict):
         for loss in (L.logistic_loss, L.squared_loss, L.poisson_loss):
             k = newton_step(loss, *args)
             p = newton_step_plain(loss, *args)
-            sync()
+            torch.cuda.synchronize()
             e = rel_err(k, p)
             if dt == torch.float32:
                 ref = newton_step_plain(loss, *[a.double() for a in args])
@@ -341,7 +350,8 @@ def _fit_and_score(data, device):
 
     t0 = time.perf_counter()
     res = GameEstimator(device=device).fit(data, [_glmix_config()])[0]
-    sync()
+    if device == "cuda":
+        torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
     t0 = time.perf_counter()
     scores = res.model.score(data, device=device)
@@ -361,11 +371,11 @@ def phase_main_path(stats: dict):
     from photon_ml_tpu_torch.ops.soa_newton import newton_step
 
     t0 = time.perf_counter()
-    host = synth_glmix_chip(SCALE)
+    host = synth_glmix_chip()
     n = host["n"]
     assert (n, host["users"]) == (MAIN_N, MAIN_USERS), (n, host["users"])
-    xg = chip_design(n, DEVICE)
-    sync()
+    xg = chip_design(n, "cuda")
+    torch.cuda.synchronize()
     log(f"glmix_chip data: {n} rows x {xg.shape[1]} fixed + {host['xu'].shape[1]} per-user "
         f"features, {host['users']} users, design {xg.numel() * 4 / 1e9:.1f} GB on the "
         f"card; generated in {time.perf_counter() - t0:.2f} s")
@@ -374,7 +384,7 @@ def phase_main_path(stats: dict):
 
     fused_value_and_grad.launches = 0
     newton_step.launches = 0
-    res, scores, auc, t_fit, t_score = _fit_and_score(data, DEVICE)
+    res, scores, auc, t_fit, t_score = _fit_and_score(data, "cuda")
     launches = {"fused_value_and_grad": fused_value_and_grad.launches,
                 "newton_step": newton_step.launches}
     upd = ", ".join(f"it{s['iteration']} {s['coordinate']} {s['seconds']:.2f} s"
@@ -408,7 +418,7 @@ def phase_card_vs_cpu(host, xg):
                  id_tags={"userId": host["uids"][:m]})
     gpu = GameData(features={"g": xg[:m].contiguous(), "u": host["xu"][:m]}, **parts)
     cpu = GameData(features={"g": xg[:m].cpu(), "u": host["xu"][:m]}, **parts)
-    rg, sg, auc_g, tg, _ = _fit_and_score(gpu, DEVICE)
+    rg, sg, auc_g, tg, _ = _fit_and_score(gpu, "cuda")
     rc, sc, auc_c, tc, _ = _fit_and_score(cpu, "cpu")
     e_fixed = rel_err(rg.model["fixed"].coefficients.means, rc.model["fixed"].coefficients.means)
     if rg.model["per-user"].slot_of != rc.model["per-user"].slot_of:

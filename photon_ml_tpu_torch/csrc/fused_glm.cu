@@ -210,8 +210,6 @@ long long fvg_smem_bytes(int dtype, int d, int tile_rows) {
                     : (long long)smem_bytes<double>(d, tile_rows);
 }
 
-int fvg_threads() { return kThreads; }
-
 // dtype: 0 float32, 1 float64.  x [n, d] row-major; w [d]; y, off, wt [n];
 // shift [1]; partials [num_blocks, d + 2]; out [d + 2] = (grad, value, rsum).
 int fvg_launch(int dtype, int loss, const void* x, const void* w, const void* y,

@@ -150,11 +150,11 @@ class RandomEffectCoordinate(Coordinate):
         self._base_offset = _as_device(data.offset, torch.float64, device)
         np_dtype = _numpy_dtype(dtype)
 
-        shard = data.features[config.feature_shard]
-        x = shard.to(dtype) if isinstance(shard, torch.Tensor) else np.asarray(shard, np_dtype)
+        # the design moves to the device once; the buckets are gathered there
+        self._x_full = _as_device(data.features[config.feature_shard], dtype, device)
         entity_ids = data.id_tags[config.random_effect_type]
         self.buckets = bucket_by_entity(
-            entity_ids, x, np.asarray(data.y, np_dtype),
+            entity_ids, self._x_full, np.asarray(data.y, np_dtype),
             offset=np.asarray(data.offset, np_dtype),
             weight=np.asarray(data.weight, np_dtype),
             active_cap=config.active_cap,
@@ -174,14 +174,12 @@ class RandomEffectCoordinate(Coordinate):
         self._entity_ids = np.asarray(entity_ids, np.int64)
         self._sample_slots = torch.as_tensor(slots_from(self._slot_of, self._entity_ids),
                                              device=device)
-        self._x_full = _as_device(x, dtype, device)
 
         # buckets lanes-last, once: x [cap, d, L]; y / wt / rows / valid [cap, L]
         self._dev = []
         for b in self.buckets.buckets:
-            bx = _as_device(b.x, dtype, device)
             self._dev.append(dict(
-                x_t=bx.permute(1, 2, 0).contiguous(),
+                x_t=b.x.permute(1, 2, 0).contiguous(),
                 y_t=_as_device(b.y.T, dtype, device),
                 wt_t=_as_device(b.weight.T, dtype, device),
                 rows_t=torch.as_tensor(

@@ -123,8 +123,6 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.fvg_launch.restype = I
         lib.fvg_smem_bytes.argtypes = [I, I, I]
         lib.fvg_smem_bytes.restype = L
-        lib.fvg_threads.argtypes = []
-        lib.fvg_threads.restype = I
     elif name == "soa_newton":
         lib.newton_step_launch.argtypes = [I, I, I, P, P, P, P, P, P, P, I, L, D,
                                            P, P]

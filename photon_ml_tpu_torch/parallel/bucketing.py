@@ -5,8 +5,8 @@ Port of the numpy host path of photon_ml_tpu/parallel/bucketing.py
 (``bucket_by_entity`` with the deterministic ``_splitmix64`` reservoir cap
 and count/cap weight rescale, ``stacked_coefficients``, ``score_samples``).
 The grouping and packing are numpy and give bitwise the reference's buckets.
-A design shard that is already a torch tensor on the device is gathered into
-the bucket layout there, so it never crosses to the host.
+The bucket design blocks are one masked gather on the design's tensor, so a
+shard that is already on the device never crosses to the host.
 """
 
 from __future__ import annotations
@@ -33,12 +33,12 @@ def _splitmix64(x: np.ndarray) -> np.ndarray:
 class Bucket:
     """One capacity class of entities.
 
-    x [E, S, d] (numpy, or a torch tensor when the shard was one),
+    x [E, S, d] (a tensor on the design shard's device),
     y/offset/weight [E, S], rows [E, S] int32 (original sample row of each
     slot, -1 for padding), counts [E] int32, entity_lanes [E] int64 (entity
     id per lane, -1 for padding lanes)."""
 
-    x: "np.ndarray | Tensor"
+    x: Tensor
     y: np.ndarray
     offset: np.ndarray
     weight: np.ndarray
@@ -135,13 +135,12 @@ def bucket_by_entity(entity_ids: np.ndarray, x: "np.ndarray | Tensor", y: np.nda
     rescale count/cap; overflow samples are dropped from training (scoring
     still covers them).  ``min_active_samples``: entities with fewer samples
     are excluded.  ``lane_multiple``: pad each bucket's lane count to a
-    multiple.  ``x`` may be a torch tensor (e.g. on the device): the bucket
-    design blocks are then gathered where it lives."""
+    multiple.  ``x`` may be numpy or a torch tensor (e.g. on the device):
+    the bucket design blocks are gathered where it lives."""
     n = len(entity_ids)
     entity_ids = np.asarray(entity_ids, np.int64)
-    x_is_tensor = isinstance(x, torch.Tensor)
-    if not x_is_tensor:
-        x = np.asarray(x, dtype)
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x, dtype))
     y = np.asarray(y, dtype)
     offset = np.zeros(n, dtype) if offset is None else np.asarray(offset, dtype)
     weight = np.ones(n, dtype) if weight is None else np.asarray(weight, dtype)
@@ -158,18 +157,11 @@ def bucket_by_entity(entity_ids: np.ndarray, x: "np.ndarray | Tensor", y: np.nda
         by, boff, bw, brows, bcounts, blanes = _pack_lane_meta(
             n_lanes, cap, idxs, kept_rows, kept_entities, rescale,
             y, offset, weight, dtype, lane_of, len(buckets))
-        if x_is_tensor:
-            # gather on the tensor's device: rows copy exactly and padding is
-            # exact zeros, bitwise the host fill below
-            valid = torch.as_tensor(brows >= 0, device=x.device)
-            safe = torch.as_tensor(np.where(brows >= 0, brows, 0).astype(np.int64),
-                                   device=x.device)
-            bx = torch.where(valid[..., None], x[safe], 0.0)
-        else:
-            bx = np.zeros((n_lanes, cap, d), dtype)
-            for lane, ei in enumerate(idxs):
-                rows = kept_rows[ei]
-                bx[lane, :len(rows)] = x[rows]
+        # rows copy exactly and padding slots are exact zeros
+        valid = torch.as_tensor(brows >= 0, device=x.device)
+        safe = torch.as_tensor(np.where(brows >= 0, brows, 0).astype(np.int64),
+                               device=x.device)
+        bx = torch.where(valid[..., None], x[safe], 0.0)
         buckets.append(Bucket(x=bx, y=by, offset=boff, weight=bw, rows=brows,
                               counts=bcounts, entity_lanes=blanes))
     return EntityBuckets(buckets=buckets, lane_of=lane_of, dim=d,
