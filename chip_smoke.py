@@ -9,11 +9,12 @@ Phases, each printing its result and wall time on its own line:
 2. the build of every CUDA kernel from ``photon_ml_tpu_torch/csrc`` (nvcc,
    sm_90a, one process per source, all at once), with ptxas's registers
    and spill-store bytes for every template instantiation;
-3. ``fused_value_and_grad`` against its plain PyTorch version on the card:
-   the main path's shape (n = 8,388,608, d = 512, float32), d in
-   {1, 100, 8192} with ragged n, all four losses, weight-0 rows, float32
-   and float64; times of the kernel, the plain version and a library
-   yardstick (two ``torch.mv`` calls, never used by the port);
+3. ``fused_value_and_grad`` and ``fused_hvp`` against their plain PyTorch
+   versions on the card: the main paths' shapes (glmix_chip's n = 8,388,608,
+   d = 512 and glmix2's n = 524,288, d = 256, float32), d in {1, 100, 8192}
+   with ragged n, all four losses, weight-0 rows, nonzero shifts, float32
+   and float64; times of each kernel, its plain version and a library
+   yardstick (``torch.mv`` / ``torch.mm`` calls, never used by the port);
 4. ``newton_step`` against its plain version on the card: d in {1, 4, 16},
    cap in {16, 32}, L in {131072, 1000}, logistic / squared / Poisson;
    times as above (yardstick: batched ``torch.linalg.cholesky`` +
@@ -26,7 +27,17 @@ Phases, each printing its result and wall time on its own line:
    after; each must be > 0) and AUC >= 0.75;
 6. the same path at a reduced size on the card and on the CPU (the CPU run
    uses the plain versions), compared within a stated float32 tolerance;
-7. one JSON line describing each kernel.
+7. glmix2 at full width under TRON on both coordinates (2048 users x 256
+   rows, 256 fixed / 16 per-user features; the per-user lanes are outside
+   the SoA gate and run the lane-batched TRON): fit, score, AUC against the
+   task's Bayes AUC, ``fused_hvp`` launches > 0, and the GAME objective
+   against an L-BFGS fit of the same configuration;
+8. glmix3 at full width under L-BFGS (262,144 rows, 128 fixed / 16 per-user
+   / 16 per-item features, 1,024 items in buckets of ragged capacity):
+   fit, score, AUC against the Bayes AUC, ``fused_value_and_grad`` launches;
+9. glmix2-TRON at a reduced depth on the card and on the CPU, compared
+   within a stated float32 tolerance;
+10. one JSON line describing each kernel, with its launches on each path.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero and prints no result; so does a run without a
@@ -45,7 +56,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
 
-F32_KERNEL_RTOL = 1e-4  # fused_value_and_grad vs plain, float32: both sum
+F32_KERNEL_RTOL = 1e-4  # fused kernels vs plain, float32: both sum
 # 10^3..10^7 terms in different orders (the kernel sequentially per block,
 # PyTorch pairwise / cuBLAS), ~10^-6 apart in practice
 F64_KERNEL_RTOL = 1e-10  # either kernel vs plain in float64: ~10^5 ulps of headroom
@@ -57,11 +68,23 @@ F32_PATH_RTOL = 5e-3  # card vs CPU fits, float32: both stop at the working-
 # precision plateau of the objective (4 ulps of f); along the flattest
 # direction that leaves the coefficients ~1e-3 relative apart
 AUC_FLOOR = 0.75  # the task's Bayes AUC is ~0.8
+BAYES_MARGIN = 0.03  # glmix2 / glmix3: training AUC >= Bayes AUC - 0.03.  The
+# fitted model sees the same 16-feature random effects the labels were drawn
+# from (training AUC lands near or above Bayes); a broken solver or residual
+# fold falls well below it
+F32_OBJECTIVE_RTOL = 1e-4  # glmix2 GAME objective, TRON vs L-BFGS on the card:
+# both minimize the same strictly convex coordinate objectives and stop at
+# the float32 plateau (4 ulps of f, ~5e-7 relative) or 1e-7; two sweeps of
+# coordinate descent from both leave the objectives ~1e-6 apart
 
 MAIN_N, MAIN_D = 8_388_608, 512
 MAIN_CAP, MAIN_DU, MAIN_USERS = 32, 4, 131_072
 REDUCED_USERS = 4096
-FUSED_CASES = [(MAIN_N, MAIN_D, "float32"), (3_000_001, 1, "float32"),
+GLMIX2_N, GLMIX2_D = 524_288, 256
+GLMIX3_N = 262_144
+REDUCED_GLMIX2_SCALE = 8  # 2048 users x 32 rows
+FUSED_CASES = [(MAIN_N, MAIN_D, "float32"), (GLMIX2_N, GLMIX2_D, "float32"),
+               (3_000_001, 1, "float32"),
                (1_000_003, 100, "float32"), (65_537, 8192, "float32"),
                (1_000_003, 1, "float64"), (200_003, 100, "float64"),
                (16_411, 8192, "float64")]
@@ -186,57 +209,111 @@ def _glm_batch(n, d, dtype, gen, scale=0.05):
     return w, DenseBatch(x=x, y=y, offset=off, weight=wt)
 
 
+def _bound(nbytes: float, flops: float):
+    """(bound ms, what bounds it) on the H100's HBM rate and FP32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _check_close(label, k, p, tol):
+    """Each output of a kernel against its plain version, relative to the
+    largest magnitude; returns the largest absolute difference."""
+    import torch
+
+    errs = [rel_err(a, c) for a, c in zip(k, p)]
+    ok = all(e <= tol for e in errs) and all(bool(torch.isfinite(t).all()) for t in k)
+    log(f"{label}: rel err {' '.join(f'{e:.2e}' for e in errs)} (tol {tol:g}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return max(abs_err(a, c) for a, c in zip(k, p))
+
+
 def phase_fused_glm(stats: dict):
     import torch
 
     from photon_ml_tpu_torch.core import losses as L
-    from photon_ml_tpu_torch.ops.fused_glm import (fused_value_and_grad,
+    from photon_ml_tpu_torch.ops.fused_glm import (fused_hvp, fused_hvp_plain,
+                                                   fused_value_and_grad,
                                                    fused_value_and_grad_plain)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 yardstick and plain
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     losses = (L.logistic_loss, L.squared_loss, L.poisson_loss, L.smoothed_hinge_loss)
-    shift = 0.03
+    shift, v_shift = 0.03, -0.02
     cases = [(n, d, getattr(torch, dt)) for n, d, dt in FUSED_CASES]
-    worst = 0.0
+    worst = {"fused_value_and_grad": 0.0, "fused_hvp": 0.0}
     for n, d, dt in cases:
         w, b = _glm_batch(n, d, dt, gen)
+        v = torch.randn(d, generator=gen, device="cuda", dtype=dt) / max(1, d) ** 0.5
         tol = F32_KERNEL_RTOL if dt == torch.float32 else F64_KERNEL_RTOL
+        tag = f"n={n} d={d} {str(dt)[6:]}"
         for loss in losses:
-            k = fused_value_and_grad(loss, w, b, margin_shift=shift)
-            p = fused_value_and_grad_plain(loss, w, b, margin_shift=shift)
-            torch.cuda.synchronize()
-            errs = [rel_err(a, c) for a, c in zip(k, p)]
-            ok = all(e <= tol for e in errs) and all(bool(torch.isfinite(t).all()) for t in k)
-            log(f"fused_value_and_grad n={n} d={d} {str(dt)[6:]} {loss.name}: rel err "
-                f"value {errs[0]:.2e} grad {errs[1]:.2e} rsum {errs[2]:.2e} "
-                f"(tol {tol:g}) {'ok' if ok else 'MISMATCH'}")
-            if not ok:
-                raise AssertionError(f"fused_value_and_grad disagrees at n={n} d={d} "
-                                     f"{dt} {loss.name}")
-            if (n, d, dt) == (MAIN_N, MAIN_D, torch.float32) and loss is L.logistic_loss:
-                worst = max(abs_err(a, c) for a, c in zip(k, p))
-        if (n, d, dt) == (MAIN_N, MAIN_D, torch.float32):
-            loss = L.logistic_loss
-            ms = cuda_ms(lambda: fused_value_and_grad(loss, w, b, shift), 10)
-            plain_ms = cuda_ms(lambda: fused_value_and_grad_plain(loss, w, b, shift), 10)
-            r = torch.rand(n, generator=gen, device="cuda", dtype=dt)
-            lib_ms = cuda_ms(lambda: (torch.mv(b.x, w), torch.mv(b.x.T, r)), 10)
-            nbytes = (n * d + 3 * n + d + d + 2) * b.x.element_size()
-            flops = 4 * n * d
-            bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-            log(f"fused_value_and_grad timing n={n} d={d} float32 logistic: kernel "
-                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, library (torch.mv x2) "
-                f"{lib_ms:.3f} ms, bound {bound:.3f} ms ({nbytes / 1e9:.2f} GB), "
-                f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s")
-            stats["fused_value_and_grad"] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
-                else "operations")
-        del w, b
+            e1 = _check_close(
+                f"fused_value_and_grad {tag} {loss.name} (value grad rsum)",
+                fused_value_and_grad(loss, w, b, margin_shift=shift),
+                fused_value_and_grad_plain(loss, w, b, margin_shift=shift), tol)
+            e2 = _check_close(
+                f"fused_hvp {tag} {loss.name} (Xtq sum q)",
+                fused_hvp(loss, w, v, b, margin_shift=shift, v_shift=v_shift),
+                fused_hvp_plain(loss, w, v, b, margin_shift=shift, v_shift=v_shift), tol)
+            if loss is L.logistic_loss and (n, d, dt) == (MAIN_N, MAIN_D, torch.float32):
+                worst["fused_value_and_grad"] = e1
+            if loss is L.logistic_loss and (n, d, dt) == (GLMIX2_N, GLMIX2_D, torch.float32):
+                worst["fused_hvp"] = e2
+        if dt == torch.float32 and (n, d) in ((MAIN_N, MAIN_D), (GLMIX2_N, GLMIX2_D)):
+            _time_fused(stats, n, d, w, v, b, shift, v_shift, gen)
+        del w, v, b
         torch.cuda.empty_cache()
-    stats.setdefault("fused_value_and_grad", {})["max_abs_err"] = worst
+    for k, e in worst.items():
+        stats.setdefault(k, {})["max_abs_err"] = e
+
+
+def _time_fused(stats, n, d, w, v, b, shift, v_shift, gen):
+    """Kernel, plain and library times of both fused kernels at one main-path
+    shape (float32, logistic).  glmix_chip's shape is kernel 1's main path,
+    glmix2's is kernel 2's; the other shape is logged beside it."""
+    import torch
+
+    from photon_ml_tpu_torch.core import losses as L
+    from photon_ml_tpu_torch.ops.fused_glm import (fused_hvp, fused_hvp_plain,
+                                                   fused_value_and_grad,
+                                                   fused_value_and_grad_plain)
+
+    loss = L.logistic_loss
+    item = b.x.element_size()
+    r = torch.rand(n, generator=gen, device="cuda", dtype=b.x.dtype)
+    wv = torch.stack([w, v], dim=1)
+    reps = 10 if n * d > 1 << 28 else 50
+    rows = {
+        "fused_value_and_grad": dict(
+            kernel=lambda: fused_value_and_grad(loss, w, b, shift),
+            plain=lambda: fused_value_and_grad_plain(loss, w, b, shift),
+            library=lambda: (torch.mv(b.x, w), torch.mv(b.x.T, r)),
+            library_name="torch.mv x2",
+            nbytes=(n * d + 3 * n + d + d + 2) * item, flops=4 * n * d,
+            main=(n, d) == (MAIN_N, MAIN_D)),
+        "fused_hvp": dict(
+            kernel=lambda: fused_hvp(loss, w, v, b, shift, v_shift),
+            plain=lambda: fused_hvp_plain(loss, w, v, b, shift, v_shift),
+            library=lambda: (torch.mm(b.x, wv), torch.mv(b.x.T, r)),
+            library_name="torch.mm X[w|v] + torch.mv Xtq",
+            nbytes=(n * d + 3 * n + 2 * d + d + 1) * item, flops=6 * n * d,
+            main=(n, d) == (GLMIX2_N, GLMIX2_D)),
+    }
+    for name, row in rows.items():
+        ms = cuda_ms(row["kernel"], reps)
+        plain_ms = cuda_ms(row["plain"], reps)
+        lib_ms = cuda_ms(row["library"], reps)
+        bound, by = _bound(row["nbytes"], row["flops"])
+        log(f"{name} timing n={n} d={d} float32 logistic: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library ({row['library_name']}) {lib_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({row['nbytes'] / 1e9:.3f} GB, {by}), "
+            f"{row['nbytes'] / (ms * 1e-3) / 1e12:.2f} TB/s")
+        if row["main"]:
+            stats.setdefault(name, {}).update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                              bound_ms=bound, bound_by=by)
 
 
 def _soa_inputs(d, cap, num_l, dtype, gen):
@@ -313,15 +390,13 @@ def phase_soa_newton(stats: dict):
             item = args[0].element_size()
             nbytes = (cap * d * nl + 3 * cap * nl + 3 * d * nl + nl) * item
             flops = nl * (cap * (2 * d + 10 + d + d * (d + 1)) + d ** 3 // 3 + 2 * d * d)
-            bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+            bound, by = _bound(nbytes, flops)
             log(f"newton_step timing d={d} cap={cap} L={nl} float32 logistic: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.3f} ms, library (einsum + cholesky + "
                 f"cholesky_solve) {lib_ms:.3f} ms, bound {bound:.4f} ms "
                 f"({nbytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP)")
-            stats["newton_step"] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
-                else "operations")
+            stats["newton_step"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                        bound_ms=bound, bound_by=by)
     stats.setdefault("newton_step", {})["max_abs_err"] = worst
 
 
@@ -342,14 +417,49 @@ def _glmix_config(num_iters=2):
                               active_cap=MAIN_CAP)})
 
 
-def _fit_and_score(data, device):
+def _baseline_config(three: bool, optimizer):
+    """BASELINE glmix2 (three False) / glmix3: L2 1.0 on every coordinate, 30
+    solver iterations at tolerance 1e-7, two sweeps (bench.py _glmix_coords),
+    every coordinate under ``optimizer``."""
+    from photon_ml_tpu_torch.core.regularization import Regularization
+    from photon_ml_tpu_torch.game import FixedEffectConfig, GameConfig, RandomEffectConfig
+    from photon_ml_tpu_torch.opt.types import SolverConfig
+    from photon_ml_tpu_torch.types import TaskType
+
+    s = SolverConfig(max_iters=30, tolerance=1e-7)
+    reg = Regularization(l2=1.0)
+    coords = {"fixed": FixedEffectConfig(feature_shard="g", optimizer=optimizer,
+                                         solver=s, reg=reg),
+              "per-user": RandomEffectConfig(random_effect_type="userId",
+                                             feature_shard="u", optimizer=optimizer,
+                                             solver=s, reg=reg)}
+    if three:
+        coords["per-item"] = RandomEffectConfig(random_effect_type="itemId",
+                                                feature_shard="i", optimizer=optimizer,
+                                                solver=s, reg=reg)
+    return GameConfig(task=TaskType.LOGISTIC_REGRESSION, num_outer_iterations=2,
+                      coordinates=coords)
+
+
+def _baseline_data(host: dict):
+    from photon_ml_tpu_torch.game import GameData
+
+    feats = {"g": host["xg"], "u": host["xu"]}
+    tags = {"userId": host["uids"]}
+    if "xi" in host:
+        feats["i"] = host["xi"]
+        tags["itemId"] = host["iids"]
+    return GameData(y=host["y"], features=feats, id_tags=tags)
+
+
+def _fit_and_score(data, device, config):
     import torch
 
     from photon_ml_tpu_torch.evaluation.metrics import auc_roc
     from photon_ml_tpu_torch.game import GameEstimator
 
     t0 = time.perf_counter()
-    res = GameEstimator(device=device).fit(data, [_glmix_config()])[0]
+    res = GameEstimator(device=device).fit(data, [config])[0]
     if device == "cuda":
         torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
@@ -362,13 +472,49 @@ def _fit_and_score(data, device):
     return res, scores, auc, t_fit, t_score
 
 
+def _counted_kernels() -> dict:
+    from photon_ml_tpu_torch.ops.fused_glm import fused_hvp, fused_value_and_grad
+    from photon_ml_tpu_torch.ops.soa_newton import newton_step
+
+    return {"fused_value_and_grad": fused_value_and_grad, "fused_hvp": fused_hvp,
+            "newton_step": newton_step}
+
+
+def _drive(path: str, data, config, stats: dict, required):
+    """One main path on the card: fit -> score -> AUC, with every kernel's
+    launch count set to 0 just before and read just after; each kernel in
+    ``required`` must have launched, and the scores must be finite."""
+    import torch
+
+    kernels = _counted_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res, scores, auc, t_fit, t_score = _fit_and_score(data, "cuda", config)
+    launches = {name: k.launches for name, k in kernels.items()}
+    upd = ", ".join(f"it{s['iteration']} {s['coordinate']} {s['seconds']:.3f} s"
+                    for s in res.history.steps)
+    t_upd = sum(s["seconds"] for s in res.history.steps)
+    log(f"{path}: fit {t_fit:.2f} s (coordinates built, bucketing included, in "
+        f"{t_fit - t_upd:.2f} s; updates {upd}), score + AUC {t_score:.2f} s, "
+        f"AUC {auc:.4f}, launches {launches}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not bool(torch.isfinite(scores).all()) or scores.shape != (data.num_samples,):
+        raise AssertionError(f"{path} scores are not finite of shape [n]")
+    for name in required:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the {path} path")
+    for name, v in launches.items():
+        stats.setdefault(name, {}).setdefault("launches_by_path", {})[path] = v
+    stats[path] = dict(fit_s=t_fit, build_s=t_fit - t_upd, score_s=t_score, auc=auc)
+    return res, scores, auc
+
+
 def phase_main_path(stats: dict):
     import torch
 
     from photon_ml_tpu_torch.data.synthetic import chip_design, synth_glmix_chip
     from photon_ml_tpu_torch.game import GameData
-    from photon_ml_tpu_torch.ops.fused_glm import fused_value_and_grad
-    from photon_ml_tpu_torch.ops.soa_newton import newton_step
 
     t0 = time.perf_counter()
     host = synth_glmix_chip()
@@ -381,34 +527,127 @@ def phase_main_path(stats: dict):
         f"card; generated in {time.perf_counter() - t0:.2f} s")
     data = GameData(y=host["y"], features={"g": xg, "u": host["xu"]},
                     id_tags={"userId": host["uids"]})
-
-    fused_value_and_grad.launches = 0
-    newton_step.launches = 0
-    res, scores, auc, t_fit, t_score = _fit_and_score(data, "cuda")
-    launches = {"fused_value_and_grad": fused_value_and_grad.launches,
-                "newton_step": newton_step.launches}
-    upd = ", ".join(f"it{s['iteration']} {s['coordinate']} {s['seconds']:.2f} s"
-                    for s in res.history.steps)
-    t_upd = sum(s["seconds"] for s in res.history.steps)
-    log(f"main path: fit {t_fit:.2f} s (coordinates built, bucketing included, in "
-        f"{t_fit - t_upd:.2f} s; updates {upd}), score + AUC {t_score:.2f} s, "
-        f"AUC {auc:.4f} (floor {AUC_FLOOR}), launches {launches}, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-    if not bool(torch.isfinite(scores).all()) or scores.shape != (n,):
-        raise AssertionError("main path scores are not finite of shape [n]")
+    _, _, auc = _drive("glmix_chip", data, _glmix_config(), stats,
+                       required=("fused_value_and_grad", "newton_step"))
     if auc < AUC_FLOOR:
-        raise AssertionError(f"main path AUC {auc:.4f} < {AUC_FLOOR}")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
-        stats.setdefault(k, {})["launches"] = v
-    stats["main_path"] = dict(fit_s=t_fit, build_s=t_fit - t_upd, score_s=t_score, auc=auc)
+        raise AssertionError(f"glmix_chip AUC {auc:.4f} < {AUC_FLOOR}")
     return host, xg
 
 
-def phase_card_vs_cpu(host, xg):
+def _bayes_auc(host: dict) -> float:
+    """The AUC of the generative logits: what the task's label noise allows."""
     import torch
 
+    from photon_ml_tpu_torch.evaluation.metrics import auc_roc
+
+    t = [torch.as_tensor(host[k], device="cuda").double() for k in ("logits", "y")]
+    return float(auc_roc(t[0], t[1], torch.ones_like(t[1])))
+
+
+def _game_objective(res, data, config) -> float:
+    """The GAME objective of a fitted model: Σ wt·logloss(total score) plus
+    each coordinate's (l2 / 2)·||w||², in float64."""
+    import numpy as np
+    import torch
+
+    from photon_ml_tpu_torch.core.losses import logistic_loss
+
+    z = res.model.score(data, device="cuda") + torch.as_tensor(data.offset, device="cuda")
+    y = torch.as_tensor(data.y, device="cuda").double()
+    wt = torch.as_tensor(data.weight, device="cuda").double()
+    val = float((wt * logistic_loss.loss(z, y)).sum())
+    for cid, c in config.coordinates.items():
+        m = res.model[cid]
+        coef = m.coefficients.means if cid == "fixed" else m.w_stack
+        val += 0.5 * c.reg.l2 * float(np.sum(np.asarray(coef, np.float64) ** 2))
+    return val
+
+
+def _check_bayes(path: str, auc: float, bayes: float) -> None:
+    ok = auc >= bayes - BAYES_MARGIN
+    log(f"{path}: training AUC {auc:.4f}, Bayes AUC {bayes:.4f} (gate: >= Bayes - "
+        f"{BAYES_MARGIN}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"{path} AUC {auc:.4f} < Bayes {bayes:.4f} - {BAYES_MARGIN}")
+
+
+def phase_glmix2_tron(stats: dict):
+    from photon_ml_tpu_torch.data.synthetic import synth_glmix
+    from photon_ml_tpu_torch.types import OptimizerType
+
+    t0 = time.perf_counter()
+    host = synth_glmix(1, three=False)
+    assert host["xg"].shape == (GLMIX2_N, GLMIX2_D), host["xg"].shape
+    data = _baseline_data(host)
+    log(f"glmix2 data: {GLMIX2_N} rows x {GLMIX2_D} fixed + 16 per-user features, "
+        f"2048 users, generated on the host in {time.perf_counter() - t0:.2f} s")
+    cfg = _baseline_config(False, OptimizerType.TRON)
+    res, _, auc = _drive("glmix2_tron", data, cfg, stats,
+                         required=("fused_value_and_grad", "fused_hvp"))
+    _check_bayes("glmix2_tron", auc, _bayes_auc(host))
+
+    f_tron = _game_objective(res, data, cfg)
+    lcfg = _baseline_config(False, OptimizerType.LBFGS)
+    lres, _, lauc, lt_fit, _ = _fit_and_score(data, "cuda", lcfg)
+    f_lbfgs = _game_objective(lres, data, lcfg)
+    rel = abs(f_tron - f_lbfgs) / abs(f_lbfgs)
+    ok = rel <= F32_OBJECTIVE_RTOL
+    log(f"glmix2 GAME objective: TRON {f_tron:.6f}, L-BFGS {f_lbfgs:.6f} (L-BFGS fit "
+        f"{lt_fit:.2f} s, AUC {lauc:.4f}); rel diff {rel:.2e} (tol {F32_OBJECTIVE_RTOL:g}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("glmix2 TRON and L-BFGS objectives disagree")
+    stats["glmix2_tron"].update(objective=f_tron, objective_lbfgs=f_lbfgs,
+                                lbfgs_fit_s=lt_fit)
+
+
+def phase_glmix3(stats: dict):
+    from photon_ml_tpu_torch.data.synthetic import synth_glmix
+    from photon_ml_tpu_torch.types import OptimizerType
+
+    t0 = time.perf_counter()
+    host = synth_glmix(1, three=True)
+    assert host["xg"].shape[0] == GLMIX3_N, host["xg"].shape
+    data = _baseline_data(host)
+    log(f"glmix3 data: {GLMIX3_N} rows x 128 fixed + 16 per-user + 16 per-item "
+        f"features, 2048 users, {len(set(host['iids'].tolist()))} items, generated on "
+        f"the host in {time.perf_counter() - t0:.2f} s")
+    _, _, auc = _drive("glmix3", data, _baseline_config(True, OptimizerType.LBFGS),
+                       stats, required=("fused_value_and_grad",))
+    _check_bayes("glmix3", auc, _bayes_auc(host))
+
+
+def _compare_fits(label, data_gpu, data_cpu, config, coords):
+    rg, sg, auc_g, tg, _ = _fit_and_score(data_gpu, "cuda", config)
+    rc, sc, auc_c, tc, _ = _fit_and_score(data_cpu, "cpu", config)
+    errs = {"fixed": rel_err(rg.model["fixed"].coefficients.means,
+                             rc.model["fixed"].coefficients.means)}
+    for cid in coords:
+        if rg.model[cid].slot_of != rc.model[cid].slot_of:
+            raise AssertionError(f"{label}: card and CPU {cid} models have different "
+                                 "entities")
+        errs[cid] = rel_err(rg.model[cid].w_stack, rc.model[cid].w_stack)
+    errs["scores"] = rel_err(sg.cpu(), sc)
+    ok = max(errs.values()) <= F32_PATH_RTOL and abs(auc_g - auc_c) <= 1e-3
+    log(f"card vs CPU, {label}: fit {tg:.2f} s vs {tc:.2f} s; max rel diff "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tol {F32_PATH_RTOL:g}); AUC {auc_g:.5f} vs {auc_c:.5f} "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{label}: card and CPU fits disagree beyond the float32 "
+                             "tolerance")
+
+
+def phase_glmix2_card_vs_cpu():
+    from photon_ml_tpu_torch.data.synthetic import synth_glmix
+    from photon_ml_tpu_torch.types import OptimizerType
+
+    data = _baseline_data(synth_glmix(REDUCED_GLMIX2_SCALE, three=False))
+    _compare_fits(f"glmix2-TRON at scale {REDUCED_GLMIX2_SCALE} ({data.num_samples} rows)",
+                  data, data, _baseline_config(False, OptimizerType.TRON), ["per-user"])
+
+
+def phase_card_vs_cpu(host, xg):
     from photon_ml_tpu_torch.game import GameData
 
     m = REDUCED_USERS * host["per_user"]
@@ -418,20 +657,8 @@ def phase_card_vs_cpu(host, xg):
                  id_tags={"userId": host["uids"][:m]})
     gpu = GameData(features={"g": xg[:m].contiguous(), "u": host["xu"][:m]}, **parts)
     cpu = GameData(features={"g": xg[:m].cpu(), "u": host["xu"][:m]}, **parts)
-    rg, sg, auc_g, tg, _ = _fit_and_score(gpu, "cuda")
-    rc, sc, auc_c, tc, _ = _fit_and_score(cpu, "cpu")
-    e_fixed = rel_err(rg.model["fixed"].coefficients.means, rc.model["fixed"].coefficients.means)
-    if rg.model["per-user"].slot_of != rc.model["per-user"].slot_of:
-        raise AssertionError("card and CPU per-user models have different entities")
-    e_user = rel_err(rg.model["per-user"].w_stack, rc.model["per-user"].w_stack)
-    e_score = rel_err(sg.cpu(), sc)
-    ok = max(e_fixed, e_user, e_score) <= F32_PATH_RTOL and abs(auc_g - auc_c) <= 1e-3
-    log(f"card vs CPU at {REDUCED_USERS} users x {host['per_user']} rows ({m} rows): "
-        f"fit {tg:.2f} s vs {tc:.2f} s; max rel diff fixed {e_fixed:.2e}, per-user "
-        f"{e_user:.2e}, scores {e_score:.2e} (tol {F32_PATH_RTOL:g}); AUC {auc_g:.5f} vs "
-        f"{auc_c:.5f} {'ok' if ok else 'MISMATCH'}")
-    if not ok:
-        raise AssertionError("card and CPU fits disagree beyond the float32 tolerance")
+    _compare_fits(f"glmix_chip at {REDUCED_USERS} users x {host['per_user']} rows "
+                  f"({m} rows)", gpu, cpu, _glmix_config(), ["per-user"])
 
 
 KERNELS = {
@@ -439,6 +666,10 @@ KERNELS = {
         source="photon_ml_tpu_torch/csrc/fused_glm.cu",
         replaces="photon_ml_tpu/ops/fused_glm.py:139 (_value_grad_kernel; "
                  "pallas_call at :262)"),
+    "fused_hvp": dict(
+        source="photon_ml_tpu_torch/csrc/fused_glm.cu",
+        replaces="photon_ml_tpu/ops/fused_glm.py:166 (_hvp_kernel; "
+                 "pallas_call at :320)"),
     "newton_step": dict(
         source="photon_ml_tpu_torch/csrc/soa_newton.cu",
         replaces="photon_ml_tpu/ops/soa_newton.py:79 (_newton_step_kernel; "
@@ -469,21 +700,30 @@ def main() -> int:
         name, count, _ = phase_device()
     with Phase("2 kernel build"):
         phase_build()
-    with Phase("3 fused_value_and_grad vs plain"):
+    with Phase("3 fused_value_and_grad and fused_hvp vs plain"):
         phase_fused_glm(stats)
     with Phase("4 newton_step vs plain"):
         phase_soa_newton(stats)
     with Phase("5 main path glmix_chip full width"):
         host, xg = phase_main_path(stats)
-    with Phase("6 card vs CPU reduced path"):
+    with Phase("6 card vs CPU reduced glmix_chip"):
         phase_card_vs_cpu(host, xg)
-    del xg
-    with Phase("7 kernels"):
+    del xg, host
+    with Phase("7 main path glmix2 TRON full width"):
+        phase_glmix2_tron(stats)
+    with Phase("8 main path glmix3 L-BFGS full width"):
+        phase_glmix3(stats)
+    with Phase("9 card vs CPU reduced glmix2 TRON"):
+        phase_glmix2_card_vs_cpu()
+    with Phase("10 kernels"):
         kernels = []
         for kname, meta in KERNELS.items():
             s = stats[kname]
+            by_path = s["launches_by_path"]
             kernels.append({"name": kname, "route": "cuda", "source": meta["source"],
-                            "replaces": meta["replaces"], "launches": s["launches"],
+                            "replaces": meta["replaces"],
+                            "launches": sum(by_path.values()),
+                            "launches_by_path": by_path,
                             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                             "bound_by": s["bound_by"], "library_ms": s["library_ms"]})

@@ -5,10 +5,12 @@ module names so each module's counterpart is easy to find.  It imports torch
 and numpy only.  Entry points take ``device=`` and default to ``"cuda"``;
 they run on the CPU only when the caller asks for it.
 
-Slice covered so far: GLMix training (``game.GameEstimator.fit``) with a
-dense fixed effect under L-BFGS and a dense per-entity random effect under
-the structure-of-arrays Newton solver, ``models.GameModel.score`` and AUC.
-The two hot kernels are hand-written CUDA C++ for sm_90a (``csrc/``).
+Covered so far: GLMix training (``game.GameEstimator.fit``) over dense
+shards, with fixed effects under L-BFGS or TRON and per-entity random
+effects on the structure-of-arrays Newton solver (narrow lanes) or the
+lane-batched L-BFGS / TRON (every other lane), ``models.GameModel.score``
+and AUC.  The three hot kernels are hand-written CUDA C++ for sm_90a
+(``csrc/``).
 """
 
 from photon_ml_tpu_torch.device import resolve_device

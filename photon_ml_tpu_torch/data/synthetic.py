@@ -1,4 +1,14 @@
-"""The ``glmix_chip`` synthetic GLMix task.
+"""Synthetic GLMix tasks: ``glmix_chip``, and the BASELINE glmix2 / glmix3.
+
+``synth_glmix(scale, three)`` is a numpy copy of the repository's
+``bench.synth_glmix`` (the BASELINE #3 / #4 data, glmix2 and glmix3): 2048
+users x 256 rows with 256 fixed and 16 per-user features (glmix2), or 2048
+users x 128 rows with 128 fixed, 16 per-user and 16 per-item features over
+1024 items (glmix3); ``scale`` divides the rows per user.  The same seed and
+draws give bitwise the same arrays; it also returns the generative logits,
+from which the task's Bayes AUC (~0.73 at full scale) follows.
+
+The rest of this module is the ``glmix_chip`` task.
 
 Port of the glmix_chip generator of the repository's ``bench.py``
 (``_chip_sizes``, ``_chip_signal_cols``, ``synth_glmix_chip`` and the device
@@ -97,3 +107,31 @@ def chip_design(n: int, device: "torch.device | str", seed: int = CHIP_SEED,
         x[lo:hi, D_SIG:] = torch.randn((hi - lo, D_CHIP_G - D_SIG), generator=gen,
                                        dtype=torch.float32, device=device).to(dtype)
     return x
+
+
+def synth_glmix(scale: int, three: bool) -> dict:
+    """BASELINE glmix2 (``three`` False) / glmix3 (True) data, rows in a
+    seeded random order: xg, xu, uids, y (and xi, iids for glmix3) as the
+    reference generator gives them, plus the generative ``logits``."""
+    rng = np.random.default_rng(42)
+    n_users, d_g, d_u = 2048, (128 if three else 256), 16
+    per_user = (128 if three else 256) // scale
+    n = n_users * per_user
+    xg = rng.normal(size=(n, d_g)).astype(np.float32)
+    xu = (0.6 * xg[:, :d_u] + 0.8 * rng.normal(size=(n, d_u))).astype(np.float32)
+    uids = np.repeat(np.arange(n_users), per_user)
+    wg = (rng.normal(size=d_g) * 0.05).astype(np.float32)
+    wu = (rng.normal(size=(n_users, d_u)) * 0.15).astype(np.float32)
+    logits = xg @ wg + np.einsum("nd,nd->n", xu, wu[uids])
+    out = {"xg": xg, "xu": xu, "uids": uids}
+    if three:
+        n_items, d_i = 1024, 16
+        xi = (0.6 * xg[:, d_u:d_u + d_i] + 0.8 * rng.normal(size=(n, d_i))).astype(np.float32)
+        iids = rng.integers(0, n_items, size=n)
+        wi = (rng.normal(size=(n_items, d_i)) * 0.15).astype(np.float32)
+        logits = logits + np.einsum("nd,nd->n", xi, wi[iids])
+        out.update(xi=xi, iids=iids)
+    out["y"] = (rng.random(n) < 1 / (1 + np.exp(-logits))).astype(np.float32)
+    out["logits"] = logits
+    perm = rng.permutation(n)
+    return {k: v[perm] for k, v in out.items()}

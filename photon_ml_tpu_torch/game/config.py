@@ -1,20 +1,25 @@
 """Per-coordinate configuration.
 
-Port of photon_ml_tpu/game/config.py, holding the fields this slice trains
-with.  The rest of the reference's fields (down-sampling, normalization
-intercepts, variances, storage dtypes, feature sharding, constraints,
-projectors, per-entity L2 multipliers) arrive with the slices that carry
-them.
+Port of photon_ml_tpu/game/config.py, holding the fields the port trains
+with, plus the reference's variance, box-constraint and projector fields,
+whose non-default values the coordinates refuse (NotImplementedError naming
+the ROADMAP item that brings them).  The rest of the reference's fields
+(down-sampling, normalization intercepts, storage dtypes, feature sharding)
+arrive with the slices that carry them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 from photon_ml_tpu_torch.core.regularization import Regularization
 from photon_ml_tpu_torch.opt.types import SolverConfig
-from photon_ml_tpu_torch.types import OptimizerType, TaskType
+from photon_ml_tpu_torch.types import (OptimizerType, ProjectorType, TaskType,
+                                       VarianceComputationType)
+
+# Per-feature-index box constraints: ((index, lo, hi), ...), as the reference.
+ConstraintMap = Tuple[Tuple[int, float, float], ...]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +30,8 @@ class FixedEffectConfig:
     optimizer: OptimizerType = OptimizerType.LBFGS
     solver: Optional[SolverConfig] = None
     reg: Regularization = Regularization()
+    variance: VarianceComputationType = VarianceComputationType.NONE
+    constraints: Optional[ConstraintMap] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +45,20 @@ class RandomEffectConfig:
     reg: Regularization = Regularization()
     active_cap: Optional[int] = None  # per-entity sample cap (reservoir)
     min_active_samples: int = 1  # lower-bound entity filter
+    projector: ProjectorType = ProjectorType.IDENTITY
+    variance: VarianceComputationType = VarianceComputationType.NONE
+    # Per-entity regularization: multiplicative factors on this coordinate's
+    # L2 weight, keyed by entity id (default 1).  Accepts a dict or pairs;
+    # stored canonically as a sorted tuple of (int id, float factor).
+    per_entity_l2_multipliers: Optional[Tuple[Tuple[int, float], ...]] = None
+    constraints: Optional[ConstraintMap] = None
+
+    def __post_init__(self):
+        m = self.per_entity_l2_multipliers
+        if m is not None:
+            pairs = m.items() if isinstance(m, dict) else m
+            object.__setattr__(self, "per_entity_l2_multipliers",
+                               tuple(sorted((int(k), float(v)) for k, v in pairs)))
 
 
 CoordinateConfig = Union[FixedEffectConfig, RandomEffectConfig]

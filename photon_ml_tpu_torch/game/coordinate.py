@@ -1,20 +1,24 @@
 """Training coordinates: the per-coordinate update/score contract.
 
-Port of photon_ml_tpu/game/coordinate.py for this slice:
+Port of photon_ml_tpu/game/coordinate.py for dense shards:
 
-- ``FixedEffectCoordinate``: a dense shard, no mesh, L-BFGS.  The design is
-  laid out on the device once; each update re-solves with new residual
-  offsets through ``GLMObjective``, whose value and gradient come from the
-  fused CUDA kernel on the card.  Rows are not padded: the kernel masks its
-  ragged last block.
-- ``RandomEffectCoordinate``: a dense shard, the IDENTITY projector and the
-  structure-of-arrays Newton branch only.  Entities are bucketed once; each
-  bucket is held on the device lanes-last ([cap, d, L]) and every update runs
-  ``solve_newton_soa`` per bucket, whose step is the CUDA Newton kernel.
-  Scoring covers every sample, including the rows the active cap left out
-  of training.
+- ``FixedEffectCoordinate``: a dense shard, no mesh, L-BFGS or TRON.  The
+  design is laid out on the device once; each update re-solves with new
+  residual offsets through ``GLMObjective``, whose value and gradient (and,
+  under TRON, Hessian-vector products) come from the fused CUDA kernels on
+  the card.  Rows are not padded: the kernels mask their ragged last block.
+- ``RandomEffectCoordinate``: a dense shard and the IDENTITY projector.
+  Entities are bucketed once and each bucket stays on the device.  Narrow
+  buckets (the reference's gate: solve dim <= 16, cap*d^2 <= 2560, a smooth
+  loss) are held lanes-last ([cap, d, L]) and solved by ``solve_newton_soa``,
+  whose step is the CUDA Newton kernel, whichever of L-BFGS and TRON is
+  configured, as in the reference.  Every other coordinate holds its buckets
+  lanes-first ([L, cap, d]) and solves each with the lane-batched L-BFGS or
+  TRON of ``opt.solve.make_lane_solver``, one GLM per lane with its own L2
+  (the coordinate's weight times the entity's multiplier).  Scoring covers
+  every sample, including the rows the active cap left out of training.
 
-Anything outside the slice raises NotImplementedError naming the ROADMAP item
+Anything outside the port raises NotImplementedError naming the ROADMAP item
 that brings it.
 """
 
@@ -37,32 +41,49 @@ from photon_ml_tpu_torch.models.game import (DatumScoringModel, FixedEffectModel
                                              RandomEffectModel)
 from photon_ml_tpu_torch.models.glm import Coefficients
 from photon_ml_tpu_torch.opt.newton_soa import soa_eligible, solve_newton_soa
-from photon_ml_tpu_torch.opt.solve import check_supported, make_solver
-from photon_ml_tpu_torch.opt.types import SolverConfig, SolverResult
+from photon_ml_tpu_torch.opt.solve import (check_supported, default_config,
+                                           make_lane_solver, make_solver)
+from photon_ml_tpu_torch.opt.types import SolverResult
 from photon_ml_tpu_torch.parallel.bucketing import (bucket_by_entity, score_samples,
                                                     slots_from, stacked_coefficients)
-from photon_ml_tpu_torch.types import OptimizerType, TaskType
+from photon_ml_tpu_torch.types import ProjectorType, TaskType, VarianceComputationType
 
 Tensor = torch.Tensor
 
 # cap * d^2 at or below this keeps a random-effect coordinate on the SoA
 # Newton path (the reference gate, game/coordinate.py: cap*d^2/2 <= 1280)
 SOA_MAX_CAP_D2 = 2 * 1280
-_NON_SOA = ("random-effect lanes outside the SoA Newton gate (d <= 16, "
-            "cap*d^2 <= 2560, a smooth loss) need the vmapped per-lane solver, "
-            "not ported yet: ROADMAP.md 'Next slices', non-SoA random-effect lanes")
+
+
+def _refuse_unported(coordinate_id: str, config: CoordinateConfig) -> None:
+    """Raise NotImplementedError for the configuration fields the port does
+    not carry yet, naming the ROADMAP item; then the optimizer check."""
+    where = f"coordinate {coordinate_id!r}: "
+    if config.variance != VarianceComputationType.NONE:
+        raise NotImplementedError(
+            where + "coefficient variances are not ported yet: ROADMAP.md 'Next "
+            "slices', variances (hessian_diag / hessian, compute_variances)")
+    if config.constraints:
+        raise NotImplementedError(
+            where + "box constraints are not ported yet: ROADMAP.md 'Modules "
+            "still to port', opt/constraints.py and the projected L-BFGS")
+    if getattr(config, "projector", ProjectorType.IDENTITY) != ProjectorType.IDENTITY:
+        raise NotImplementedError(
+            where + f"the {config.projector.name} projector is not ported yet: "
+            "ROADMAP.md 'Modules still to port', random-effect projectors")
+    check_supported(config.optimizer, config.reg.l1)
 
 
 def _numpy_dtype(dtype: torch.dtype):
     return {torch.float32: np.float32, torch.float64: np.float64}[dtype]
 
 
-def _as_device(a, dtype: torch.dtype, device: torch.device) -> Tensor:
-    """A contiguous tensor on ``device``; no copy when ``a`` already is one."""
+def _as_device(a, dtype: Optional[torch.dtype], device: torch.device) -> Tensor:
+    """A contiguous tensor on ``device`` (``dtype`` None keeps the dtype); no
+    copy when ``a`` already is one."""
     if not isinstance(a, torch.Tensor):
         a = np.asarray(a)
     return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
-
 
 class Coordinate:
     """update/score contract (reference Coordinate.scala:28-81)."""
@@ -94,7 +115,7 @@ class FixedEffectCoordinate(Coordinate):
 
     def __init__(self, coordinate_id: str, data: GameData, config: FixedEffectConfig,
                  task: TaskType, dtype: torch.dtype, device: torch.device):
-        check_supported(config.optimizer, config.reg.l1)
+        _refuse_unported(coordinate_id, config)
         self.coordinate_id = coordinate_id
         self.config = config
         self.task = task
@@ -131,14 +152,12 @@ class FixedEffectCoordinate(Coordinate):
 
 
 class RandomEffectCoordinate(Coordinate):
-    """Per-entity GLM coordinate over a dense shard, SoA Newton lanes."""
+    """Per-entity GLM coordinate over a dense shard: SoA Newton lanes inside
+    the reference's gate, lane-batched L-BFGS / TRON outside it."""
 
     def __init__(self, coordinate_id: str, data: GameData, config: RandomEffectConfig,
                  task: TaskType, seed: int, dtype: torch.dtype, device: torch.device):
-        if config.reg.l1 > 0.0 or config.optimizer == OptimizerType.OWLQN:
-            check_supported(OptimizerType.OWLQN, config.reg.l1)
-        if config.optimizer not in (OptimizerType.LBFGS, OptimizerType.TRON):
-            raise ValueError(f"unknown optimizer {config.optimizer!r}")
+        _refuse_unported(coordinate_id, config)
         self.coordinate_id = coordinate_id
         self.config = config
         self.task = task
@@ -160,14 +179,18 @@ class RandomEffectCoordinate(Coordinate):
             active_cap=config.active_cap,
             min_active_samples=config.min_active_samples, seed=seed, dtype=np_dtype)
 
-        # the SoA Newton gate (reference game/coordinate.py:1183-1210); with no
-        # normalization, box or L1 in this slice, what remains is the width,
-        # the cap*d^2 traffic guard and a smooth loss
-        worst = max((b.capacity * self.dim * self.dim for b in self.buckets.buckets),
+        # the SoA Newton gate (reference game/coordinate.py:1184-1198); with no
+        # normalization, box or L1 in the port, what remains is the solve
+        # width, the cap*d^2 traffic guard and a smooth loss.  The optimizer
+        # does not enter: a TRON coordinate inside the gate runs SoA Newton.
+        worst = max((b.capacity * b.x.shape[2] ** 2 for b in self.buckets.buckets),
                     default=0)
-        if not (soa_eligible(self.dim, self._loss.name) and worst <= SOA_MAX_CAP_D2):
-            raise NotImplementedError(f"coordinate {coordinate_id!r}: {_NON_SOA}")
-        self._solver_config = config.solver or SolverConfig.lbfgs_default()
+        max_dim = max((b.x.shape[2] for b in self.buckets.buckets), default=0)
+        self.use_soa = soa_eligible(max_dim, self._loss.name) and worst <= SOA_MAX_CAP_D2
+        self._solver_config = config.solver or default_config(config.optimizer)
+        if not self.use_soa:
+            self._solve_lanes = make_lane_solver(self._loss, config.optimizer,
+                                                 self._solver_config)
 
         # stacked-model slot order = sorted entity id (stacked_coefficients)
         self._slot_of = {eid: i for i, eid in enumerate(sorted(self.buckets.lane_of))}
@@ -175,27 +198,33 @@ class RandomEffectCoordinate(Coordinate):
         self._sample_slots = torch.as_tensor(slots_from(self._slot_of, self._entity_ids),
                                              device=device)
 
-        # buckets lanes-last, once: x [cap, d, L]; y / wt / rows / valid [cap, L]
+        # buckets on the device once, lanes-last for SoA Newton (x [cap, d, L];
+        # y / wt / rows / valid [cap, L]), else lanes-first (x [L, cap, d];
+        # the rest [L, cap]); l2 [L] is the coordinate's weight times each
+        # lane's entity multiplier (1 for padding lanes)
+        mult = dict(config.per_entity_l2_multipliers or ())
         self._dev = []
         for b in self.buckets.buckets:
-            self._dev.append(dict(
-                x_t=b.x.permute(1, 2, 0).contiguous(),
-                y_t=_as_device(b.y.T, dtype, device),
-                wt_t=_as_device(b.weight.T, dtype, device),
-                rows_t=torch.as_tensor(
-                    np.ascontiguousarray(np.where(b.rows < 0, 0, b.rows).T, np.int64),
-                    device=device),
-                valid_t=torch.as_tensor(np.ascontiguousarray((b.rows >= 0).T),
-                                        device=device),
-                l2=torch.full((b.num_lanes,), config.reg.l2, dtype=dtype, device=device)))
+            lane_major = dict(
+                x=b.x, y=b.y, wt=b.weight,
+                rows=np.where(b.rows < 0, 0, b.rows).astype(np.int64),
+                valid=b.rows >= 0)
+            if self.use_soa:
+                lane_major = {k: (v.permute(1, 2, 0) if k == "x" else v.T)
+                              for k, v in lane_major.items()}
+            dev = {k: _as_device(v, dtype if k in ("x", "y", "wt") else None, device)
+                   for k, v in lane_major.items()}
+            m = np.asarray([mult.get(int(e), 1.0) for e in b.entity_lanes], np_dtype)
+            dev["l2"] = config.reg.l2 * torch.as_tensor(m, device=device)
+            self._dev.append(dev)
 
     def _warm_start(self, bucket_index: int, init: RandomEffectModel) -> Tensor:
-        """[d, L] start from a prior model's rows (zeros for unknown entities)."""
+        """[L, d] start from a prior model's rows (zeros for unknown entities)."""
         b = self.buckets.buckets[bucket_index]
         slots = slots_from(init.slot_of, b.entity_lanes)
         w_stack = np.asarray(init.w_stack, _numpy_dtype(self._dtype))
         w0 = np.where((slots >= 0)[:, None], w_stack[np.where(slots >= 0, slots, 0)], 0.0)
-        return _as_device(w0.T, self._dtype, self._device)
+        return _as_device(w0, self._dtype, self._device)
 
     def update(self, total_offsets: Tensor, seed: int = 0,
                init: Optional[RandomEffectModel] = None
@@ -206,13 +235,18 @@ class RandomEffectCoordinate(Coordinate):
             if init is not None:
                 w0 = self._warm_start(bi, init)
             else:
-                w0 = torch.zeros((self.dim, b.num_lanes), dtype=self._dtype,
+                w0 = torch.zeros((b.num_lanes, self.dim), dtype=self._dtype,
                                  device=self._device)
             # residual offsets gathered into the bucket layout
-            off_t = torch.where(dev["valid_t"], offs[dev["rows_t"]], 0.0)
-            res = solve_newton_soa(self._loss, w0, dev["x_t"], dev["y_t"], off_t,
-                                   dev["wt_t"], dev["l2"], self._solver_config)
-            coeffs.append(res.w.T)
+            off = torch.where(dev["valid"], offs[dev["rows"]], 0.0)
+            if self.use_soa:
+                res = solve_newton_soa(self._loss, w0.T.contiguous(), dev["x"], dev["y"],
+                                       off, dev["wt"], dev["l2"], self._solver_config)
+                coeffs.append(res.w.T)
+            else:
+                batch = DenseBatch(x=dev["x"], y=dev["y"], offset=off, weight=dev["wt"])
+                res = self._solve_lanes(w0, batch, dev["l2"])
+                coeffs.append(res.w)
             results.append(res)
         w_stack, slot_of = stacked_coefficients(coeffs, self.buckets)
         model = RandomEffectModel(

@@ -121,8 +121,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "fused_glm":
         lib.fvg_launch.argtypes = [I, I, P, P, P, P, P, P, L, I, L, I, I, P, P, P]
         lib.fvg_launch.restype = I
-        lib.fvg_smem_bytes.argtypes = [I, I, I]
-        lib.fvg_smem_bytes.restype = L
+        lib.hvp_launch.argtypes = [I, I, P, P, P, P, P, P, P, P, L, I, L, I, I, P, P,
+                                   P]
+        lib.hvp_launch.restype = I
+        lib.glm_smem_bytes.argtypes = [I, I, I]
+        lib.glm_smem_bytes.restype = L
     elif name == "soa_newton":
         lib.newton_step_launch.argtypes = [I, I, I, P, P, P, P, P, P, P, I, L, D,
                                            P, P]

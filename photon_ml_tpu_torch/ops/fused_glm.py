@@ -1,14 +1,16 @@
-"""Fused GLM value and gradient: (Σ wt·l, Xᵀr, Σ r) in one read of X.
+"""Fused GLM passes, each in one read of X: value and gradient
+(Σ wt·l, Xᵀr, Σ r), and the Hessian-vector product (Xᵀq, Σ q).
 
-Port of ``fused_value_and_grad`` in photon_ml_tpu/ops/fused_glm.py, whose TPU
-kernel ``_value_grad_kernel`` becomes the CUDA C++ kernel in
-``csrc/fused_glm.cu`` (source note there: bytes-bound on the H100, one HBM
-read of X, per-block partials reduced in a fixed order, no float atomics).
+Port of ``fused_value_and_grad`` and ``fused_hvp`` in
+photon_ml_tpu/ops/fused_glm.py, whose TPU kernels ``_value_grad_kernel`` and
+``_hvp_kernel`` become the CUDA C++ kernels in ``csrc/fused_glm.cu`` (source
+note there: bytes-bound on the H100, one HBM read of X, per-block partials
+reduced in a fixed order, no float atomics).
 
-On a CUDA tensor the wrapper launches that kernel or raises; on a CPU tensor
-it runs ``fused_value_and_grad_plain``, the same function in plain PyTorch
-(the reference math of GLMObjective's XLA path).  ``launches`` counts kernel
-launches and nothing else.
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
+it runs its ``*_plain`` version, the same function in plain PyTorch (the
+reference math of GLMObjective's XLA path).  Each wrapper's ``launches``
+counts its kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -29,35 +31,50 @@ _SMEM_LIMIT = 227 << 10  # H100 shared memory a block may use
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 
-def _check(loss: PointwiseLoss, w_eff: Tensor, batch: DenseBatch) -> None:
+def _check(name: str, batch: DenseBatch, *coefs: Tensor) -> None:
     x = batch.x
-    if x.dim() != 2 or w_eff.shape != (x.shape[1],):
-        raise ValueError(f"fused_value_and_grad: x {tuple(x.shape)} and w "
-                         f"{tuple(w_eff.shape)} do not match")
-    tensors = (x, w_eff, batch.y, batch.offset, batch.weight)
+    if x.dim() != 2 or any(c.shape != (x.shape[1],) for c in coefs):
+        raise ValueError(f"{name}: x {tuple(x.shape)} and coefficients "
+                         f"{[tuple(c.shape) for c in coefs]} do not match")
+    tensors = (x, *coefs, batch.y, batch.offset, batch.weight)
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fused_value_and_grad: tensors must be contiguous")
+        raise ValueError(f"{name}: tensors must be contiguous")
     dts = {t.dtype for t in tensors}
     if len(dts) != 1:
         raise ValueError(
-            f"fused_value_and_grad needs one uniform dtype (x {x.dtype} vs w "
-            f"{w_eff.dtype}, y/offset/weight {batch.y.dtype}); narrower "
-            "storage is a later slice (ROADMAP: bf16 storage)")
+            f"{name} needs one uniform dtype (x {x.dtype} vs coefficients "
+            f"{[c.dtype for c in coefs]}, y/offset/weight {batch.y.dtype}); "
+            "narrower storage is a later slice (ROADMAP: bf16 storage)")
+
+
+def _safe_margins(w_eff: Tensor, batch: DenseBatch, margin_shift) -> Tensor:
+    z = batch.margins(w_eff) + batch.offset + margin_shift
+    return torch.where(batch.weight > 0, z, 0.0)  # weight-0 rows stay finite
 
 
 def fused_value_and_grad_plain(loss: PointwiseLoss, w_eff: Tensor, batch: DenseBatch,
                                margin_shift: "Tensor | float" = 0.0):
     """The plain PyTorch version: (Σ wt·l, Xᵀr, Σ r)."""
-    z = batch.margins(w_eff) + batch.offset + margin_shift
-    z = torch.where(batch.weight > 0, z, 0.0)  # weight-0 rows stay finite
+    z = _safe_margins(w_eff, batch, margin_shift)
     l, d1 = loss.loss_and_d1(z, batch.y)
     r = batch.weight * d1
     full_f32_matmul()
     return torch.sum(batch.weight * l), r @ batch.x, torch.sum(r)
 
 
+def fused_hvp_plain(loss: PointwiseLoss, w_eff: Tensor, v_eff: Tensor,
+                    batch: DenseBatch, margin_shift: "Tensor | float" = 0.0,
+                    v_shift: "Tensor | float" = 0.0):
+    """The plain PyTorch version: (Xᵀq, Σ q)."""
+    z = _safe_margins(w_eff, batch, margin_shift)
+    mv = batch.margins(v_eff) + v_shift
+    q = batch.weight * loss.d2(z, batch.y) * mv
+    full_f32_matmul()
+    return q @ batch.x, torch.sum(q)
+
+
 def launch_shape(n: int, d: int, itemsize: int, num_sms: int):
-    """(tile_rows, rows_per_block, num_blocks) for the CUDA kernel: tiles of
+    """(tile_rows, rows_per_block, num_blocks) for the CUDA kernels: tiles of
     ~32 KB of whole rows, about four blocks per SM, each block a contiguous
     range of whole tiles."""
     tile_rows = max(1, min(_MAX_TILE_ROWS, _TILE_BYTES // (d * itemsize), n))
@@ -72,51 +89,70 @@ def fused_value_and_grad(loss: PointwiseLoss, w_eff: Tensor, batch: DenseBatch,
     """(Σ wt·l, Xᵀr, Σ r) with z = X·w_eff + offset + margin_shift, z = 0 where
     weight <= 0, r = wt·l'(z, y).  Raw-space sums: the caller applies the
     normalization chain rule and L2."""
-    _check(loss, w_eff, batch)
+    _check("fused_value_and_grad", batch, w_eff)
     if not batch.x.is_cuda:
         return fused_value_and_grad_plain(loss, w_eff, batch, margin_shift)
-    return _launch(loss, w_eff, batch, margin_shift)
+    out = _run("fvg_launch", "fused_value_and_grad", loss, batch, (w_eff,),
+               (margin_shift,), width=batch.x.shape[1] + 2)
+    fused_value_and_grad.launches += 1
+    d = batch.x.shape[1]
+    return out[d], out[:d], out[d + 1]
 
 
 fused_value_and_grad.launches = 0
 
 
-def _launch(loss, w_eff, batch, margin_shift):
+def fused_hvp(loss: PointwiseLoss, w_eff: Tensor, v_eff: Tensor, batch: DenseBatch,
+              margin_shift: "Tensor | float" = 0.0, v_shift: "Tensor | float" = 0.0):
+    """(Xᵀq, Σ q) with q = wt·l''(z, y)·(X·v_eff + v_shift), z as in
+    ``fused_value_and_grad``.  Raw-space sums: the caller applies the
+    normalization chain rule and L2."""
+    _check("fused_hvp", batch, w_eff, v_eff)
+    if not batch.x.is_cuda:
+        return fused_hvp_plain(loss, w_eff, v_eff, batch, margin_shift, v_shift)
+    out = _run("hvp_launch", "fused_hvp", loss, batch, (w_eff, v_eff),
+               (margin_shift, v_shift), width=batch.x.shape[1] + 1)
+    fused_hvp.launches += 1
+    d = batch.x.shape[1]
+    return out[:d], out[d]
+
+
+fused_hvp.launches = 0
+
+
+def _run(entry: str, name: str, loss: PointwiseLoss, batch: DenseBatch, coefs, shifts,
+         width: int) -> Tensor:
+    """Launch the C entry point ``entry`` of the kernel library on
+    (x, coefs, y, offset, weight, shifts); returns its [width] output."""
     from photon_ml_tpu_torch.ops import _build
 
     x = batch.x
     n, d = x.shape
     dev = x.device
     if n == 0:
-        raise ValueError("fused_value_and_grad: empty batch")
+        raise ValueError(f"{name}: empty batch")
     if x.dtype not in _DTYPE_CODE:
-        raise ValueError(f"fused_value_and_grad kernel takes float32/float64, "
-                         f"not {x.dtype}")
-    tensors = (x, w_eff, batch.y, batch.offset, batch.weight)
+        raise ValueError(f"{name} kernel takes float32/float64, not {x.dtype}")
+    tensors = (x, *coefs, batch.y, batch.offset, batch.weight)
     if any(t.device != dev for t in tensors):
-        raise ValueError("fused_value_and_grad: all tensors must be on one device")
+        raise ValueError(f"{name}: all tensors must be on one device")
     lib = _build.load("fused_glm")
     code = _DTYPE_CODE[x.dtype]
-    itemsize = x.element_size()
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tile_rows, rows_per_block, blocks = launch_shape(n, d, itemsize, num_sms)
-    if lib.fvg_smem_bytes(code, d, tile_rows) > _SMEM_LIMIT:
-        raise ValueError(f"fused_value_and_grad: d={d} does not fit one block's "
-                         "shared memory")
-    shift = torch.as_tensor(margin_shift, dtype=x.dtype, device=dev).reshape(1)
-    partials = torch.empty((blocks, d + 2), dtype=x.dtype, device=dev)
-    out = torch.empty(d + 2, dtype=x.dtype, device=dev)
+    tile_rows, rows_per_block, blocks = launch_shape(n, d, x.element_size(), num_sms)
+    if lib.glm_smem_bytes(code, d, tile_rows) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: d={d} does not fit one block's shared memory")
+    shift_t = [torch.as_tensor(s, dtype=x.dtype, device=dev).reshape(1) for s in shifts]
+    partials = torch.empty((blocks, width), dtype=x.dtype, device=dev)
+    out = torch.empty(width, dtype=x.dtype, device=dev)
     P = ctypes.c_void_p
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fvg_launch(code, loss.code, P(x.data_ptr()), P(w_eff.data_ptr()),
-                             P(batch.y.data_ptr()), P(batch.offset.data_ptr()),
-                             P(batch.weight.data_ptr()), P(shift.data_ptr()), n, d,
-                             rows_per_block, tile_rows, blocks,
-                             P(partials.data_ptr()), P(out.data_ptr()), P(stream))
+        err = getattr(lib, entry)(code, loss.code,
+                                  *[P(t.data_ptr()) for t in (*tensors, *shift_t)],
+                                  n, d, rows_per_block, tile_rows, blocks,
+                                  P(partials.data_ptr()), P(out.data_ptr()), P(stream))
     if err != 0:
-        raise RuntimeError(f"fused_value_and_grad kernel launch failed "
-                           f"(code {err}: CUDA error, or -1 for unsupported "
-                           "arguments)")
-    fused_value_and_grad.launches += 1
-    return out[d], out[:d], out[d + 1]
+        raise RuntimeError(f"{name} kernel launch failed (code {err}: CUDA error, "
+                           "or -1 for unsupported arguments)")
+    return out

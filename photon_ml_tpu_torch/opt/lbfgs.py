@@ -10,6 +10,13 @@ convergence test synchronise once.
 
 Each iteration costs (1 + line-search evaluations) fused value+gradient
 passes, as in the reference.
+
+``minimize_lbfgs_lanes`` is the JAX solver as ``jax.vmap`` runs it over the
+random-effect lanes: one L-BFGS per lane, every state tensor with a leading
+lane axis ([L, m, d] histories, [L] counters), the masked two-loop recursion
+of the reference and the lane-batched strong-Wolfe search.  A lane's carry
+freezes once its reason is set; the host reads one flag per iteration and
+one per line-search evaluation.  The history slots are written in place.
 """
 
 from __future__ import annotations
@@ -19,7 +26,9 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.opt.linesearch import numpy_scalar_type, strong_wolfe
+from photon_ml_tpu_torch.core.objective import lane_dot, lane_norm
+from photon_ml_tpu_torch.opt.linesearch import (numpy_scalar_type, strong_wolfe,
+                                                strong_wolfe_lanes)
 from photon_ml_tpu_torch.opt.types import SolverConfig, SolverResult, convergence_check
 from photon_ml_tpu_torch.types import ConvergenceReason
 
@@ -131,3 +140,106 @@ def minimize_lbfgs(value_and_grad: ValueAndGrad, w0: Tensor,
 
     return SolverResult(w=w, value=f, grad_norm=host(torch.linalg.vector_norm(g)),
                         iterations=it, reason=int(reason))
+
+
+def two_loop_direction_lanes(g: Tensor, s_hist: Tensor, y_hist: Tensor, rho: Tensor,
+                             count: Tensor, pos: Tensor) -> Tensor:
+    """The masked two-loop recursion per lane: g [L, d], histories [L, m, d],
+    rho [L, m], count/pos [L].  Slots at or past a lane's count are no-ops."""
+    num_l, m, _ = s_hist.shape
+    lanes = torch.arange(num_l, device=g.device)
+    q = g
+    alphas = torch.zeros_like(rho)
+    for j in range(m):
+        i = (pos - 1 - j) % m  # newest first
+        a = rho[lanes, i] * lane_dot(s_hist[lanes, i], q)
+        a = torch.where(j < count, a, 0.0)
+        q = q - a[:, None] * y_hist[lanes, i]
+        alphas[lanes, i] = a
+    # initial Hessian scaling gamma = s·y / y·y of the newest pair
+    newest = (pos - 1) % m
+    s_new, y_new = s_hist[lanes, newest], y_hist[lanes, newest]
+    sy, yy = lane_dot(s_new, y_new), lane_dot(y_new, y_new)
+    gamma = torch.where((count > 0) & (yy > 0), sy / torch.where(yy == 0, 1.0, yy), 1.0)
+    r = gamma[:, None] * q
+    for j in range(m):
+        jj = m - 1 - j  # oldest first
+        i = (pos - 1 - jj) % m
+        b = rho[lanes, i] * lane_dot(y_hist[lanes, i], r)
+        upd = (alphas[lanes, i] - b)[:, None] * s_hist[lanes, i]
+        r = r + (jj < count).to(r.dtype)[:, None] * upd
+    return -r
+
+
+def minimize_lbfgs_lanes(value_and_grad: ValueAndGrad, w0: Tensor,
+                         config: SolverConfig = SolverConfig()) -> SolverResult:
+    """One L-BFGS + strong-Wolfe solve per lane.
+
+    ``w0`` is [L, d]; ``value_and_grad(w)`` gives ([L], [L, d]).  The result
+    holds w [L, d] and [L] values, gradient norms, iterations and reasons."""
+    num_l, d = w0.shape
+    m = config.history
+    dev, dt = w0.device, w0.dtype
+    lanes = torch.arange(num_l, device=dev)
+
+    def code(r):
+        return torch.tensor(int(r), dtype=torch.int32, device=dev)
+
+    f0, g0 = value_and_grad(w0)
+    g0norm = lane_norm(g0)
+    w, f, g = w0, f0, g0
+    s_hist = torch.zeros((num_l, m, d), dtype=dt, device=dev)
+    y_hist = torch.zeros_like(s_hist)
+    rho = torch.zeros((num_l, m), dtype=dt, device=dev)
+    count = torch.zeros(num_l, dtype=torch.int64, device=dev)
+    pos = torch.zeros_like(count)
+    it = torch.zeros(num_l, dtype=torch.int32, device=dev)
+    reason = torch.where(g0norm == 0.0, code(ConvergenceReason.GRADIENT_CONVERGED),
+                         code(ConvergenceReason.NOT_CONVERGED))
+    not_improving = code(ConvergenceReason.OBJECTIVE_NOT_IMPROVING)
+
+    while True:
+        active = reason == ConvergenceReason.NOT_CONVERGED
+        if not bool(active.any()):
+            break
+        dvec = two_loop_direction_lanes(g, s_hist, y_hist, rho, count, pos)
+        # the direction lost descent: fall back to steepest descent
+        dvec = torch.where((lane_dot(g, dvec) >= 0)[:, None], -g, dvec)
+        gnorm = lane_norm(g)
+        alpha0 = torch.where(count == 0,
+                             torch.clamp(1.0 / torch.clamp(gnorm, min=1e-12), max=1.0),
+                             1.0)
+
+        def phi_fn(alpha, w=w, dvec=dvec):
+            return value_and_grad(w + alpha[:, None] * dvec)
+
+        ls = strong_wolfe_lanes(phi_fn, f, g, dvec, alpha0, active, c1=config.c1,
+                                c2=config.c2, max_evals=config.max_linesearch)
+
+        w_new = w + ls.alpha[:, None] * dvec
+        f_new, g_new = ls.phi, ls.g
+        s = w_new - w
+        y = g_new - g
+        sy = lane_dot(s, y)
+        admit = active & ls.success & (sy > 1e-12 * torch.clamp(lane_dot(y, y), min=1e-30))
+        s_hist[lanes, pos] = torch.where(admit[:, None], s, s_hist[lanes, pos])
+        y_hist[lanes, pos] = torch.where(admit[:, None], y, y_hist[lanes, pos])
+        rho[lanes, pos] = torch.where(admit, 1.0 / torch.where(sy == 0, 1.0, sy),
+                                      rho[lanes, pos])
+        pos = torch.where(admit, (pos + 1) % m, pos)
+        count = torch.where(admit, torch.clamp(count + 1, max=m), count)
+
+        it_new = it + 1
+        r_new = convergence_check(f_new, f, f0, lane_norm(g_new), g0norm, it_new,
+                                  config.max_iters, config.tolerance)
+        # no Armijo point along any direction we can build
+        r_new = torch.where(ls.success, r_new, not_improving)
+        keep = active & ls.success
+        w = torch.where(keep[:, None], w_new, w)
+        f = torch.where(keep, f_new, f)
+        g = torch.where(keep[:, None], g_new, g)
+        it = torch.where(active, it_new, it)
+        reason = torch.where(active, r_new, reason)
+
+    return SolverResult(w=w, value=f, grad_norm=lane_norm(g), iterations=it,
+                        reason=reason)

@@ -1,9 +1,14 @@
-"""Solver factory binding a GLMObjective and an optimizer into
+"""Solver factories: a GLMObjective and an optimizer bound into
 ``solve(w0, batch) -> SolverResult``.
 
-Port of ``make_solver`` in photon_ml_tpu/opt/solve.py for L-BFGS.  TRON and
-the L1 regime (OWLQN) are later slices and raise NotImplementedError naming
-their ROADMAP item.
+Port of ``make_solver`` in photon_ml_tpu/opt/solve.py for L-BFGS and TRON,
+with the default configuration chosen by optimizer.  TRON refuses L1 (a
+ValueError, as in the reference); the L1 regime (OWLQN) is a later slice and
+raises NotImplementedError naming its ROADMAP item.
+
+``make_lane_solver`` is the random-effect form: the JAX package ``vmap``s the
+same solve over a bucket's lanes; here the lane-batched solvers take the
+bucket lanes-first with a per-lane L2.
 """
 
 from __future__ import annotations
@@ -13,8 +18,10 @@ from typing import Callable, Optional
 import torch
 
 from photon_ml_tpu_torch.core.batch import DenseBatch
-from photon_ml_tpu_torch.core.objective import GLMObjective
-from photon_ml_tpu_torch.opt.lbfgs import minimize_lbfgs
+from photon_ml_tpu_torch.core.losses import PointwiseLoss
+from photon_ml_tpu_torch.core.objective import GLMObjective, LaneObjective
+from photon_ml_tpu_torch.opt.lbfgs import minimize_lbfgs, minimize_lbfgs_lanes
+from photon_ml_tpu_torch.opt.tron import minimize_tron
 from photon_ml_tpu_torch.opt.types import SolverConfig, SolverResult
 from photon_ml_tpu_torch.types import OptimizerType
 
@@ -22,17 +29,21 @@ Tensor = torch.Tensor
 
 
 def check_supported(optimizer: OptimizerType, l1: float) -> None:
-    """Refuse what this slice does not carry, naming the ROADMAP item."""
-    if optimizer == OptimizerType.TRON:
-        raise NotImplementedError(
-            "TRON (and its fused Hessian-vector kernel) is not ported yet: "
-            "ROADMAP.md 'Next slices', TRON + _hvp_kernel")
+    """Refuse what the port does not carry: TRON with L1 is not an optimizer
+    (ValueError); OWLQN is not ported yet (NotImplementedError)."""
+    if optimizer == OptimizerType.TRON and l1 > 0.0:
+        raise ValueError("TRON does not support L1 regularization (reference parity)")
     if optimizer == OptimizerType.OWLQN or l1 > 0.0:
         raise NotImplementedError(
             "L1 regularization / OWLQN is not ported yet: ROADMAP.md "
             "'Modules still to port', opt/lbfgs.py OWLQN")
-    if optimizer != OptimizerType.LBFGS:
+    if optimizer not in (OptimizerType.LBFGS, OptimizerType.TRON):
         raise ValueError(f"unknown optimizer {optimizer!r}")
+
+
+def default_config(optimizer: OptimizerType) -> SolverConfig:
+    return (SolverConfig.tron_default() if optimizer == OptimizerType.TRON
+            else SolverConfig.lbfgs_default())
 
 
 def make_solver(objective: GLMObjective, optimizer: OptimizerType = OptimizerType.LBFGS,
@@ -40,9 +51,45 @@ def make_solver(objective: GLMObjective, optimizer: OptimizerType = OptimizerTyp
                 ) -> Callable[[Tensor, DenseBatch], SolverResult]:
     """Build solve(w0, batch) for one GLM coordinate."""
     check_supported(optimizer, objective.reg.l1)
-    config = config or SolverConfig.lbfgs_default()
+    config = config or default_config(optimizer)
 
-    def solve_lbfgs(w0: Tensor, batch: DenseBatch) -> SolverResult:
-        return minimize_lbfgs(lambda w: objective.value_and_grad(w, batch), w0, config)
+    if optimizer == OptimizerType.LBFGS:
 
-    return solve_lbfgs
+        def solve_lbfgs(w0: Tensor, batch: DenseBatch) -> SolverResult:
+            return minimize_lbfgs(lambda w: objective.value_and_grad(w, batch), w0,
+                                  config)
+
+        return solve_lbfgs
+
+    def solve_tron(w0: Tensor, batch: DenseBatch) -> SolverResult:
+        # TRON over one lane; the Hessian-vector products are the fused kernel's
+        def value_and_grad(w):
+            f, g = objective.value_and_grad(w[0], batch)
+            return f.reshape(1), g[None]
+
+        res = minimize_tron(value_and_grad,
+                            lambda w, v: objective.hvp(w[0], batch, v[0])[None],
+                            w0[None], config)
+        return SolverResult(w=res.w[0], value=res.value[0].item(),
+                            grad_norm=res.grad_norm[0].item(),
+                            iterations=int(res.iterations[0]), reason=int(res.reason[0]))
+
+    return solve_tron
+
+
+def make_lane_solver(loss: PointwiseLoss, optimizer: OptimizerType,
+                     config: Optional[SolverConfig] = None
+                     ) -> Callable[[Tensor, DenseBatch, Tensor], SolverResult]:
+    """Build solve(w0 [L, d], lanes-first batch, l2 [L]) for a bucket of
+    random-effect lanes, one GLM per lane."""
+    check_supported(optimizer, 0.0)
+    config = config or default_config(optimizer)
+
+    def solve_lanes(w0: Tensor, batch: DenseBatch, l2: Tensor) -> SolverResult:
+        obj = LaneObjective(loss, l2)
+        vg = lambda w: obj.value_and_grad(w, batch)
+        if optimizer == OptimizerType.TRON:
+            return minimize_tron(vg, lambda w, v: obj.hvp(w, batch, v), w0, config)
+        return minimize_lbfgs_lanes(vg, w0, config)
+
+    return solve_lanes

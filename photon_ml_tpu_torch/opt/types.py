@@ -26,7 +26,7 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
     """Solver hyperparameters.  Defaults follow the reference: L-BFGS m=10,
-    tol=1e-7, maxIter=100."""
+    tol=1e-7, maxIter=100; TRON tol=1e-5, maxIter=15, CG <= 20."""
 
     max_iters: int = 100
     tolerance: float = 1e-7
@@ -34,10 +34,15 @@ class SolverConfig:
     max_linesearch: int = 25
     c1: float = 1e-4  # Armijo
     c2: float = 0.9  # Wolfe curvature
+    max_cg: int = 20  # TRON's truncated-CG steps per outer iteration
 
     @classmethod
     def lbfgs_default(cls) -> "SolverConfig":
         return cls(max_iters=100, tolerance=1e-7)
+
+    @classmethod
+    def tron_default(cls) -> "SolverConfig":
+        return cls(max_iters=15, tolerance=1e-5, max_cg=20)
 
 
 @dataclasses.dataclass

@@ -25,6 +25,7 @@ from photon_ml_tpu.game import RandomEffectConfig as JRandom
 from photon_ml_tpu.game.config import GameConfig as JConfig
 from photon_ml_tpu.opt.types import SolverConfig as JSolver
 from photon_ml_tpu.parallel import bucketing as jbucketing
+from photon_ml_tpu.types import OptimizerType as JOpt
 from photon_ml_tpu.types import TaskType as JTask
 from photon_ml_tpu_torch import convert
 from photon_ml_tpu_torch.core.regularization import Regularization as TReg
@@ -36,7 +37,8 @@ from photon_ml_tpu_torch.game import (FixedEffectConfig, GameConfig, GameData,
 from photon_ml_tpu_torch.game.coordinate import build_coordinate
 from photon_ml_tpu_torch.opt.types import SolverConfig
 from photon_ml_tpu_torch.parallel import bucketing as tbucketing
-from photon_ml_tpu_torch.types import OptimizerType, TaskType
+from photon_ml_tpu_torch.types import (OptimizerType, ProjectorType, TaskType,
+                                       VarianceComputationType)
 
 D_G, D_U, CAP = 128, 4, 32
 
@@ -215,25 +217,39 @@ def test_glmix_chip_generator_matches_bench():
 
 
 def test_out_of_slice_configurations_raise(glmix):
+    """What the port does not carry yet raises NotImplementedError naming
+    its ROADMAP item (OWLQN / L1, variances, box constraints, projectors,
+    sparse shards); TRON with L1 is refused as a ValueError, as in the
+    reference."""
     data = _data(GameData, glmix)
     task = TaskType.LOGISTIC_REGRESSION
-    with pytest.raises(NotImplementedError, match="TRON"):
-        build_coordinate("f", data, FixedEffectConfig(feature_shard="g",
-                                                      optimizer=OptimizerType.TRON),
-                         task, device="cpu")
     with pytest.raises(NotImplementedError, match="OWLQN"):
         build_coordinate("u", data, RandomEffectConfig(
             random_effect_type="userId", feature_shard="u", reg=TReg(l1=0.5)),
             task, device="cpu")
-    # wider than the SoA gate, and a non-smooth loss: the vmapped lanes' slice
-    with pytest.raises(NotImplementedError, match="non-SoA"):
-        build_coordinate("u", data, RandomEffectConfig(
-            random_effect_type="userId", feature_shard="g", active_cap=CAP),
+    with pytest.raises(NotImplementedError, match="OWLQN"):
+        build_coordinate("f", data, FixedEffectConfig(
+            feature_shard="g", optimizer=OptimizerType.OWLQN), task, device="cpu")
+    with pytest.raises(ValueError, match="TRON does not support L1"):
+        build_coordinate("f", data, FixedEffectConfig(
+            feature_shard="g", optimizer=OptimizerType.TRON, reg=TReg(l1=0.1)),
             task, device="cpu")
-    with pytest.raises(NotImplementedError, match="non-SoA"):
+    with pytest.raises(NotImplementedError, match="variances"):
+        build_coordinate("f", data, FixedEffectConfig(
+            feature_shard="g", variance=VarianceComputationType.SIMPLE),
+            task, device="cpu")
+    with pytest.raises(NotImplementedError, match="variances"):
         build_coordinate("u", data, RandomEffectConfig(
-            random_effect_type="userId", feature_shard="u", active_cap=CAP),
-            TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM, device="cpu")
+            random_effect_type="userId", feature_shard="u",
+            variance=VarianceComputationType.FULL), task, device="cpu")
+    with pytest.raises(NotImplementedError, match="box constraints"):
+        build_coordinate("u", data, RandomEffectConfig(
+            random_effect_type="userId", feature_shard="u",
+            constraints=((0, -1.0, 1.0),)), task, device="cpu")
+    with pytest.raises(NotImplementedError, match="projector"):
+        build_coordinate("u", data, RandomEffectConfig(
+            random_effect_type="userId", feature_shard="g",
+            projector=ProjectorType.INDEX_MAP), task, device="cpu")
     with pytest.raises(NotImplementedError, match="sparse"):
         GameData(y=glmix["y"], features={"s": object()})
 
@@ -260,3 +276,153 @@ def test_random_effect_warm_start_carries_untrained_entities(glmix):
     # the largest coefficient / score
     assert _rel(warm.w_stack[rows], cold.w_stack[[cold.slot_of[e] for e in trained]]) <= 1e-6
     assert _rel(coord.score(warm), coord.score(cold)) <= 1e-6
+
+
+# -- lanes outside the SoA gate, TRON, per-entity L2 ---------------------------
+
+D_U2, D_I2, LANE_CAP = 8, 6, 64
+
+
+@pytest.fixture(scope="module")
+def glmix3():
+    """glmix3-shaped data: a fixed effect, 60 users with 20..80 rows (active
+    cap 64: buckets of capacity 32 and 64, cap*d^2 = 4096 is outside the
+    SoA gate) and 25 items."""
+    rng = np.random.default_rng(77)
+    users, items = 60, 25
+    counts = rng.integers(20, 81, size=users)
+    uids = rng.permutation(np.repeat(np.arange(users) * 3 + 1, counts))
+    n = len(uids)
+    iids = rng.integers(0, items, size=n) * 5
+    xg = rng.normal(size=(n, 24)) * 0.3
+    xu = rng.normal(size=(n, D_U2)) * 0.7
+    xi = rng.normal(size=(n, D_I2)) * 0.7
+    logits = (xg @ rng.normal(size=24) * 0.5
+              + np.einsum("nd,nd->n", xu, rng.normal(size=(users * 3 + 1, D_U2))[uids])
+              + np.einsum("nd,nd->n", xi, rng.normal(size=(items * 5, D_I2))[iids]))
+    y = (rng.random(n) < 1 / (1 + np.exp(-logits))).astype(np.float64)
+    off = rng.normal(size=n) * 0.05
+    wt = rng.random(n) + 0.5
+    mult = {int(u): float(m) for u, m in zip(np.arange(users) * 3 + 1,
+                                             rng.uniform(0.25, 4.0, size=users))}
+    return dict(y=y, xg=xg, xu=xu, xi=xi, uids=uids, iids=iids, off=off, wt=wt,
+                mult=mult)
+
+
+def _lane_configs(case, g):
+    """(JAX config, port config) of one case; the two are built from the same
+    description so they cannot drift apart."""
+    jopt = {"tron": JOpt.TRON, "lbfgs": JOpt.LBFGS}
+    topt = {"tron": OptimizerType.TRON, "lbfgs": OptimizerType.LBFGS}
+    fe_opt, re_opt, shard, coords, mult, task = {
+        "tron_both": ("tron", "tron", "u", ("fixed", "per-user"), None, "logistic"),
+        "lbfgs_three": ("lbfgs", "lbfgs", "u", ("fixed", "per-user", "per-item"), None,
+                        "logistic"),
+        "per_entity_l2": ("lbfgs", "tron", "u", ("fixed", "per-user"), g["mult"],
+                          "logistic"),
+        "tron_soa_eligible": ("tron", "tron", "u4", ("fixed", "per-user"), g["mult"],
+                              "logistic"),
+        "hinge_lanes": ("lbfgs", "lbfgs", "u4", ("fixed", "per-user"), None, "hinge"),
+    }[case]
+    cap = CAP if shard == "u4" else LANE_CAP
+    jtask = JTask.SMOOTHED_HINGE_LOSS_LINEAR_SVM if task == "hinge" else \
+        JTask.LOGISTIC_REGRESSION
+    ttask = TaskType(jtask.value)
+    out = []
+    for lib in ("jax", "torch"):
+        S, R, F, Rd, C, O = ((JSolver, JReg, JFixed, JRandom, JConfig, jopt) if lib == "jax"
+                             else (SolverConfig, TReg, FixedEffectConfig,
+                                   RandomEffectConfig, GameConfig, topt))
+        s = S(max_iters=15, tolerance=1e-8)
+        cs = {"fixed": F(feature_shard="g", solver=s, reg=R(l2=1.0), optimizer=O[fe_opt])}
+        if "per-user" in coords:
+            cs["per-user"] = Rd(random_effect_type="userId", feature_shard=shard, solver=s,
+                                reg=R(l2=2.0), active_cap=cap, optimizer=O[re_opt],
+                                per_entity_l2_multipliers=mult)
+        if "per-item" in coords:
+            cs["per-item"] = Rd(random_effect_type="itemId", feature_shard="i", solver=s,
+                                reg=R(l2=0.5), optimizer=O[re_opt])
+        out.append(C(task=jtask if lib == "jax" else ttask, num_outer_iterations=2,
+                     coordinates=cs))
+    return out
+
+
+def _data3(cls, g):
+    return cls(y=g["y"], features={"g": g["xg"], "u": g["xu"], "u4": g["xu"][:, :4],
+                                   "i": g["xi"]},
+               offset=g["off"], weight=g["wt"],
+               id_tags={"userId": g["uids"], "itemId": g["iids"]})
+
+
+_JAX_FITS = {}
+
+
+def _jax_lane_fit(case, g):
+    if case not in _JAX_FITS:
+        jcfg, _ = _lane_configs(case, g)
+        data = _data3(JData, g)
+        res = JEstimator(fused=False, dtype=np.float64).fit(data, [jcfg])[0]
+        _JAX_FITS[case] = (res, data)
+    return _JAX_FITS[case]
+
+
+@pytest.mark.parametrize("case", ["tron_both", "lbfgs_three", "per_entity_l2",
+                                  "tron_soa_eligible", "hinge_lanes"])
+def test_lane_coordinates_fit_matches_jax_host_paced(glmix3, case):
+    """GameEstimator(device="cpu").fit against JAX GameEstimator(fused=False)
+    for random effects outside the SoA gate (lane-batched L-BFGS / TRON),
+    TRON on both coordinates, three coordinates, per-entity L2 multipliers,
+    the smoothed hinge on the lanes path, and a TRON coordinate inside the
+    SoA gate, which must run SoA Newton as the reference does.  rtol 1e-6 on
+    coefficients and scores, as in the glmix_chip parity test."""
+    jres, jdata = _jax_lane_fit(case, glmix3)
+    _, tcfg = _lane_configs(case, glmix3)
+    data = _data3(GameData, glmix3)
+    tres = GameEstimator(device="cpu", dtype=torch.float64).fit(data, [tcfg])[0]
+    jm, tm = jres.model, tres.model
+    assert _rel(tm["fixed"].coefficients.means, jm["fixed"].coefficients.means) <= 1e-6
+    for cid in tcfg.coordinates:
+        if cid == "fixed":
+            continue
+        assert tm[cid].slot_of == jm[cid].slot_of
+        assert _rel(tm[cid].w_stack, jm[cid].w_stack) <= 1e-6
+    assert _rel(tm.score(data, device="cpu").numpy(), np.asarray(jm.score(jdata))) <= 1e-6
+
+    coord = build_coordinate("per-user", data, tcfg.coordinates["per-user"], tcfg.task,
+                             dtype=torch.float64, device="cpu")
+    assert coord.use_soa == (case == "tron_soa_eligible")
+
+
+def test_convert_carries_per_item_models(glmix3):
+    """A three-coordinate JAX model (fixed, per-user, per-item) carried
+    across as numpy scores the same data to rounding (rtol 1e-12)."""
+    jres, jdata = _jax_lane_fit("lbfgs_three", glmix3)
+    jm = jres.model
+    arrays = {"fixed": {"kind": "fixed", "means": np.asarray(jm["fixed"].coefficients.means),
+                        "feature_shard": "g", "task": jm["fixed"].task.value}}
+    for cid in ("per-user", "per-item"):
+        re = jm[cid]
+        arrays[cid] = {"kind": "random", "w_stack": np.asarray(re.w_stack),
+                       "slot_of": dict(re.slot_of),
+                       "random_effect_type": re.random_effect_type,
+                       "feature_shard": re.feature_shard, "task": re.task.value}
+    tm = convert.game_model_from_arrays(arrays)
+    assert set(tm.models) == {"fixed", "per-user", "per-item"}
+    ts = tm.score(_data3(GameData, glmix3), device="cpu").numpy()
+    assert _rel(ts, np.asarray(jm.score(jdata))) <= 1e-12
+    back = convert.game_model_to_arrays(tm)
+    np.testing.assert_array_equal(back["per-item"]["w_stack"], arrays["per-item"]["w_stack"])
+    assert back["per-item"]["slot_of"] == arrays["per-item"]["slot_of"]
+
+
+@pytest.mark.parametrize("three", [False, True])
+def test_glmix_generator_matches_bench(three):
+    """synth_glmix is bench.synth_glmix bit for bit at a small scale, and its
+    logits are the generative margins the labels were drawn from."""
+    j = bench.synth_glmix(64, three)
+    t = tsynth.synth_glmix(64, three)
+    assert set(t) == set(j) | {"logits"}
+    for k in j:
+        np.testing.assert_array_equal(t[k], j[k], k)
+    assert t["logits"].shape == t["y"].shape
+    assert ((t["logits"] > 0) == (t["y"] > 0.5)).mean() > 0.6

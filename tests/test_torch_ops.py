@@ -72,6 +72,73 @@ def test_fused_value_and_grad_plain_matches_pallas_interpret(d, loss):
     _close(tr, jr)
 
 
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("loss", LOSSES)
+def test_fused_hvp_plain_matches_pallas_interpret(d, loss):
+    n = 203
+    x, y, off, wt, w = _glm_inputs(n, d, seed=d + 1)
+    v = np.random.default_rng(d).normal(size=d)
+    shift, v_shift = 0.125, -0.375
+    jh, jq = jfused.fused_hvp(
+        jl.loss_by_name(loss), jnp.asarray(w), jnp.asarray(v),
+        JBatch(x=jnp.asarray(x), y=jnp.asarray(y), offset=jnp.asarray(off),
+               weight=jnp.asarray(wt)),
+        margin_shift=shift, v_shift=v_shift, block_rows=32, interpret=True)
+    before = tfused.fused_hvp.launches
+    th, tq = tfused.fused_hvp(
+        tl.loss_by_name(loss), torch.from_numpy(w), torch.from_numpy(v),
+        TBatch(x=torch.from_numpy(x), y=torch.from_numpy(y),
+               offset=torch.from_numpy(off), weight=torch.from_numpy(wt)),
+        margin_shift=torch.tensor(shift, dtype=torch.float64), v_shift=v_shift)
+    assert tfused.fused_hvp.launches == before  # CPU: plain version
+    assert np.isfinite(th.numpy()).all() and np.isfinite(tq.item())
+    _close(th, jh)
+    _close(tq, jq)
+
+
+@pytest.mark.parametrize("loss", LOSSES)
+def test_objective_hvp_matches_jax(loss):
+    """GLMObjective.hvp (raw_hvp through fused_hvp, then the chain rule and
+    L2) against the JAX method, under a normalization context with factors
+    and shifts."""
+    from photon_ml_tpu.core.normalization import NormalizationContext as JNorm
+    from photon_ml_tpu.core.objective import GLMObjective as JObjective
+    from photon_ml_tpu.core.regularization import Regularization as JReg
+    from photon_ml_tpu_torch.core.normalization import NormalizationContext as TNorm
+    from photon_ml_tpu_torch.core.objective import GLMObjective as TObjective
+    from photon_ml_tpu_torch.core.regularization import Regularization as TReg
+
+    d = 40
+    x, y, off, wt, w = _glm_inputs(150, d, seed=3)
+    rng = np.random.default_rng(4)
+    v = rng.normal(size=d)
+    fac, sh = rng.random(d) + 0.5, rng.normal(size=d) * 0.1
+    j = JObjective(loss=jl.loss_by_name(loss), reg=JReg(l2=0.3),
+                   norm=JNorm(factors=jnp.asarray(fac), shifts=jnp.asarray(sh))).hvp(
+        jnp.asarray(w), JBatch(x=jnp.asarray(x), y=jnp.asarray(y),
+                               offset=jnp.asarray(off), weight=jnp.asarray(wt)),
+        jnp.asarray(v))
+    t = TObjective(loss=tl.loss_by_name(loss), reg=TReg(l2=0.3),
+                   norm=TNorm(factors=torch.from_numpy(fac), shifts=torch.from_numpy(sh))
+                   ).hvp(torch.from_numpy(w),
+                         TBatch(x=torch.from_numpy(x), y=torch.from_numpy(y),
+                                offset=torch.from_numpy(off), weight=torch.from_numpy(wt)),
+                         torch.from_numpy(v))
+    _close(t, j)
+
+
+def test_fused_hvp_rejects_mixed_dtypes():
+    x, y, off, wt, w = _glm_inputs(16, 8, seed=0)
+    b = TBatch(x=torch.from_numpy(x), y=torch.from_numpy(y),
+               offset=torch.from_numpy(off), weight=torch.from_numpy(wt))
+    with pytest.raises(ValueError, match="uniform dtype"):
+        tfused.fused_hvp(tl.logistic_loss, torch.from_numpy(w),
+                         torch.from_numpy(w).float(), b)
+    with pytest.raises(ValueError, match="do not match"):
+        tfused.fused_hvp(tl.logistic_loss, torch.from_numpy(w),
+                         torch.from_numpy(w[:4]), b)
+
+
 def test_fused_value_and_grad_rejects_mixed_dtypes():
     x, y, off, wt, w = _glm_inputs(16, 8, seed=0)
     b = TBatch(x=torch.from_numpy(x).float(), y=torch.from_numpy(y).float(),

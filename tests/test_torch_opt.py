@@ -88,13 +88,15 @@ def test_lbfgs_stationary_start_and_max_iters():
 
 
 def test_make_solver_refuses_out_of_slice():
-    tobj = TObjective(loss=tl.logistic_loss, reg=TReg(l2=1.0))
-    with pytest.raises(NotImplementedError, match="TRON"):
-        make_solver(tobj, OptimizerType.TRON)
+    """OWLQN (explicit, or implied by L1 under L-BFGS) is not ported yet;
+    TRON with L1 is no optimizer at all (ValueError, as in the reference)."""
+    l1 = TObjective(loss=tl.logistic_loss, reg=TReg(l1=0.1))
     with pytest.raises(NotImplementedError, match="OWLQN"):
-        make_solver(TObjective(loss=tl.logistic_loss, reg=TReg(l1=0.1)))
-    with pytest.raises(NotImplementedError, match="TRON"):
-        tobj.hvp(None, None, None)
+        make_solver(l1)
+    with pytest.raises(NotImplementedError, match="OWLQN"):
+        make_solver(TObjective(loss=tl.logistic_loss), OptimizerType.OWLQN)
+    with pytest.raises(ValueError, match="TRON does not support L1"):
+        make_solver(l1, OptimizerType.TRON)
 
 
 @pytest.mark.parametrize("d,loss", [(1, "logistic"), (4, "logistic"), (4, "poisson"),
