@@ -37,7 +37,28 @@ Phases, each printing its result and wall time on its own line:
    fit, score, AUC against the Bayes AUC, ``fused_value_and_grad`` launches;
 9. glmix2-TRON at a reduced depth on the card and on the CPU, compared
    within a stated float32 tolerance;
-10. one JSON line describing each kernel, with its launches on each path.
+10. ``match_dot`` against its plain version on the card: the compact-scoring
+    bench shape (E 20,000, dim 50,000, k_model 16, k_feat 24, n 32,768) and
+    n in {1, 1000, 1,048,576} x (k_model, k_feat) in {(1, 1), (16, 24),
+    (64, 64), (4096, 1)}, with duplicate feature ids, zero-valued padded
+    slots, dim-padded model rows and slot -1, float32 and float64; times of
+    the kernel, its plain version and the searchsorted chain (the
+    reference's route for shapes outside the match-dot gate) at n = 32,768
+    and 1,048,576;
+11. sparse1m at full width (131,072 rows, a 1,000,000-column vocabulary, 32
+    nonzeros a row, Poisson, TRON): fit time, iterations and the objective
+    against the w = 0 objective, and the same fit on the CPU compared within
+    a stated float32 tolerance;
+12. glmix_sparse at full width (sparse1m's rows and fixed shard under TRON,
+    4,096 users x 32 rows with a 50,000-column per-user shard on compact
+    lanes under L-BFGS): fit, ``to_compact``, ``GameModel.score`` through
+    ``match_dot`` (launches > 0), AUC against the Bayes AUC, the objective
+    below the fixed effect's alone, compact against dense scores, peak
+    device memory, and ``match_dot``'s times at this shape;
+13. phase 12's fit against the same full-width fit on the CPU (the plain
+    match-dot scores there): coefficients, compact-model scores and the
+    GAME objective, within stated float32 tolerances;
+14. one JSON line describing each kernel, with its launches on each path.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero and prints no result; so does a run without a
@@ -72,10 +93,22 @@ BAYES_MARGIN = 0.03  # glmix2 / glmix3: training AUC >= Bayes AUC - 0.03.  The
 # fitted model sees the same 16-feature random effects the labels were drawn
 # from (training AUC lands near or above Bayes); a broken solver or residual
 # fold falls well below it
-F32_OBJECTIVE_RTOL = 1e-4  # glmix2 GAME objective, TRON vs L-BFGS on the card:
-# both minimize the same strictly convex coordinate objectives and stop at
-# the float32 plateau (4 ulps of f, ~5e-7 relative) or 1e-7; two sweeps of
-# coordinate descent from both leave the objectives ~1e-6 apart
+F32_OBJECTIVE_RTOL = 1e-4  # glmix2 GAME objective, TRON vs L-BFGS on the card,
+# and glmix_sparse's, card vs CPU: both fits minimize the same strictly
+# convex coordinate objectives and stop at the float32 plateau (4 ulps of f,
+# ~5e-7 relative) or 1e-7; two sweeps of coordinate descent from both leave
+# the objectives ~1e-6 apart
+
+COMPACT_F32_RTOL = 1e-5  # match_dot vs plain, float32, relative to the
+# largest score: a sample sums at most k_model matched products (64 at the
+# largest tested width) in another order, a few ulps of the largest term
+COMPACT_VS_DENSE_RTOL = 1e-5  # glmix_sparse per-user scores, compact model
+# vs its dense twin (score_samples_sparse): the same 24 products per sample,
+# summed in another order
+SPARSE1M_OBJ_RTOL = 1e-5  # sparse1m objective, card vs CPU: both stop at
+# TRON's 1e-5 gradient tolerance from the same start; Xᵀr is added with
+# atomics on the card (index_add_, order varies run to run), in row order on
+# the CPU
 
 MAIN_N, MAIN_D = 8_388_608, 512
 MAIN_CAP, MAIN_DU, MAIN_USERS = 32, 4, 131_072
@@ -89,6 +122,10 @@ FUSED_CASES = [(MAIN_N, MAIN_D, "float32"), (GLMIX2_N, GLMIX2_D, "float32"),
                (1_000_003, 1, "float64"), (200_003, 100, "float64"),
                (16_411, 8192, "float64")]
 NEWTON_LANES = (MAIN_USERS, 1000)
+COMPACT_BENCH = dict(num_e=20_000, dim=50_000, k_model=16, k_feat=24)  # bench.py:3296
+COMPACT_NS = (1, 1000, 1_048_576)
+COMPACT_WIDTHS = ((1, 1), (16, 24), (64, 64), (4096, 1))
+COMPACT_TIMED_NS = (32_768, 1_048_576)
 
 
 def log(msg: str) -> None:
@@ -473,11 +510,12 @@ def _fit_and_score(data, device, config):
 
 
 def _counted_kernels() -> dict:
+    from photon_ml_tpu_torch.ops.compact_score import match_dot
     from photon_ml_tpu_torch.ops.fused_glm import fused_hvp, fused_value_and_grad
     from photon_ml_tpu_torch.ops.soa_newton import newton_step
 
     return {"fused_value_and_grad": fused_value_and_grad, "fused_hvp": fused_hvp,
-            "newton_step": newton_step}
+            "newton_step": newton_step, "match_dot": match_dot}
 
 
 def _drive(path: str, data, config, stats: dict, required):
@@ -544,23 +582,29 @@ def _bayes_auc(host: dict) -> float:
     return float(auc_roc(t[0], t[1], torch.ones_like(t[1])))
 
 
-def _game_objective(res, data, config) -> float:
-    """The GAME objective of a fitted model: Σ wt·logloss(total score) plus
-    each coordinate's (l2 / 2)·||w||², in float64."""
-    import numpy as np
+def _logistic_objective(scores, data, penalties) -> float:
+    """Σ wt·logloss(score + offset) plus Σ (l2 / 2)·||coef||² over the
+    (l2, coef) pairs of ``penalties``, in float64 on the card."""
     import torch
 
     from photon_ml_tpu_torch.core.losses import logistic_loss
 
-    z = res.model.score(data, device="cuda") + torch.as_tensor(data.offset, device="cuda")
+    z = scores.to("cuda").double() + torch.as_tensor(data.offset, device="cuda")
     y = torch.as_tensor(data.y, device="cuda").double()
     wt = torch.as_tensor(data.weight, device="cuda").double()
     val = float((wt * logistic_loss.loss(z, y)).sum())
-    for cid, c in config.coordinates.items():
-        m = res.model[cid]
-        coef = m.coefficients.means if cid == "fixed" else m.w_stack
-        val += 0.5 * c.reg.l2 * float(np.sum(np.asarray(coef, np.float64) ** 2))
+    for l2, coef in penalties:
+        val += 0.5 * l2 * float(torch.as_tensor(coef, device="cuda").double().square().sum())
     return val
+
+
+def _game_objective(res, data, config) -> float:
+    """The GAME objective of a fitted model: Σ wt·logloss(total score) plus
+    each coordinate's (l2 / 2)·||w||², in float64."""
+    return _logistic_objective(
+        res.model.score(data, device="cuda"), data,
+        [(c.reg.l2, res.model[cid].coefficients.means if cid == "fixed"
+          else res.model[cid].w_stack) for cid, c in config.coordinates.items()])
 
 
 def _check_bayes(path: str, auc: float, bayes: float) -> None:
@@ -661,6 +705,378 @@ def phase_card_vs_cpu(host, xg):
                   f"({m} rows)", gpu, cpu, _glmix_config(), ["per-user"])
 
 
+def _compact_case(num_e, dim, k_model, n, k_feat, dtype, gen):
+    """match_dot inputs on the card: sorted unique model rows (one id block
+    per entry), ragged and padded with ``dim`` (value 0); slots in [-1, E);
+    features mostly drawn from their entity's row, with a duplicate id in
+    every third row and about 20% zero-valued padded slots."""
+    import torch
+
+    dev = "cuda"
+    block = dim // k_model
+    w_idx = (torch.arange(k_model, device=dev) * block)[None, :] + torch.randint(
+        0, block, (num_e, k_model), generator=gen, device=dev)
+    length = torch.randint(0, k_model + 1, (num_e, 1), generator=gen, device=dev)
+    length[::4] = k_model
+    pad = torch.arange(k_model, device=dev)[None, :] >= length
+    w_idx = torch.where(pad, dim, w_idx).to(torch.int32)
+    w_val = torch.randn((num_e, k_model), generator=gen, device=dev, dtype=dtype)
+    w_val = torch.where(pad, 0.0, w_val)
+    slots = torch.randint(-1, num_e, (n,), generator=gen, device=dev, dtype=torch.int32)
+    pick = torch.randint(0, k_model, (n, k_feat), generator=gen, device=dev)
+    own = w_idx[slots.clamp(min=0).long()[:, None], pick]
+    f_idx = torch.randint(0, dim, (n, k_feat), generator=gen, device=dev, dtype=torch.int32)
+    take = (torch.rand((n, k_feat), generator=gen, device=dev) < 0.6) & (own < dim)
+    f_idx = torch.where(take, own, f_idx).contiguous()
+    if k_feat > 1:
+        f_idx[::3, 1] = f_idx[::3, 0]
+    f_val = torch.randn((n, k_feat), generator=gen, device=dev, dtype=dtype)
+    f_val[torch.rand((n, k_feat), generator=gen, device=dev) < 0.2] = 0.0
+    return w_idx, w_val, slots, f_idx, f_val
+
+
+def _compact_bound(args):
+    """(bound ms, what bounds it, bytes, compare-selects) of one match_dot:
+    slots, features and output once, and the model row of each entity the
+    slots touch, once (many samples share a row, and the [E, k_model] tables
+    fit in the 50 MB L2, so a shared row costs HBM traffic once); the
+    compare-selects are k_model * k_feat per scored sample."""
+    import torch
+
+    w_idx, w_val, slots, f_idx, _ = args
+    n, k_feat = f_idx.shape
+    k_model = w_idx.shape[1]
+    item = w_val.element_size()
+    valid = (slots >= 0) & (slots < w_idx.shape[0])
+    scored = int(valid.sum())
+    touched = int(torch.unique(slots[valid]).numel())
+    nbytes = n * 4 + n * k_feat * (4 + item) + n * item + touched * k_model * (4 + item)
+    ops = scored * k_model * k_feat
+    return (*_bound(nbytes, ops), nbytes, ops)
+
+
+def _time_match_dot(label, args, reps):
+    """Kernel, plain and searchsorted-chain times of match_dot on ``args``."""
+    from photon_ml_tpu_torch.models.game import score_compact_sparse_search
+    from photon_ml_tpu_torch.ops.compact_score import match_dot, match_dot_plain
+
+    ms = cuda_ms(lambda: match_dot(*args), reps)
+    plain_ms = cuda_ms(lambda: match_dot_plain(*args), reps)
+    lib_ms = cuda_ms(lambda: score_compact_sparse_search(*args), reps)
+    bound, by, nbytes, ops = _compact_bound(args)
+    log(f"match_dot timing {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library (searchsorted chain) {lib_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} M compare-selects, {by}), "
+        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+
+def _check_match_dot(label, args) -> float:
+    """match_dot against its plain version on the same inputs; returns the
+    largest absolute difference."""
+    import torch
+
+    from photon_ml_tpu_torch.ops.compact_score import match_dot, match_dot_plain
+
+    k = match_dot(*args)
+    p = match_dot_plain(*args)
+    torch.cuda.synchronize()
+    tol = COMPACT_F32_RTOL if k.dtype == torch.float32 else F64_KERNEL_RTOL
+    e = rel_err(k, p)
+    no_model = args[2] < 0
+    ok = (e <= tol and bool(torch.isfinite(k).all())
+          and not bool((k[no_model] != 0).any()))
+    log(f"match_dot {label}: rel err vs plain {e:.2e} (tol {tol:g}), "
+        f"{int(no_model.sum())} no-model samples score 0 {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"match_dot disagrees with its plain version at {label}")
+    return abs_err(k, p)
+
+
+def phase_match_dot():
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    b = COMPACT_BENCH
+    cases = [(COMPACT_TIMED_NS[0], b["k_model"], b["k_feat"])]
+    cases += [(n, km, kf) for n in COMPACT_NS for km, kf in COMPACT_WIDTHS]
+    cases += [(n, b["k_model"], b["k_feat"]) for n in COMPACT_TIMED_NS[1:]
+              if n not in COMPACT_NS]
+    for dt in (torch.float32, torch.float64):
+        for n, km, kf in cases:
+            args = _compact_case(b["num_e"], b["dim"], km, n, kf, dt, gen)
+            tag = f"E={b['num_e']} dim={b['dim']} k_model={km} k_feat={kf} n={n} " \
+                  f"{str(dt)[6:]}"
+            _check_match_dot(tag, args)
+            if dt == torch.float32 and (km, kf) == (b["k_model"], b["k_feat"]) \
+                    and n in COMPACT_TIMED_NS:
+                _time_match_dot(tag, args, 50 if n < 100_000 else 10)
+            del args
+    torch.cuda.empty_cache()
+
+
+def _sparse1m_config():
+    from photon_ml_tpu_torch.core.regularization import Regularization
+    from photon_ml_tpu_torch.game import FixedEffectConfig, GameConfig
+    from photon_ml_tpu_torch.opt.types import SolverConfig
+    from photon_ml_tpu_torch.types import OptimizerType, TaskType
+
+    # bench.py run_sparse1m: TRON with its default settings, L2 1.0
+    return GameConfig(task=TaskType.POISSON_REGRESSION, num_outer_iterations=1,
+                      coordinates={"fixed": FixedEffectConfig(
+                          feature_shard="g", optimizer=OptimizerType.TRON,
+                          solver=SolverConfig.tron_default(),
+                          reg=Regularization(l2=1.0))})
+
+
+def _poisson_objective(w, host, device) -> float:
+    """The sparse1m objective Σ (exp(z) - y z) + (1 / 2)||w||² at ``w``, in
+    float64 on ``device``."""
+    import torch
+
+    from photon_ml_tpu_torch.core.batch import sparse_batch
+    from photon_ml_tpu_torch.core.losses import poisson_loss
+    from photon_ml_tpu_torch.core.objective import GLMObjective
+    from photon_ml_tpu_torch.core.regularization import Regularization
+
+    b = sparse_batch(host["indices"], host["values"], host["y"], host["dim"],
+                     dtype=torch.float64, device=device)
+    obj = GLMObjective(loss=poisson_loss, reg=Regularization(l2=1.0))
+    return float(obj.value_and_grad(torch.as_tensor(w, device=device).double(), b)[0])
+
+
+def phase_sparse1m(stats: dict):
+    import torch
+
+    from photon_ml_tpu_torch.data.synthetic import synth_sparse1m
+    from photon_ml_tpu_torch.game import GameData, GameEstimator, SparseShard
+
+    t0 = time.perf_counter()
+    host = synth_sparse1m(1)
+    n, k = host["indices"].shape
+    data = GameData(y=host["y"], features={"g": SparseShard(
+        indices=host["indices"], values=host["values"], dim=host["dim"])})
+    log(f"sparse1m data: {n} rows x {k} nonzeros over {host['dim']} columns "
+        f"({n * k} nonzeros), generated on the host in {time.perf_counter() - t0:.2f} s")
+    kernels = _counted_kernels()
+    for kern in kernels.values():
+        kern.launches = 0
+    cfg = _sparse1m_config()
+    fits = {}
+    for where, device in (("card", "cuda"), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        res = GameEstimator(device=device).fit(data, [cfg])[0]
+        if where == "card":
+            torch.cuda.synchronize()
+            launches = {name: kern.launches for name, kern in kernels.items()}
+        fits[where] = (res, time.perf_counter() - t0)
+    w = {k: fits[k][0].model["fixed"].coefficients.means for k in fits}
+    obj = {k: _poisson_objective(w[k], host, "cuda") for k in fits}
+    obj0 = _poisson_objective(torch.zeros(host["dim"]), host, "cuda")
+    it = {k: fits[k][0].history.steps[0]["solver_iterations"] for k in fits}
+    scores = fits["card"][0].model.score(data, device="cuda")
+    w_err = rel_err(w["card"], w["cpu"])
+    o_err = abs(obj["card"] - obj["cpu"]) / abs(obj["cpu"])
+    ok = (obj["card"] < obj0 and o_err <= SPARSE1M_OBJ_RTOL and w_err <= F32_PATH_RTOL
+          and bool(torch.isfinite(scores).all()) and scores.shape == (n,))
+    log(f"sparse1m: card fit {fits['card'][1]:.2f} s ({it['card']} TRON iterations), "
+        f"objective {obj['card']:.6f} vs {obj0:.6f} at w = 0; CPU fit {fits['cpu'][1]:.2f} s "
+        f"({it['cpu']} iterations), objective {obj['cpu']:.6f}; rel diff objective "
+        f"{o_err:.2e} (tol {SPARSE1M_OBJ_RTOL:g}), coefficients {w_err:.2e} (tol "
+        f"{F32_PATH_RTOL:g}); launches {launches} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("sparse1m: the card fit is wrong or disagrees with the CPU")
+    for name, v in launches.items():
+        stats.setdefault(name, {}).setdefault("launches_by_path", {})["sparse1m"] = v
+    stats["sparse1m"] = dict(fit_s=fits["card"][1], cpu_fit_s=fits["cpu"][1],
+                             iterations=it["card"], objective=obj["card"],
+                             objective_w0=obj0)
+
+
+def _glmix_sparse_config(num_iters=2):
+    from photon_ml_tpu_torch.core.regularization import Regularization
+    from photon_ml_tpu_torch.game import FixedEffectConfig, GameConfig, RandomEffectConfig
+    from photon_ml_tpu_torch.opt.types import SolverConfig
+    from photon_ml_tpu_torch.types import OptimizerType, TaskType
+
+    reg = Regularization(l2=1.0)
+    return GameConfig(task=TaskType.LOGISTIC_REGRESSION, num_outer_iterations=num_iters,
+                      coordinates={
+                          "fixed": FixedEffectConfig(
+                              feature_shard="g", optimizer=OptimizerType.TRON,
+                              solver=SolverConfig.tron_default(), reg=reg),
+                          "per-user": RandomEffectConfig(
+                              random_effect_type="userId", feature_shard="u",
+                              solver=SolverConfig(max_iters=30, tolerance=1e-7), reg=reg)})
+
+
+def _glmix_sparse_data(host):
+    from photon_ml_tpu_torch.game import GameData, SparseShard
+
+    return GameData(y=host["y"], features={"g": SparseShard(**host["fixed"]),
+                                           "u": SparseShard(**host["user"])},
+                    id_tags={"userId": host["uids"]})
+
+
+def phase_glmix_sparse(stats: dict):
+    import torch
+
+    from photon_ml_tpu_torch.data.synthetic import synth_glmix_sparse
+    from photon_ml_tpu_torch.evaluation.metrics import auc_roc
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.models.game import GameModel
+    from photon_ml_tpu_torch.ops.compact_score import match_dot
+    from photon_ml_tpu_torch.parallel.bucketing import bucket_by_entity_sparse
+
+    t0 = time.perf_counter()
+    host = synth_glmix_sparse(1)
+    data = _glmix_sparse_data(host)
+    n = data.num_samples
+    log(f"glmix_sparse data: {n} rows, {len(set(host['uids'].tolist()))} users, fixed "
+        f"shard {host['fixed']['indices'].shape[1]} of {host['fixed']['dim']} columns, "
+        f"per-user shard {host['user']['indices'].shape[1]} of {host['user']['dim']} "
+        f"columns; generated on the host in {time.perf_counter() - t0:.2f} s")
+    kernels = _counted_kernels()
+    for kern in kernels.values():
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = GameEstimator(device="cuda").fit(data, [_glmix_sparse_config()])[0]
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense_re = res.model["per-user"]
+    compact = dense_re.to_compact()
+    t_compact = time.perf_counter() - t0
+    model = GameModel(models={"fixed": res.model["fixed"], "per-user": compact})
+    fit_launches = {name: kern.launches for name, kern in kernels.items()}
+    match_dot.launches = 0  # counted from here: the compact scoring
+    t0 = time.perf_counter()
+    scores = model.score(data, device="cuda")
+    y = torch.as_tensor(data.y, device="cuda").double()
+    auc = float(auc_roc(scores, y, torch.ones_like(y)))
+    t_score = time.perf_counter() - t0
+    launches = dict(fit_launches, match_dot=match_dot.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    upd = ", ".join(f"it{st['iteration']} {st['coordinate']} {st['seconds']:.3f} s "
+                    f"({st['solver_iterations']} iterations)" for st in res.history.steps)
+    t_upd = sum(st["seconds"] for st in res.history.steps)
+    log(f"glmix_sparse: fit {t_fit:.2f} s (coordinates built, bucketing included, in "
+        f"{t_fit - t_upd:.2f} s; updates {upd}), to_compact {t_compact:.2f} s (k_model "
+        f"{compact.indices.shape[1]}), score + AUC {t_score:.2f} s, AUC {auc:.4f}, launches "
+        f"{launches}, peak device memory {peak:.2f} GB")
+    if not bool(torch.isfinite(scores).all()) or scores.shape != (n,):
+        raise AssertionError("glmix_sparse scores are not finite of shape [n]")
+    if launches["match_dot"] <= 0:
+        raise AssertionError("kernel match_dot was not launched on the glmix_sparse path")
+    bayes = _bayes_auc(host)
+    _check_bayes("glmix_sparse", auc, bayes)
+
+    # The training AUC saturates (the 1M-column fixed effect memorizes the
+    # rows), so it cannot see a per-user coordinate that learned nothing or
+    # compact scores that are wrong.  The per-user update is the last of the
+    # sweep and minimizes the objective with the fixed effect held, from a
+    # start no worse than w = 0: the objective scored through match_dot must
+    # lie below the fixed effect's alone.
+    cfg = _glmix_sparse_config()
+    l2 = {cid: c.reg.l2 for cid, c in cfg.coordinates.items()}
+    w_fixed = res.model["fixed"].coefficients.means
+    f_full = _logistic_objective(scores, data, [(l2["fixed"], w_fixed),
+                                                (l2["per-user"], compact.values)])
+    f_fixed = _logistic_objective(res.model["fixed"].score(data, device="cuda"), data,
+                                  [(l2["fixed"], w_fixed)])
+    ok = f_full < f_fixed
+    log(f"glmix_sparse objective: {f_full:.6f} with the compact per-user model, "
+        f"{f_fixed:.6f} with the fixed effect alone {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("glmix_sparse: the per-user model does not lower the objective")
+
+    # the per-user coordinate's host bucketing alone (part of the build time)
+    t0 = time.perf_counter()
+    u = host["user"]
+    buckets, _ = bucket_by_entity_sparse(host["uids"], u["indices"], u["values"], u["dim"],
+                                         host["y"])
+    t_bucket = time.perf_counter() - t0
+    log(f"glmix_sparse: host bucket_by_entity_sparse of {buckets.num_entities} users "
+        f"{t_bucket:.3f} s (compact widths {[b.x.shape[2] for b in buckets.buckets]})")
+
+    # compact scores against the dense twin's (score_samples_sparse)
+    s_dense = dense_re.score(data, device="cuda")
+    s_compact = compact.score(data, device="cuda")
+    e = rel_err(s_compact, s_dense)
+    ok = e <= COMPACT_VS_DENSE_RTOL
+    log(f"glmix_sparse per-user scores, compact vs dense model: rel diff {e:.2e} (tol "
+        f"{COMPACT_VS_DENSE_RTOL:g}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("glmix_sparse compact and dense scores disagree")
+
+    # match_dot at this path's shape: against its plain version, and timed
+    w_idx = torch.as_tensor(compact.indices, device="cuda")
+    w_val = torch.as_tensor(compact.values, device="cuda")
+    slots = torch.as_tensor(compact.slots_for(data), device="cuda")
+    f_idx = torch.as_tensor(host["user"]["indices"], device="cuda")
+    f_val = torch.as_tensor(host["user"]["values"], device="cuda")
+    args = (w_idx, w_val, slots, f_idx, f_val)
+    tag = (f"glmix_sparse shape E={w_idx.shape[0]} k_model={w_idx.shape[1]} "
+           f"k_feat={f_idx.shape[1]} n={n} float32")
+    err = _check_match_dot(tag, args)
+    stats.setdefault("match_dot", {}).update(_time_match_dot(tag, args, 50),
+                                             max_abs_err=err)
+    for name, v in launches.items():
+        stats.setdefault(name, {}).setdefault("launches_by_path", {})["glmix_sparse"] = v
+    stats["glmix_sparse"] = dict(fit_s=t_fit, build_s=t_fit - t_upd, score_s=t_score,
+                                 auc=auc, bayes_auc=bayes, peak_gb=peak,
+                                 bucket_s=t_bucket, objective=f_full,
+                                 objective_fixed_only=f_fixed)
+    return dict(data=data, res=res, scores=scores, auc=auc, objective=f_full)
+
+
+def phase_glmix_sparse_card_vs_cpu(card: dict):
+    """Phase 12's full-width card fit against the same fit on the CPU: the
+    fixed and per-user coefficients, the scores of the compact models
+    (match_dot on the card, the plain match-dot on the CPU) and the GAME
+    objective."""
+    import torch
+
+    from photon_ml_tpu_torch.evaluation.metrics import auc_roc
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.models.game import GameModel
+
+    data, rg = card["data"], card["res"]
+    cfg = _glmix_sparse_config()
+    t0 = time.perf_counter()
+    rc = GameEstimator(device="cpu").fit(data, [cfg])[0]
+    t_fit = time.perf_counter() - t0
+    compact = rc.model["per-user"].to_compact()
+    model = GameModel(models={"fixed": rc.model["fixed"], "per-user": compact})
+    scores = model.score(data, device="cpu")
+    y = torch.as_tensor(data.y).double()
+    auc = float(auc_roc(scores, y, torch.ones_like(y)))
+    w_fixed = rc.model["fixed"].coefficients.means
+    f_cpu = _logistic_objective(scores, data, [(cfg.coordinates["fixed"].reg.l2, w_fixed),
+                                               (cfg.coordinates["per-user"].reg.l2,
+                                                compact.values)])
+    if rg.model["per-user"].slot_of != rc.model["per-user"].slot_of:
+        raise AssertionError("glmix_sparse: card and CPU per-user models have different "
+                             "entities")
+    errs = {"fixed": rel_err(rg.model["fixed"].coefficients.means, w_fixed),
+            "per-user": rel_err(*(torch.as_tensor(m.model["per-user"].w_stack, device="cuda")
+                                  for m in (rg, rc))),
+            "scores": rel_err(card["scores"].cpu(), scores)}
+    o_err = abs(card["objective"] - f_cpu) / abs(f_cpu)
+    ok = (max(errs.values()) <= F32_PATH_RTOL and o_err <= F32_OBJECTIVE_RTOL
+          and abs(card["auc"] - auc) <= 1e-3)
+    log(f"card vs CPU, glmix_sparse at full width ({data.num_samples} rows): CPU fit "
+        f"{t_fit:.2f} s; max rel diff " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (tol {F32_PATH_RTOL:g}); objective {card['objective']:.6f} vs {f_cpu:.6f}, "
+        f"rel diff {o_err:.2e} (tol {F32_OBJECTIVE_RTOL:g}); AUC {card['auc']:.5f} vs "
+        f"{auc:.5f} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("glmix_sparse: card and CPU fits disagree beyond the float32 "
+                             "tolerance")
+
+
 KERNELS = {
     "fused_value_and_grad": dict(
         source="photon_ml_tpu_torch/csrc/fused_glm.cu",
@@ -674,6 +1090,10 @@ KERNELS = {
         source="photon_ml_tpu_torch/csrc/soa_newton.cu",
         replaces="photon_ml_tpu/ops/soa_newton.py:79 (_newton_step_kernel; "
                  "pallas_call at :166)"),
+    "match_dot": dict(
+        source="photon_ml_tpu_torch/csrc/compact_score.cu",
+        replaces="photon_ml_tpu/ops/compact_score.py:64 (_match_dot_kernel; "
+                 "pallas_call at :109)"),
 }
 
 
@@ -715,7 +1135,16 @@ def main() -> int:
         phase_glmix3(stats)
     with Phase("9 card vs CPU reduced glmix2 TRON"):
         phase_glmix2_card_vs_cpu()
-    with Phase("10 kernels"):
+    with Phase("10 match_dot vs plain"):
+        phase_match_dot()
+    with Phase("11 sparse1m full width, card and CPU"):
+        phase_sparse1m(stats)
+    with Phase("12 glmix_sparse full width"):
+        card = phase_glmix_sparse(stats)
+    with Phase("13 card vs CPU full-width glmix_sparse"):
+        phase_glmix_sparse_card_vs_cpu(card)
+    del card
+    with Phase("14 kernels"):
         kernels = []
         for kname, meta in KERNELS.items():
             s = stats[kname]

@@ -7,11 +7,16 @@ module never sees an object of the other package:
                      "task": TaskType value},
      coordinate_id: {"kind": "random", "w_stack": [E, d], "slot_of": {id: row},
                      "random_effect_type": str, "feature_shard": str,
+                     "task": TaskType value},
+     coordinate_id: {"kind": "compact", "indices": [E, k] int32,
+                     "values": [E, k], "dim": int, "slot_of": {id: row},
+                     "random_effect_type": str, "feature_shard": str,
                      "task": TaskType value}}
 
 A caller holding a JAX ``GameModel`` fills the dict from its fixed
-``coefficients.means`` and its random effects' ``w_stack``, ``slot_of``,
-``random_effect_type``, ``feature_shard`` and ``task``.
+``coefficients.means``, its dense random effects' ``w_stack`` and its
+``CompactRandomEffectModel``s' ``indices``, ``values`` and ``dim``, each
+with ``slot_of``, ``random_effect_type``, ``feature_shard`` and ``task``.
 """
 
 from __future__ import annotations
@@ -20,9 +25,14 @@ from typing import Dict
 
 import numpy as np
 
-from photon_ml_tpu_torch.models.game import FixedEffectModel, GameModel, RandomEffectModel
+from photon_ml_tpu_torch.models.game import (CompactRandomEffectModel, FixedEffectModel,
+                                             GameModel, RandomEffectModel)
 from photon_ml_tpu_torch.models.glm import Coefficients
 from photon_ml_tpu_torch.types import TaskType
+
+
+def _slot_of(c: dict) -> Dict[int, int]:
+    return {int(k): int(v) for k, v in c["slot_of"].items()}
 
 
 def game_model_from_arrays(d: Dict[str, dict]) -> GameModel:
@@ -36,8 +46,13 @@ def game_model_from_arrays(d: Dict[str, dict]) -> GameModel:
                 feature_shard=c["feature_shard"], task=task)
         elif c["kind"] == "random":
             models[cid] = RandomEffectModel(
-                w_stack=np.array(c["w_stack"]),
-                slot_of={int(k): int(v) for k, v in c["slot_of"].items()},
+                w_stack=np.array(c["w_stack"]), slot_of=_slot_of(c),
+                random_effect_type=c["random_effect_type"],
+                feature_shard=c["feature_shard"], task=task)
+        elif c["kind"] == "compact":
+            models[cid] = CompactRandomEffectModel(
+                indices=np.array(c["indices"], np.int32), values=np.array(c["values"]),
+                dim=int(c["dim"]), slot_of=_slot_of(c),
                 random_effect_type=c["random_effect_type"],
                 feature_shard=c["feature_shard"], task=task)
         else:
@@ -54,6 +69,12 @@ def game_model_to_arrays(model: GameModel) -> Dict[str, dict]:
                         "feature_shard": m.feature_shard, "task": m.task.value}
         elif isinstance(m, RandomEffectModel):
             out[cid] = {"kind": "random", "w_stack": np.array(m.w_stack),
+                        "slot_of": dict(m.slot_of),
+                        "random_effect_type": m.random_effect_type,
+                        "feature_shard": m.feature_shard, "task": m.task.value}
+        elif isinstance(m, CompactRandomEffectModel):
+            out[cid] = {"kind": "compact", "indices": np.array(m.indices),
+                        "values": np.array(m.values), "dim": m.dim,
                         "slot_of": dict(m.slot_of),
                         "random_effect_type": m.random_effect_type,
                         "feature_shard": m.feature_shard, "task": m.task.value}

@@ -8,6 +8,17 @@ normalization chain rule and L2.  The raw sums come from
 ``finish_hvp`` over ``ops.fused_glm.fused_hvp``: the CUDA kernel for a batch
 on the card, its plain version for a batch on the CPU.
 
+A ``SparseBatch`` (row-padded COO) takes the JAX package's XLA path, which
+is no Pallas kernel: margins are a gather and a row sum, and Xᵀr is a
+scatter-add (``index_add_``) of value·r into each row's feature slots, in
+plain PyTorch.  On the CPU ``index_add_`` adds in row order, so the CPU tests
+hold the sparse objective to the JAX package's within 1e-12 relative in
+float64 (tests/test_torch_sparse.py).  On CUDA it adds with atomics, in an
+order that changes from run to run: the gradient and Hessian-vector product
+of a sparse batch are not bitwise repeatable on the card, and card and CPU
+fits over sparse shards are compared within the float32 path tolerance of
+chip_smoke.py (5e-3 relative), not bitwise.
+
 ``LaneObjective`` is the same objective over a random-effect bucket held
 lanes-first (x [L, cap, d], one GLM per lane, a per-lane L2 [L]): what the
 JAX package computes as a ``jax.vmap`` of the plain XLA path, written out as
@@ -23,13 +34,21 @@ from typing import Tuple
 
 import torch
 
-from photon_ml_tpu_torch.core.batch import DenseBatch, full_f32_matmul
+from photon_ml_tpu_torch.core.batch import Batch, DenseBatch, SparseBatch, full_f32_matmul
 from photon_ml_tpu_torch.core.losses import PointwiseLoss
 from photon_ml_tpu_torch.core.normalization import NormalizationContext, no_normalization
 from photon_ml_tpu_torch.core.regularization import Regularization
 from photon_ml_tpu_torch.ops.fused_glm import fused_hvp, fused_value_and_grad
 
 Tensor = torch.Tensor
+
+
+def _xt_dot_sparse(batch: SparseBatch, r: Tensor) -> Tensor:
+    """Xᵀr of a sparse batch: value·r scatter-added into each row's feature
+    slots; padded slots carry value 0 and add nothing wherever they point."""
+    contrib = batch.values * r[:, None]
+    out = torch.zeros(batch.dim, dtype=contrib.dtype, device=contrib.device)
+    return out.index_add_(0, batch.indices.reshape(-1), contrib.reshape(-1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,11 +62,11 @@ class GLMObjective:
 
     # -- margins -----------------------------------------------------------
 
-    def margins(self, w: Tensor, batch: DenseBatch) -> Tensor:
+    def margins(self, w: Tensor, batch: Batch) -> Tensor:
         eff = self.norm.effective_coefficients(w)
         return batch.margins(eff) + batch.offset + self.norm.margin_shift(w)
 
-    def _safe_margins(self, w: Tensor, batch: DenseBatch) -> Tensor:
+    def _safe_margins(self, w: Tensor, batch: Batch) -> Tensor:
         """Margins with weight-0 rows zeroed, so unbounded losses stay finite
         on padded rows."""
         return torch.where(batch.weight > 0, self.margins(w, batch), 0.0)
@@ -66,9 +85,14 @@ class GLMObjective:
             g = g * self.norm.factors
         return g
 
-    def raw_value_and_grad(self, w: Tensor, batch: DenseBatch
+    def raw_value_and_grad(self, w: Tensor, batch: Batch
                            ) -> Tuple[Tensor, Tensor, Tensor]:
         """(Σ wt·l, Xᵀr, Σ r) with no regularization or chain rule applied."""
+        if isinstance(batch, SparseBatch):
+            z = self._safe_margins(w, batch)
+            l, d1 = self.loss.loss_and_d1(z, batch.y)
+            r = batch.weight * d1
+            return torch.sum(batch.weight * l), _xt_dot_sparse(batch, r), torch.sum(r)
         eff = self.norm.effective_coefficients(w)
         return fused_value_and_grad(self.loss, eff, batch,
                                     margin_shift=self.norm.margin_shift(w))
@@ -79,13 +103,19 @@ class GLMObjective:
         g = self._chain(g_raw, r_sum) + self.reg.l2 * w
         return val, g
 
-    def value_and_grad(self, w: Tensor, batch: DenseBatch) -> Tuple[Tensor, Tensor]:
+    def value_and_grad(self, w: Tensor, batch: Batch) -> Tuple[Tensor, Tensor]:
         return self.finish_value_and_grad(w, *self.raw_value_and_grad(w, batch))
 
     # -- Hessian-vector product ------------------------------------------------
 
-    def raw_hvp(self, w: Tensor, batch: DenseBatch, v: Tensor) -> Tuple[Tensor, Tensor]:
+    def raw_hvp(self, w: Tensor, batch: Batch, v: Tensor) -> Tuple[Tensor, Tensor]:
         """(Xᵀq, Σ q) raw sums, q = wt·l''(z)·(margin derivative along v)."""
+        if isinstance(batch, SparseBatch):
+            z = self._safe_margins(w, batch)
+            mv = batch.margins(self.norm.effective_coefficients(v)) + \
+                self.norm.margin_shift(v)
+            q = batch.weight * self.loss.d2(z, batch.y) * mv
+            return _xt_dot_sparse(batch, q), torch.sum(q)
         return fused_hvp(self.loss, self.norm.effective_coefficients(w),
                          self.norm.effective_coefficients(v), batch,
                          margin_shift=self.norm.margin_shift(w),
@@ -94,7 +124,7 @@ class GLMObjective:
     def finish_hvp(self, v: Tensor, hv_raw: Tensor, q_sum: Tensor) -> Tensor:
         return self._chain(hv_raw, q_sum) + self.reg.l2 * v
 
-    def hvp(self, w: Tensor, batch: DenseBatch, v: Tensor) -> Tensor:
+    def hvp(self, w: Tensor, batch: Batch, v: Tensor) -> Tensor:
         """H·v = Xnᵀ diag(wt·l'') Xn v + l2·v."""
         return self.finish_hvp(v, *self.raw_hvp(w, batch, v))
 
@@ -131,7 +161,7 @@ class LaneObjective:
     loss: PointwiseLoss
     l2: Tensor
 
-    def _safe_margins(self, w: Tensor, batch: DenseBatch) -> Tensor:
+    def _safe_margins(self, w: Tensor, batch: Batch) -> Tensor:
         z = lane_margins(batch.x, w) + batch.offset
         return torch.where(batch.weight > 0, z, 0.0)
 
@@ -142,7 +172,7 @@ class LaneObjective:
         val = (batch.weight * l).sum(-1) + 0.5 * self.l2 * lane_dot(w, w)
         return val, _lane_xt(batch.x, r) + self.l2[:, None] * w
 
-    def hvp(self, w: Tensor, batch: DenseBatch, v: Tensor) -> Tensor:
+    def hvp(self, w: Tensor, batch: Batch, v: Tensor) -> Tensor:
         z = self._safe_margins(w, batch)
         q = batch.weight * self.loss.d2(z, batch.y) * lane_margins(batch.x, v)
         return _lane_xt(batch.x, q) + self.l2[:, None] * v

@@ -1,4 +1,17 @@
-"""Synthetic GLMix tasks: ``glmix_chip``, and the BASELINE glmix2 / glmix3.
+"""Synthetic tasks: ``glmix_chip``, the BASELINE glmix2 / glmix3, the
+BASELINE sparse1m and ``glmix_sparse``.
+
+``synth_sparse1m(scale)`` is a numpy copy of ``bench.synth_sparse1m`` (the
+BASELINE #2 data): 131,072 rows over a 1,000,000-column vocabulary, 32
+nonzeros per row (half from a 4,096-column hot head), Poisson labels.
+
+``synth_glmix_sparse(scale)`` is a GLMix whose per-user model is compact:
+sparse1m's rows and fixed shard, 4,096 users x 32 rows (shuffled), and a
+per-user shard over a 50,000-column vocabulary in which each user owns a
+bag of 32 columns and each row carries 24 distinct columns of its user's
+bag, about 20% of them zero-valued (padded slots).  Logistic labels from
+fixed plus per-user logits scaled to unit standard deviation; the logits
+are returned for the task's Bayes AUC.
 
 ``synth_glmix(scale, three)`` is a numpy copy of the repository's
 ``bench.synth_glmix`` (the BASELINE #3 / #4 data, glmix2 and glmix3): 2048
@@ -135,3 +148,54 @@ def synth_glmix(scale: int, three: bool) -> dict:
     out["logits"] = logits
     perm = rng.permutation(n)
     return {k: v[perm] for k, v in out.items()}
+
+
+def synth_sparse1m(scale: int = 1) -> dict:
+    """BASELINE sparse1m, bitwise ``bench.synth_sparse1m``: indices [n, 32]
+    int32 (unique within a row), values [n, 32], Poisson y, dim 1,000,000."""
+    rng = np.random.default_rng(12)
+    n, d, k = 131072 // scale, 1_000_000, 32
+    kh = k // 2
+    head_block = 4096 // kh
+    head = (np.arange(kh) * head_block)[None, :] + rng.integers(0, head_block, size=(n, kh))
+    kt = k - kh
+    tail_block = (d - 4096) // kt
+    tail = 4096 + (np.arange(kt) * tail_block)[None, :] + rng.integers(
+        0, tail_block, size=(n, kt))
+    idx = np.concatenate([head, tail], axis=1).astype(np.int32)
+    vals = rng.exponential(0.5, size=(n, k)).astype(np.float32)
+    w_true = rng.normal(size=d) * 0.05
+    z = np.clip((vals * w_true[idx]).sum(axis=1), -4, 4)
+    y = rng.poisson(np.exp(z)).astype(np.float32)
+    return {"indices": idx, "values": vals, "y": y, "dim": d}
+
+
+GS_PER_USER, GS_VOCAB, GS_BAG, GS_K = 32, 50_000, 32, 24  # glmix_sparse widths
+
+
+def synth_glmix_sparse(scale: int = 1) -> dict:
+    """glmix_sparse data: ``fixed`` (sparse1m's indices / values / dim) and
+    ``user`` (indices [n, 24] int32, values [n, 24], dim 50,000) shards,
+    ``uids``, logistic ``y`` and the generative ``logits``; 4096 // scale
+    users x 32 rows."""
+    fixed = synth_sparse1m(scale)
+    users = 4096 // scale
+    n = users * GS_PER_USER
+    assert len(fixed["y"]) == n
+    rng = np.random.default_rng(2026)
+    uids = rng.permutation(np.repeat(np.arange(users, dtype=np.int64), GS_PER_USER))
+    bags = np.stack([rng.choice(GS_VOCAB, GS_BAG, replace=False) for _ in range(users)])
+    pos = np.argsort(rng.random((n, GS_BAG)), axis=1)[:, :GS_K]  # 24 distinct slots
+    u_idx = bags[uids[:, None], pos].astype(np.int32)
+    u_val = rng.normal(size=(n, GS_K)).astype(np.float32)
+    u_val[rng.random((n, GS_K)) < 0.2] = 0.0  # padded COO slots
+    w_g = rng.normal(size=fixed["dim"]) * 0.1
+    w_u = rng.normal(size=(users, GS_BAG)) * 0.15  # one per bag slot
+    logits = ((fixed["values"] * w_g[fixed["indices"]]).sum(axis=1)
+              + (u_val * w_u[uids[:, None], pos]).sum(axis=1))
+    logits = logits / logits.std()
+    y = (rng.random(n) < 1 / (1 + np.exp(-logits))).astype(np.float32)
+    return {"fixed": {"indices": fixed["indices"], "values": fixed["values"],
+                      "dim": fixed["dim"]},
+            "user": {"indices": u_idx, "values": u_val, "dim": GS_VOCAB},
+            "uids": uids, "y": y, "logits": logits}

@@ -3,9 +3,11 @@
 Port of photon_ml_tpu/game/config.py, holding the fields the port trains
 with, plus the reference's variance, box-constraint and projector fields,
 whose non-default values the coordinates refuse (NotImplementedError naming
-the ROADMAP item that brings them).  The rest of the reference's fields
-(down-sampling, normalization intercepts, storage dtypes, feature sharding)
-arrive with the slices that carry them.
+the ROADMAP item that brings them; the RANDOM projector is one of them), and
+the INDEX_MAP projector's ``features_to_samples_ratio`` / ``intercept_index``.
+The rest of the reference's fields (``projected_dim`` of the RANDOM
+projector, down-sampling, storage dtypes, feature sharding) arrive with the
+slices that carry them.
 """
 
 from __future__ import annotations
@@ -45,7 +47,11 @@ class RandomEffectConfig:
     reg: Regularization = Regularization()
     active_cap: Optional[int] = None  # per-entity sample cap (reservoir)
     min_active_samples: int = 1  # lower-bound entity filter
+    # Feature projection: INDEX_MAP (and any sparse shard) solves each entity
+    # in the compact space of its observed columns
     projector: ProjectorType = ProjectorType.IDENTITY
+    features_to_samples_ratio: Optional[float] = None  # per-entity Pearson top-k cap
+    intercept_index: Optional[int] = None  # column the Pearson filter must keep
     variance: VarianceComputationType = VarianceComputationType.NONE
     # Per-entity regularization: multiplicative factors on this coordinate's
     # L2 weight, keyed by entity id (default 1).  Accepts a dict or pairs;

@@ -1,22 +1,31 @@
 """Training coordinates: the per-coordinate update/score contract.
 
-Port of photon_ml_tpu/game/coordinate.py for dense shards:
+Port of photon_ml_tpu/game/coordinate.py:
 
-- ``FixedEffectCoordinate``: a dense shard, no mesh, L-BFGS or TRON.  The
-  design is laid out on the device once; each update re-solves with new
-  residual offsets through ``GLMObjective``, whose value and gradient (and,
-  under TRON, Hessian-vector products) come from the fused CUDA kernels on
-  the card.  Rows are not padded: the kernels mask their ragged last block.
-- ``RandomEffectCoordinate``: a dense shard and the IDENTITY projector.
-  Entities are bucketed once and each bucket stays on the device.  Narrow
-  buckets (the reference's gate: solve dim <= 16, cap*d^2 <= 2560, a smooth
-  loss) are held lanes-last ([cap, d, L]) and solved by ``solve_newton_soa``,
-  whose step is the CUDA Newton kernel, whichever of L-BFGS and TRON is
-  configured, as in the reference.  Every other coordinate holds its buckets
-  lanes-first ([L, cap, d]) and solves each with the lane-batched L-BFGS or
-  TRON of ``opt.solve.make_lane_solver``, one GLM per lane with its own L2
-  (the coordinate's weight times the entity's multiplier).  Scoring covers
-  every sample, including the rows the active cap left out of training.
+- ``FixedEffectCoordinate``: a dense or sparse shard, no mesh, L-BFGS or
+  TRON.  The design is laid out on the device once; each update re-solves
+  with new residual offsets through ``GLMObjective``.  On a dense shard its
+  value and gradient (and, under TRON, Hessian-vector products) come from
+  the fused CUDA kernels on the card; rows are not padded, the kernels mask
+  their ragged last block.  A sparse shard (``SparseBatch``) takes the
+  gather / scatter-add path in plain PyTorch, as the JAX package leaves it
+  to XLA.
+- ``RandomEffectCoordinate``: entities are bucketed once and each bucket
+  stays on the device.  A dense shard under the IDENTITY projector solves
+  at full width; a dense shard under INDEX_MAP, and every sparse shard
+  (``bucket_by_entity_sparse``), solves each entity in the compact space of
+  its observed columns and publishes by scattering back to full width.
+  Narrow buckets (the reference's gate on the solve-space shapes: solve dim
+  <= 16, cap*d^2 <= 2560, a smooth loss) are held lanes-last ([cap, d, L])
+  and solved by ``solve_newton_soa``, whose step is the CUDA Newton kernel,
+  whichever of L-BFGS and TRON is configured, as in the reference.  Every
+  other coordinate holds its buckets lanes-first ([L, cap, d]) and solves
+  each with the lane-batched L-BFGS or TRON of ``opt.solve.make_lane_solver``,
+  one GLM per lane with its own L2 (the coordinate's weight times the
+  entity's multiplier).  The published [E, d] stack is built on the device
+  (``publish_stack``).  Scoring covers every sample, including the rows the
+  active cap left out of training; on a sparse shard it never builds
+  [n, d_full].
 
 Anything outside the port raises NotImplementedError naming the ROADMAP item
 that brings it.
@@ -30,22 +39,26 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.core.batch import DenseBatch
+from photon_ml_tpu_torch.core.batch import DenseBatch, SparseBatch
 from photon_ml_tpu_torch.core.losses import loss_for_task
 from photon_ml_tpu_torch.core.objective import GLMObjective
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.game.config import (CoordinateConfig, FixedEffectConfig,
                                              RandomEffectConfig)
-from photon_ml_tpu_torch.game.data import GameData
+from photon_ml_tpu_torch.game.data import GameData, SparseShard
 from photon_ml_tpu_torch.models.game import (DatumScoringModel, FixedEffectModel,
-                                             RandomEffectModel)
+                                             RandomEffectModel, cached_device_copies,
+                                             dense_random_effect, seed_device_copies)
 from photon_ml_tpu_torch.models.glm import Coefficients
 from photon_ml_tpu_torch.opt.newton_soa import soa_eligible, solve_newton_soa
 from photon_ml_tpu_torch.opt.solve import (check_supported, default_config,
                                            make_lane_solver, make_solver)
 from photon_ml_tpu_torch.opt.types import SolverResult
-from photon_ml_tpu_torch.parallel.bucketing import (bucket_by_entity, score_samples,
-                                                    slots_from, stacked_coefficients)
+from photon_ml_tpu_torch.parallel.bucketing import (bucket_by_entity,
+                                                    bucket_by_entity_sparse, publish_stack,
+                                                    score_samples, score_samples_sparse,
+                                                    slots_from)
+from photon_ml_tpu_torch.parallel.projection import RANDOM_REFUSAL, project_buckets
 from photon_ml_tpu_torch.types import ProjectorType, TaskType, VarianceComputationType
 
 Tensor = torch.Tensor
@@ -67,10 +80,8 @@ def _refuse_unported(coordinate_id: str, config: CoordinateConfig) -> None:
         raise NotImplementedError(
             where + "box constraints are not ported yet: ROADMAP.md 'Modules "
             "still to port', opt/constraints.py and the projected L-BFGS")
-    if getattr(config, "projector", ProjectorType.IDENTITY) != ProjectorType.IDENTITY:
-        raise NotImplementedError(
-            where + f"the {config.projector.name} projector is not ported yet: "
-            "ROADMAP.md 'Modules still to port', random-effect projectors")
+    if getattr(config, "projector", None) == ProjectorType.RANDOM:
+        raise NotImplementedError(where + RANDOM_REFUSAL)
     check_supported(config.optimizer, config.reg.l1)
 
 
@@ -111,7 +122,7 @@ class Coordinate:
 
 
 class FixedEffectCoordinate(Coordinate):
-    """Global GLM coordinate over a dense shard."""
+    """Global GLM coordinate over a dense or sparse shard."""
 
     def __init__(self, coordinate_id: str, data: GameData, config: FixedEffectConfig,
                  task: TaskType, dtype: torch.dtype, device: torch.device):
@@ -124,11 +135,16 @@ class FixedEffectCoordinate(Coordinate):
         self._dtype = dtype
         self._device = device
         self._base_offset = _as_device(data.offset, torch.float64, device)
-        self._batch = DenseBatch(
-            x=_as_device(data.features[config.feature_shard], dtype, device),
-            y=_as_device(data.y, dtype, device),
-            offset=_as_device(data.offset, dtype, device),
-            weight=_as_device(data.weight, dtype, device))
+        shard = data.features[config.feature_shard]
+        rows = dict(y=_as_device(data.y, dtype, device),
+                    offset=_as_device(data.offset, dtype, device),
+                    weight=_as_device(data.weight, dtype, device))
+        if isinstance(shard, SparseShard):
+            self._batch = SparseBatch(indices=_as_device(shard.indices, torch.int64, device),
+                                      values=_as_device(shard.values, dtype, device),
+                                      dim=shard.dim, **rows)
+        else:
+            self._batch = DenseBatch(x=_as_device(shard, dtype, device), **rows)
         self._objective = GLMObjective(loss=loss_for_task(task), reg=config.reg)
         self._solve = make_solver(self._objective, config.optimizer, config.solver)
 
@@ -152,12 +168,15 @@ class FixedEffectCoordinate(Coordinate):
 
 
 class RandomEffectCoordinate(Coordinate):
-    """Per-entity GLM coordinate over a dense shard: SoA Newton lanes inside
-    the reference's gate, lane-batched L-BFGS / TRON outside it."""
+    """Per-entity GLM coordinate over a dense or sparse shard: SoA Newton
+    lanes inside the reference's gate, lane-batched L-BFGS / TRON outside
+    it; compact solve spaces for INDEX_MAP and every sparse shard."""
 
     def __init__(self, coordinate_id: str, data: GameData, config: RandomEffectConfig,
                  task: TaskType, seed: int, dtype: torch.dtype, device: torch.device):
         _refuse_unported(coordinate_id, config)
+        shard = data.features[config.feature_shard]
+        self._sparse = isinstance(shard, SparseShard)
         self.coordinate_id = coordinate_id
         self.config = config
         self.task = task
@@ -168,35 +187,60 @@ class RandomEffectCoordinate(Coordinate):
         self._loss = loss_for_task(task)
         self._base_offset = _as_device(data.offset, torch.float64, device)
         np_dtype = _numpy_dtype(dtype)
-
-        # the design moves to the device once; the buckets are gathered there
-        self._x_full = _as_device(data.features[config.feature_shard], dtype, device)
         entity_ids = data.id_tags[config.random_effect_type]
-        self.buckets = bucket_by_entity(
-            entity_ids, self._x_full, np.asarray(data.y, np_dtype),
-            offset=np.asarray(data.offset, np_dtype),
-            weight=np.asarray(data.weight, np_dtype),
-            active_cap=config.active_cap,
-            min_active_samples=config.min_active_samples, seed=seed, dtype=np_dtype)
+        rows = dict(y=np.asarray(data.y, np_dtype),
+                    offset=np.asarray(data.offset, np_dtype),
+                    weight=np.asarray(data.weight, np_dtype),
+                    active_cap=config.active_cap,
+                    min_active_samples=config.min_active_samples, seed=seed,
+                    dtype=np_dtype)
 
-        # the SoA Newton gate (reference game/coordinate.py:1184-1198); with no
-        # normalization, box or L1 in the port, what remains is the solve
-        # width, the cap*d^2 traffic guard and a smooth loss.  The optimizer
-        # does not enter: a TRON coordinate inside the gate runs SoA Newton.
-        worst = max((b.capacity * b.x.shape[2] ** 2 for b in self.buckets.buckets),
-                    default=0)
-        max_dim = max((b.x.shape[2] for b in self.buckets.buckets), default=0)
+        # solve_buckets: the buckets in the space the solvers see (compact
+        # for sparse shards and INDEX_MAP); projections map them back
+        self._projections = None
+        if self._sparse:
+            # full-sample scoring stays sparse: [n, k] arrays on the device
+            self._x_idx = _as_device(shard.indices, torch.int64, device)
+            self._x_val = _as_device(shard.values, dtype, device)
+            ratio = (config.features_to_samples_ratio
+                     if config.projector == ProjectorType.INDEX_MAP else None)
+            self.buckets, self._projections = bucket_by_entity_sparse(
+                entity_ids, shard.indices, shard.values, self.dim,
+                features_to_samples_ratio=ratio,
+                intercept_index=config.intercept_index, **rows)
+            solve_buckets = self.buckets.buckets
+        else:
+            # the design moves to the device once; the buckets are gathered there
+            self._x_full = _as_device(shard, dtype, device)
+            self.buckets = bucket_by_entity(entity_ids, self._x_full, **rows)
+            solve_buckets = self.buckets.buckets
+            if config.projector == ProjectorType.INDEX_MAP:
+                proj = project_buckets(self.buckets, config.projector,
+                                       config.features_to_samples_ratio,
+                                       config.intercept_index)
+                solve_buckets, self._projections = proj.buckets, proj.projections
+
+        # the SoA Newton gate (reference game/coordinate.py:1179-1198) on the
+        # solve-space shapes; with no normalization, box or L1 in the port,
+        # what remains is the solve width, the cap*d^2 traffic guard and a
+        # smooth loss.  The optimizer does not enter: a TRON coordinate
+        # inside the gate runs SoA Newton.
+        worst = max((b.capacity * b.x.shape[2] ** 2 for b in solve_buckets), default=0)
+        max_dim = max((b.x.shape[2] for b in solve_buckets), default=0)
         self.use_soa = soa_eligible(max_dim, self._loss.name) and worst <= SOA_MAX_CAP_D2
         self._solver_config = config.solver or default_config(config.optimizer)
         if not self.use_soa:
             self._solve_lanes = make_lane_solver(self._loss, config.optimizer,
                                                  self._solver_config)
 
-        # stacked-model slot order = sorted entity id (stacked_coefficients)
+        # stacked-model slot order = sorted entity id
         self._slot_of = {eid: i for i, eid in enumerate(sorted(self.buckets.lane_of))}
         self._entity_ids = np.asarray(entity_ids, np.int64)
         self._sample_slots = torch.as_tensor(slots_from(self._slot_of, self._entity_ids),
                                              device=device)
+        self._lane_slots = [torch.as_tensor(slots_from(self._slot_of, b.entity_lanes),
+                                            device=device)
+                            for b in self.buckets.buckets]
 
         # buckets on the device once, lanes-last for SoA Newton (x [cap, d, L];
         # y / wt / rows / valid [cap, L]), else lanes-first (x [L, cap, d];
@@ -204,7 +248,7 @@ class RandomEffectCoordinate(Coordinate):
         # lane's entity multiplier (1 for padding lanes)
         mult = dict(config.per_entity_l2_multipliers or ())
         self._dev = []
-        for b in self.buckets.buckets:
+        for b in solve_buckets:
             lane_major = dict(
                 x=b.x, y=b.y, wt=b.weight,
                 rows=np.where(b.rows < 0, 0, b.rows).astype(np.int64),
@@ -219,23 +263,34 @@ class RandomEffectCoordinate(Coordinate):
             self._dev.append(dev)
 
     def _warm_start(self, bucket_index: int, init: RandomEffectModel) -> Tensor:
-        """[L, d] start from a prior model's rows (zeros for unknown entities)."""
+        """[L, d_solve] start from a prior model's rows, gathered at each
+        lane's compact columns where the bucket is compact (zeros for unknown
+        entities and padding columns)."""
         b = self.buckets.buckets[bucket_index]
         slots = slots_from(init.slot_of, b.entity_lanes)
+        known = slots >= 0
+        rows = np.where(known, slots, 0)
         w_stack = np.asarray(init.w_stack, _numpy_dtype(self._dtype))
-        w0 = np.where((slots >= 0)[:, None], w_stack[np.where(slots >= 0, slots, 0)], 0.0)
+        if self._projections is None:
+            w0 = np.where(known[:, None], w_stack[rows], 0.0)
+        else:
+            idx = self._projections[bucket_index].indices
+            w0 = np.where(known[:, None] & (idx >= 0),
+                          w_stack[rows[:, None], np.where(idx >= 0, idx, 0)], 0.0)
         return _as_device(w0, self._dtype, self._device)
 
     def update(self, total_offsets: Tensor, seed: int = 0,
                init: Optional[RandomEffectModel] = None
                ) -> Tuple[RandomEffectModel, List[SolverResult]]:
+        init = None if init is None else dense_random_effect(init)
         offs = _as_device(total_offsets, self._dtype, self._device)
         coeffs, results = [], []
         for bi, (b, dev) in enumerate(zip(self.buckets.buckets, self._dev)):
             if init is not None:
                 w0 = self._warm_start(bi, init)
             else:
-                w0 = torch.zeros((b.num_lanes, self.dim), dtype=self._dtype,
+                solve_dim = dev["x"].shape[1 if self.use_soa else 2]
+                w0 = torch.zeros((b.num_lanes, solve_dim), dtype=self._dtype,
                                  device=self._device)
             # residual offsets gathered into the bucket layout
             off = torch.where(dev["valid"], offs[dev["rows"]], 0.0)
@@ -248,20 +303,30 @@ class RandomEffectCoordinate(Coordinate):
                 res = self._solve_lanes(w0, batch, dev["l2"])
                 coeffs.append(res.w)
             results.append(res)
-        w_stack, slot_of = stacked_coefficients(coeffs, self.buckets)
+        # publish: lanes (back-projected where compact) scattered into the
+        # [E, d] stack on the device; the host copy is the model's, and the
+        # device stack becomes its scoring copy
+        w_dev = publish_stack(coeffs, self._lane_slots, len(self._slot_of), self.dim,
+                              self._projections)
+        w_stack = w_dev.cpu().numpy()
         model = RandomEffectModel(
-            w_stack=w_stack, slot_of=slot_of,
+            w_stack=w_stack, slot_of=dict(self._slot_of),
             random_effect_type=self.config.random_effect_type,
             feature_shard=self.config.feature_shard, task=self.task)
+        seed_device_copies(model, (w_stack,), (w_dev,))
         return merge_carry_through(model, init), results
 
     def score(self, model: RandomEffectModel) -> Tensor:
-        w = _as_device(model.w_stack, self._dtype, self._device)
+        model = dense_random_effect(model)
+        (w,) = cached_device_copies(model, self._device, model.w_stack)
+        w = w.to(self._dtype)
         if model.slot_of == self._slot_of:
             slots = self._sample_slots
         else:
             slots = torch.as_tensor(slots_from(model.slot_of, self._entity_ids),
                                     device=self._device)
+        if self._sparse:
+            return score_samples_sparse(w, slots, self._x_idx, self._x_val)
         return score_samples(w, slots, self._x_full)
 
 

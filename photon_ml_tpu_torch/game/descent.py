@@ -29,14 +29,24 @@ logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass
 class DescentHistory:
-    """Per-update record: iteration, coordinate, seconds, validation."""
+    """Per-update record: iteration, coordinate, seconds, solver iterations
+    (the most any lane took, for a random effect) and validation."""
 
     steps: List[dict] = dataclasses.field(default_factory=list)
 
     def add(self, iteration: int, coordinate_id: str, seconds: float,
-            validation: Optional[EvaluationResults]) -> None:
+            validation: Optional[EvaluationResults], solver_iterations: int = 0) -> None:
         self.steps.append(dict(iteration=iteration, coordinate=coordinate_id,
-                               seconds=seconds, validation=validation))
+                               seconds=seconds, validation=validation,
+                               solver_iterations=solver_iterations))
+
+
+def _solver_iterations(results) -> int:
+    """Iterations of one update's solver results: a SolverResult or a list
+    of them (one per bucket), each an int or a tensor over lanes."""
+    if not isinstance(results, (list, tuple)):
+        results = [results]
+    return max((int(torch.as_tensor(r.iterations).max()) for r in results), default=0)
 
 
 class CoordinateDescent:
@@ -85,8 +95,8 @@ class CoordinateDescent:
                 # residual trick: what the other coordinates explain is an offset
                 partial = total - scores[cid]
                 offsets = coord.base_offset() + partial
-                model, _results = coord.update(offsets, seed=seed + it,
-                                               init=models.get(cid))
+                model, results = coord.update(offsets, seed=seed + it,
+                                              init=models.get(cid))
                 new_score = coord.score(model)
                 models[cid] = model
                 scores[cid] = new_score.double()
@@ -106,7 +116,7 @@ class CoordinateDescent:
                         best_eval, best_model = val_res, current
                     logger.info("iter %d coord %s: %s (%.2fs)", it, cid,
                                 val_res.values, dt)
-                history.add(it, cid, dt, val_res)
+                history.add(it, cid, dt, val_res, _solver_iterations(results))
 
         if best_model is not None:
             return best_model, history, best_eval

@@ -24,7 +24,7 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("fused_glm", "soa_newton")
+SOURCES = ("fused_glm", "soa_newton", "compact_score")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -130,5 +130,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.newton_step_launch.argtypes = [I, I, I, P, P, P, P, P, P, P, I, L, D,
                                            P, P]
         lib.newton_step_launch.restype = I
+    elif name == "compact_score":
+        lib.match_dot_launch.argtypes = [I, P, P, L, I, P, P, P, L, I, P, P]
+        lib.match_dot_launch.restype = I
     else:
         raise ValueError(f"unknown kernel library {name!r}")

@@ -3,10 +3,14 @@ capacity buckets, plus the stacked-model helpers random-effect scoring uses.
 
 Port of the numpy host path of photon_ml_tpu/parallel/bucketing.py
 (``bucket_by_entity`` with the deterministic ``_splitmix64`` reservoir cap
-and count/cap weight rescale, ``stacked_coefficients``, ``score_samples``).
-The grouping and packing are numpy and give bitwise the reference's buckets.
-The bucket design blocks are one masked gather on the design's tensor, so a
-shard that is already on the device never crosses to the host.
+and count/cap weight rescale, ``bucket_by_entity_sparse``,
+``score_samples``, ``score_samples_sparse``).  The grouping and packing are
+numpy and give bitwise the reference's buckets.  Dense bucket design blocks
+are one masked gather on the design's tensor, so a shard that is already on
+the device never crosses to the host; sparse (compact) blocks are built on
+the host from the row-sparse arrays and are [E, S, d_obs], never
+[E, S, d_full].  ``publish_stack`` scatters trained bucket lanes into the
+[num_entities, d] stack on the coefficients' device.
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ class Bucket:
 @dataclasses.dataclass
 class EntityBuckets:
     """All buckets of one random-effect coordinate plus the entity directory
-    ``lane_of``: entity id -> (bucket index, lane)."""
+    ``lane_of``: entity id -> (bucket index, lane).  ``dim`` is the full
+    width, also for the sparse bucketer's compact blocks."""
 
     buckets: List[Bucket]
     lane_of: Dict[int, Tuple[int, int]]
@@ -181,24 +186,28 @@ def slots_from(slot_of: Dict[int, int], entity_ids: np.ndarray) -> np.ndarray:
     return np.where(keys[pos] == entity_ids, vals[pos], -1).astype(np.int32)
 
 
-def stacked_coefficients(coeffs: Sequence[Tensor], buckets: EntityBuckets
-                         ) -> Tuple[np.ndarray, Dict[int, int]]:
-    """Stack per-bucket lane coefficients [E_b, d] into W[num_entities, d]
-    (rows in sorted entity-id order) plus the id -> row map.  One host
-    transfer per bucket."""
-    host = [c.detach().cpu().numpy() if isinstance(c, torch.Tensor) else np.asarray(c)
-            for c in coeffs]
-    slot_of: Dict[int, int] = {}
-    parts = []
-    for eid in sorted(buckets.lane_of):
-        bi, lane = buckets.lane_of[eid]
-        slot_of[eid] = len(slot_of)
-        parts.append(host[bi][lane])
-    if parts:
-        w = np.stack(parts)
-    else:
-        w = np.zeros((0, buckets.dim), host[0].dtype if host else np.float32)
-    return w, slot_of
+def publish_stack(coeffs: Sequence[Tensor], lane_slots: Sequence[Tensor],
+                  num_entities: int, dim: int,
+                  projections: Optional[Sequence] = None) -> Tensor:
+    """The [num_entities, dim] coefficient stack, built on the coefficients'
+    device: lane l of bucket b goes to row ``lane_slots[b][l]``; a padding
+    lane (slot -1) is dropped.  With
+    ``projections`` (one ``BucketProjection`` per bucket), each lane's
+    compact coefficients scatter to their full-width columns and every other
+    column stays 0."""
+    dev = coeffs[0].device if coeffs else torch.device("cpu")
+    dt = coeffs[0].dtype if coeffs else torch.float32
+    out = torch.zeros((num_entities + 1, dim), dtype=dt, device=dev)  # last: sink
+    for b, (c, slots) in enumerate(zip(coeffs, lane_slots)):
+        slots = slots.to(dev).long()
+        rows = torch.where(slots < 0, num_entities, slots)
+        if projections is None:
+            out[rows] = c
+            continue
+        idx = torch.as_tensor(projections[b].indices, device=dev).long()
+        keep = idx >= 0
+        out[rows[:, None].expand_as(idx)[keep], idx[keep]] = c[keep]
+    return out[:num_entities]
 
 
 def score_samples(w_stack: Tensor, slots: Tensor, x: Tensor) -> Tensor:
@@ -206,3 +215,97 @@ def score_samples(w_stack: Tensor, slots: Tensor, x: Tensor) -> Tensor:
     safe = torch.where(slots >= 0, slots, 0).long()
     margins = (x * w_stack[safe]).sum(dim=1)
     return torch.where(slots >= 0, margins, 0.0)
+
+
+def score_samples_sparse(w_stack: Tensor, slots: Tensor, indices: Tensor,
+                         values: Tensor) -> Tensor:
+    """Raw per-sample scores over row-sparse features:
+    Σ_k w_stack[slot_i, indices[i, k]] · values[i, k], a two-level gather
+    that never builds [n, d_full].  Padded COO slots carry value 0; slot -1
+    (no model) scores 0."""
+    safe = torch.where(slots >= 0, slots, 0).long()
+    gathered = w_stack[safe[:, None], indices.long()]
+    margins = (gathered * values).sum(dim=-1)
+    return torch.where(slots >= 0, margins, 0.0)
+
+
+def bucket_by_entity_sparse(entity_ids: np.ndarray, indices: np.ndarray,
+                            values: np.ndarray, dim: int, y: np.ndarray,
+                            offset: Optional[np.ndarray] = None,
+                            weight: Optional[np.ndarray] = None,
+                            active_cap: Optional[int] = None,
+                            min_active_samples: int = 1, lane_multiple: int = 1,
+                            seed: int = 0, dtype=np.float32,
+                            features_to_samples_ratio: Optional[float] = None,
+                            intercept_index: Optional[int] = None):
+    """Compact per-entity buckets built directly from row-sparse features.
+
+    Each entity solves in the space of the columns its active samples
+    observe (a nonzero value), so bucket design blocks are [E, S, d_obs],
+    never [E, S, d_full].  ``indices``/``values``: a SparseShard's [n, k]
+    arrays (zero values ignored, duplicate indices within a row accumulate).
+    ``features_to_samples_ratio`` / ``intercept_index``: the per-entity
+    |Pearson| top-k filter, as ``build_observed_indices`` applies it.
+
+    Returns ``(EntityBuckets, projections)``: compact buckets (``x`` a CPU
+    tensor) plus one ``BucketProjection`` per bucket mapping compact columns
+    back to the full vocabulary (``EntityBuckets.dim`` stays the full
+    width)."""
+    from photon_ml_tpu_torch.parallel.projection import (BucketProjection,
+                                                         _pow2_at_least,
+                                                         pearson_top_k)
+
+    n = len(entity_ids)
+    entity_ids = np.asarray(entity_ids, np.int64)
+    indices = np.asarray(indices, np.int64)
+    values = np.asarray(values, dtype)
+    y = np.asarray(y, dtype)
+    offset = np.zeros(n, dtype) if offset is None else np.asarray(offset, dtype)
+    weight = np.ones(n, dtype) if weight is None else np.asarray(weight, dtype)
+
+    kept_rows, kept_entities, rescale = _group_rows(
+        entity_ids, active_cap, min_active_samples, seed)
+
+    def _compact_lane(rows: np.ndarray):
+        """(observed columns, compact dense block [len(rows), n_obs])."""
+        iv, vv = indices[rows], values[rows]
+        nz_r, nz_c = np.nonzero(vv != 0)
+        obs = np.unique(iv[nz_r, nz_c]) if nz_r.size else np.empty(0, np.int64)
+        x = np.zeros((len(rows), len(obs)), dtype)
+        if nz_r.size:
+            pos = np.searchsorted(obs, iv[nz_r, nz_c])
+            np.add.at(x, (nz_r, pos), vv[nz_r, nz_c])  # duplicates accumulate
+        if features_to_samples_ratio is not None and obs.size:
+            keep_n = max(1, int(np.ceil(features_to_samples_ratio * len(rows))))
+            if obs.size > keep_n:
+                top = pearson_top_k(x, y[rows], weight[rows], obs, keep_n,
+                                    intercept_index)
+                obs, x = obs[top], x[:, top]
+        return obs.astype(np.int32), x
+
+    caps = _capacity_classes(kept_rows)
+    buckets: List[Bucket] = []
+    projections = []
+    lane_of: Dict[int, Tuple[int, int]] = {}
+    for cap in sorted(set(caps.tolist())):
+        idxs = np.nonzero(caps == cap)[0]
+        compacted = [_compact_lane(kept_rows[ei]) for ei in idxs]
+        d_proj = min(_pow2_at_least(max((len(o) for o, _ in compacted), default=1)),
+                     dim)
+        n_lanes = ((len(idxs) + lane_multiple - 1) // lane_multiple) * lane_multiple
+        by, boff, bw, brows, bcounts, blanes = _pack_lane_meta(
+            n_lanes, cap, idxs, kept_rows, kept_entities, rescale,
+            y, offset, weight, dtype, lane_of, len(buckets))
+        bx = np.zeros((n_lanes, cap, d_proj), dtype)
+        bidx = np.full((n_lanes, d_proj), -1, np.int32)
+        for lane, ei in enumerate(idxs):
+            k = len(kept_rows[ei])
+            obs, x = compacted[lane]
+            bx[lane, :k, :len(obs)] = x
+            bidx[lane, :len(obs)] = obs
+        buckets.append(Bucket(x=torch.from_numpy(bx), y=by, offset=boff, weight=bw,
+                              rows=brows, counts=bcounts, entity_lanes=blanes))
+        projections.append(BucketProjection(indices=bidx, d_full=dim))
+    ents = EntityBuckets(buckets=buckets, lane_of=lane_of, dim=dim,
+                         num_entities=len(kept_entities), num_samples=n)
+    return ents, projections

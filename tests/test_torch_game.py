@@ -218,9 +218,10 @@ def test_glmix_chip_generator_matches_bench():
 
 def test_out_of_slice_configurations_raise(glmix):
     """What the port does not carry yet raises NotImplementedError naming
-    its ROADMAP item (OWLQN / L1, variances, box constraints, projectors,
-    sparse shards); TRON with L1 is refused as a ValueError, as in the
-    reference."""
+    its ROADMAP item (OWLQN / L1, variances, box constraints, the RANDOM
+    projector); TRON with L1 is refused as a ValueError, as in the
+    reference, and a shard that is neither an array, a tensor nor a
+    SparseShard as a TypeError."""
     data = _data(GameData, glmix)
     task = TaskType.LOGISTIC_REGRESSION
     with pytest.raises(NotImplementedError, match="OWLQN"):
@@ -249,8 +250,8 @@ def test_out_of_slice_configurations_raise(glmix):
     with pytest.raises(NotImplementedError, match="projector"):
         build_coordinate("u", data, RandomEffectConfig(
             random_effect_type="userId", feature_shard="g",
-            projector=ProjectorType.INDEX_MAP), task, device="cpu")
-    with pytest.raises(NotImplementedError, match="sparse"):
+            projector=ProjectorType.RANDOM), task, device="cpu")
+    with pytest.raises(TypeError, match="SparseShard"):
         GameData(y=glmix["y"], features={"s": object()})
 
 

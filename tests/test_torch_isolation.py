@@ -19,12 +19,14 @@ import numpy as np
 import torch
 from photon_ml_tpu_torch.core.regularization import Regularization
 from photon_ml_tpu_torch.game import (FixedEffectConfig, GameConfig, GameData,
-                                      GameEstimator, RandomEffectConfig)
+                                      GameEstimator, RandomEffectConfig, SparseShard)
 from photon_ml_tpu_torch.evaluation.metrics import auc_roc
 from photon_ml_tpu_torch.opt.types import SolverConfig
 from photon_ml_tpu_torch.types import TaskType
+from photon_ml_tpu_torch.models.game import GameModel
 import photon_ml_tpu_torch.convert, photon_ml_tpu_torch.data.synthetic
-import photon_ml_tpu_torch.ops._build
+import photon_ml_tpu_torch.ops._build, photon_ml_tpu_torch.ops.compact_score
+import photon_ml_tpu_torch.parallel.projection
 
 rng = np.random.default_rng(0)
 uids = np.repeat(np.arange(40), 12)
@@ -41,6 +43,15 @@ model = GameEstimator(device="cpu").fit(data, [cfg])[0].model
 scores = model.score(data, device="cpu")
 assert scores.shape == (n,) and bool(torch.isfinite(scores).all())
 auc_roc(scores, torch.from_numpy(y).double(), torch.ones(n, dtype=torch.float64))
+sparse = SparseShard(indices=rng.integers(0, 500, size=(n, 6)), values=rng.normal(size=(n, 6)),
+                     dim=500)
+sdata = GameData(y=y, features={"g": xg, "s": sparse}, id_tags={"userId": uids})
+scfg = GameConfig(task=TaskType.LOGISTIC_REGRESSION, coordinates={
+    "user": RandomEffectConfig(random_effect_type="userId", feature_shard="s", solver=s,
+                               reg=Regularization(l2=1.0))})
+re = GameEstimator(device="cpu").fit(sdata, [scfg])[0].model["user"]
+compact = GameModel(models={"user": re.to_compact()}).score(sdata, device="cpu")
+assert float((compact - re.score(sdata, device="cpu")).abs().max()) < 1e-5
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "photon_ml_tpu", "bench"))
 assert not bad, bad
