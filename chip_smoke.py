@@ -11,13 +11,18 @@ Phases, each printing its result and wall time on its own line:
    and spill-store bytes for every template instantiation;
 3. ``fused_value_and_grad`` and ``fused_hvp`` against their plain PyTorch
    versions on the card: the main paths' shapes (glmix_chip's n = 8,388,608,
-   d = 512 and glmix2's n = 524,288, d = 256, float32), d in {1, 100, 8192}
-   with ragged n, all four losses, weight-0 rows, nonzero shifts, float32
-   and float64; times of each kernel, its plain version and a library
-   yardstick (``torch.mv`` / ``torch.mm`` calls, never used by the port);
+   d = 512 and glmix2's n = 524,288, d = 256, float32), d in {1, 3, 100,
+   8192} with ragged n and n below one tile, all four losses, weight-0 rows,
+   nonzero shifts, float32 and float64, each kernel twice (bitwise equal);
+   times of each kernel (CUDA events over back-to-back calls with the shifts
+   as 0-d tensors on the card, as ``GLMObjective`` passes them, and its
+   device time alone from a ``torch.profiler`` trace, which must show no
+   stream sync or host-to-device copy in the wrapper), its plain version and
+   a library yardstick (``torch.mv`` / ``torch.mm`` calls, never used by the
+   port);
 4. ``newton_step`` against its plain version on the card: d in {1, 4, 16},
    cap in {16, 32}, L in {131072, 1000}, logistic / squared / Poisson;
-   times as above (yardstick: batched ``torch.linalg.cholesky`` +
+   times and device time as above (yardstick: batched ``torch.linalg.cholesky`` +
    ``torch.cholesky_solve`` on einsum-built Hessians);
 5. the main path, glmix_chip at full width: 512 fixed / 4 per-user features,
    active cap 32, 131,072 users x 64 rows (the 17.2 GB float32 design is
@@ -40,15 +45,18 @@ Phases, each printing its result and wall time on its own line:
 10. ``match_dot`` against its plain version on the card: the compact-scoring
     bench shape (E 20,000, dim 50,000, k_model 16, k_feat 24, n 32,768) and
     n in {1, 1000, 1,048,576} x (k_model, k_feat) in {(1, 1), (16, 24),
-    (64, 64), (4096, 1)}, with duplicate feature ids, zero-valued padded
-    slots, dim-padded model rows and slot -1, float32 and float64; times of
-    the kernel, its plain version and the searchsorted chain (the
-    reference's route for shapes outside the match-dot gate) at n = 32,768
-    and 1,048,576;
+    (64, 64), (4096, 1)}, and n in {1000, 131,072} x every lane-group width
+    of ``match_plan`` and both sides of its thresholds, with duplicate
+    feature ids, zero-valued padded slots, dim-padded model rows and slot -1,
+    float32 and float64, the kernel twice (bitwise equal); times (events and
+    device time alone) of the kernel, its plain version and the searchsorted
+    chain (the reference's route for shapes outside the match-dot gate) at
+    n = 32,768 and 1,048,576;
 11. sparse1m at full width (131,072 rows, a 1,000,000-column vocabulary, 32
     nonzeros a row, Poisson, TRON): fit time, iterations and the objective
-    against the w = 0 objective, and the same fit on the CPU compared within
-    a stated float32 tolerance;
+    against the w = 0 objective, a second card fit bitwise equal to the
+    first, and the same fit on the CPU compared within a stated float32
+    tolerance;
 12. glmix_sparse at full width (sparse1m's rows and fixed shard under TRON,
     4,096 users x 32 rows with a 50,000-column per-user shard on compact
     lanes under L-BFGS): fit, ``to_compact``, ``GameModel.score`` through
@@ -58,7 +66,8 @@ Phases, each printing its result and wall time on its own line:
 13. phase 12's fit against the same full-width fit on the CPU (the plain
     match-dot scores there): coefficients, compact-model scores and the
     GAME objective, within stated float32 tolerances;
-14. one JSON line describing each kernel, with its launches on each path.
+14. one JSON line describing each kernel, with its launches on each path
+    and its device time alone (``device_ms``) beside the event time (``ms``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero and prints no result; so does a run without a
@@ -106,9 +115,8 @@ COMPACT_VS_DENSE_RTOL = 1e-5  # glmix_sparse per-user scores, compact model
 # vs its dense twin (score_samples_sparse): the same 24 products per sample,
 # summed in another order
 SPARSE1M_OBJ_RTOL = 1e-5  # sparse1m objective, card vs CPU: both stop at
-# TRON's 1e-5 gradient tolerance from the same start; Xᵀr is added with
-# atomics on the card (index_add_, order varies run to run), in row order on
-# the CPU
+# TRON's 1e-5 gradient tolerance from the same start; Xᵀr adds each column's
+# terms in row order on both devices, and only exp and log round differently
 
 MAIN_N, MAIN_D = 8_388_608, 512
 MAIN_CAP, MAIN_DU, MAIN_USERS = 32, 4, 131_072
@@ -120,11 +128,19 @@ FUSED_CASES = [(MAIN_N, MAIN_D, "float32"), (GLMIX2_N, GLMIX2_D, "float32"),
                (3_000_001, 1, "float32"),
                (1_000_003, 100, "float32"), (65_537, 8192, "float32"),
                (1_000_003, 1, "float64"), (200_003, 100, "float64"),
-               (16_411, 8192, "float64")]
+               (16_411, 8192, "float64"),
+               (7, 256, "float32"),  # n below one tile of rows
+               (100_003, 3, "float32")]  # rows not a whole number of 16-byte vectors
 NEWTON_LANES = (MAIN_USERS, 1000)
 COMPACT_BENCH = dict(num_e=20_000, dim=50_000, k_model=16, k_feat=24)  # bench.py:3296
 COMPACT_NS = (1, 1000, 1_048_576)
 COMPACT_WIDTHS = ((1, 1), (16, 24), (64, 64), (4096, 1))
+# every lane-group width of ops/compact_score.match_plan (8: k_feat 24, 32:
+# k_feat 32, 2, 4, 16, and 1 with 1,365 features a lane) and both sides of
+# the search-depth step at k_model 32 / 33
+COMPACT_EDGE_WIDTHS = ((32, 24), (8, 24), (33, 24), (24, 32), (16, 2), (16, 12),
+                       (16, 16), (3, 1365))
+COMPACT_EDGE_NS = (1000, 131_072)
 COMPACT_TIMED_NS = (32_768, 1_048_576)
 
 
@@ -160,6 +176,35 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled(fn, reps: int, kernels) -> dict:
+    """``fn``'s device time alone, from a ``torch.profiler`` trace of
+    ``reps`` calls after a warm-up call: the summed CUDA time of every kernel
+    whose name contains one of ``kernels``, over ``reps`` (ms).  Also the
+    host calls per ``fn`` call that would hold the card back inside a
+    wrapper: stream synchronizations and host-to-device copies."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us, syncs, htod = 0.0, 0, 0
+    for e in prof.key_averages():
+        if any(k in e.key for k in kernels):
+            dev_us += getattr(e, "self_device_time_total", 0) or e.self_cuda_time_total
+        if e.key == "cudaStreamSynchronize":
+            syncs += e.count
+        if "HtoD" in e.key:
+            htod += e.count
+    if dev_us <= 0:
+        raise AssertionError(f"the profiler trace shows no device time for {kernels}")
+    return dict(device_ms=dev_us / 1e3 / reps, syncs_per_call=syncs / reps,
+                htod_per_call=htod / reps)
 
 
 class Phase:
@@ -252,17 +297,20 @@ def _bound(nbytes: float, flops: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _check_close(label, k, p, tol):
+def _check_close(label, k, again, p, tol):
     """Each output of a kernel against its plain version, relative to the
-    largest magnitude; returns the largest absolute difference."""
+    largest magnitude, and against a second call of the kernel on the same
+    inputs, bitwise; returns the largest absolute difference."""
     import torch
 
     errs = [rel_err(a, c) for a, c in zip(k, p)]
-    ok = all(e <= tol for e in errs) and all(bool(torch.isfinite(t).all()) for t in k)
-    log(f"{label}: rel err {' '.join(f'{e:.2e}' for e in errs)} (tol {tol:g}) "
-        f"{'ok' if ok else 'MISMATCH'}")
+    same = all(torch.equal(a, c) for a, c in zip(k, again))
+    ok = (all(e <= tol for e in errs) and all(bool(torch.isfinite(t).all()) for t in k)
+          and same)
+    log(f"{label}: rel err {' '.join(f'{e:.2e}' for e in errs)} (tol {tol:g}), "
+        f"{'bitwise repeatable' if same else 'NOT REPEATABLE'} {'ok' if ok else 'MISMATCH'}")
     if not ok:
-        raise AssertionError(f"{label} disagrees with its plain version")
+        raise AssertionError(f"{label} disagrees with its plain version or itself")
     return max(abs_err(a, c) for a, c in zip(k, p))
 
 
@@ -287,13 +335,17 @@ def phase_fused_glm(stats: dict):
         tol = F32_KERNEL_RTOL if dt == torch.float32 else F64_KERNEL_RTOL
         tag = f"n={n} d={d} {str(dt)[6:]}"
         for loss in losses:
+            def fvg():
+                return fused_value_and_grad(loss, w, b, margin_shift=shift)
+
+            def hvp():
+                return fused_hvp(loss, w, v, b, margin_shift=shift, v_shift=v_shift)
+
             e1 = _check_close(
-                f"fused_value_and_grad {tag} {loss.name} (value grad rsum)",
-                fused_value_and_grad(loss, w, b, margin_shift=shift),
+                f"fused_value_and_grad {tag} {loss.name} (value grad rsum)", fvg(), fvg(),
                 fused_value_and_grad_plain(loss, w, b, margin_shift=shift), tol)
             e2 = _check_close(
-                f"fused_hvp {tag} {loss.name} (Xtq sum q)",
-                fused_hvp(loss, w, v, b, margin_shift=shift, v_shift=v_shift),
+                f"fused_hvp {tag} {loss.name} (Xtq sum q)", hvp(), hvp(),
                 fused_hvp_plain(loss, w, v, b, margin_shift=shift, v_shift=v_shift), tol)
             if loss is L.logistic_loss and (n, d, dt) == (MAIN_N, MAIN_D, torch.float32):
                 worst["fused_value_and_grad"] = e1
@@ -310,7 +362,10 @@ def phase_fused_glm(stats: dict):
 def _time_fused(stats, n, d, w, v, b, shift, v_shift, gen):
     """Kernel, plain and library times of both fused kernels at one main-path
     shape (float32, logistic).  glmix_chip's shape is kernel 1's main path,
-    glmix2's is kernel 2's; the other shape is logged beside it."""
+    glmix2's is kernel 2's; the other shape is logged beside it.  The shifts
+    are 0-d tensors on the card, made once, as ``GLMObjective`` passes them:
+    a Python float costs the wrapper a blocking host-to-device copy per call,
+    which the event time would count (printed beside it as "float shifts")."""
     import torch
 
     from photon_ml_tpu_torch.core import losses as L
@@ -320,36 +375,47 @@ def _time_fused(stats, n, d, w, v, b, shift, v_shift, gen):
 
     loss = L.logistic_loss
     item = b.x.element_size()
+    sh, vsh = (torch.tensor(s, dtype=b.x.dtype, device="cuda") for s in (shift, v_shift))
     r = torch.rand(n, generator=gen, device="cuda", dtype=b.x.dtype)
     wv = torch.stack([w, v], dim=1)
     reps = 10 if n * d > 1 << 28 else 50
     rows = {
         "fused_value_and_grad": dict(
-            kernel=lambda: fused_value_and_grad(loss, w, b, shift),
-            plain=lambda: fused_value_and_grad_plain(loss, w, b, shift),
+            kernel=lambda: fused_value_and_grad(loss, w, b, sh),
+            float_shifts=lambda: fused_value_and_grad(loss, w, b, shift),
+            plain=lambda: fused_value_and_grad_plain(loss, w, b, sh),
             library=lambda: (torch.mv(b.x, w), torch.mv(b.x.T, r)),
-            library_name="torch.mv x2",
+            library_name="torch.mv x2", names=("fvg_",),
             nbytes=(n * d + 3 * n + d + d + 2) * item, flops=4 * n * d,
             main=(n, d) == (MAIN_N, MAIN_D)),
         "fused_hvp": dict(
-            kernel=lambda: fused_hvp(loss, w, v, b, shift, v_shift),
-            plain=lambda: fused_hvp_plain(loss, w, v, b, shift, v_shift),
+            kernel=lambda: fused_hvp(loss, w, v, b, sh, vsh),
+            float_shifts=lambda: fused_hvp(loss, w, v, b, shift, v_shift),
+            plain=lambda: fused_hvp_plain(loss, w, v, b, sh, vsh),
             library=lambda: (torch.mm(b.x, wv), torch.mv(b.x.T, r)),
-            library_name="torch.mm X[w|v] + torch.mv Xtq",
+            library_name="torch.mm X[w|v] + torch.mv Xtq", names=("hvp_",),
             nbytes=(n * d + 3 * n + 2 * d + d + 1) * item, flops=6 * n * d,
             main=(n, d) == (GLMIX2_N, GLMIX2_D)),
     }
     for name, row in rows.items():
         ms = cuda_ms(row["kernel"], reps)
+        float_ms = cuda_ms(row["float_shifts"], reps)
+        prof = profiled(row["kernel"], reps, row["names"] + ("reduce_partials",))
         plain_ms = cuda_ms(row["plain"], reps)
         lib_ms = cuda_ms(row["library"], reps)
         bound, by = _bound(row["nbytes"], row["flops"])
-        log(f"{name} timing n={n} d={d} float32 logistic: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library ({row['library_name']}) {lib_ms:.4f} ms, bound "
-            f"{bound:.4f} ms ({row['nbytes'] / 1e9:.3f} GB, {by}), "
-            f"{row['nbytes'] / (ms * 1e-3) / 1e12:.2f} TB/s")
+        log(f"{name} timing n={n} d={d} float32 logistic: kernel {ms:.4f} ms (events; "
+            f"device alone {prof['device_ms']:.4f} ms, {prof['syncs_per_call']:g} stream "
+            f"syncs and {prof['htod_per_call']:g} HtoD copies per call; float shifts "
+            f"{float_ms:.4f} ms), plain {plain_ms:.4f} ms, library ({row['library_name']}) "
+            f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({row['nbytes'] / 1e9:.3f} GB, {by}), "
+            f"{bound / prof['device_ms']:.0%} of bound, "
+            f"{row['nbytes'] / (prof['device_ms'] * 1e-3) / 1e12:.2f} TB/s")
+        if prof["syncs_per_call"] or prof["htod_per_call"]:
+            raise AssertionError(f"{name} syncs or copies to the card on the real path")
         if row["main"]:
-            stats.setdefault(name, {}).update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            stats.setdefault(name, {}).update(ms=ms, device_ms=prof["device_ms"],
+                                              plain_ms=plain_ms, library_ms=lib_ms,
                                               bound_ms=bound, bound_by=by)
 
 
@@ -422,6 +488,7 @@ def phase_soa_newton(stats: dict):
         if (d, cap, nl, dt) == (MAIN_DU, MAIN_CAP, MAIN_USERS, torch.float32):
             loss = L.logistic_loss
             ms = cuda_ms(lambda: newton_step(loss, *args), 20)
+            prof = profiled(lambda: newton_step(loss, *args), 20, ("newton_step_kernel",))
             plain_ms = cuda_ms(lambda: newton_step_plain(loss, *args), 5)
             lib_ms = cuda_ms(lambda: _library_newton(loss, *args), 5)
             item = args[0].element_size()
@@ -429,10 +496,16 @@ def phase_soa_newton(stats: dict):
             flops = nl * (cap * (2 * d + 10 + d + d * (d + 1)) + d ** 3 // 3 + 2 * d * d)
             bound, by = _bound(nbytes, flops)
             log(f"newton_step timing d={d} cap={cap} L={nl} float32 logistic: kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.3f} ms, library (einsum + cholesky + "
-                f"cholesky_solve) {lib_ms:.3f} ms, bound {bound:.4f} ms "
-                f"({nbytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP)")
-            stats["newton_step"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                f"{ms:.4f} ms (events; device alone {prof['device_ms']:.4f} ms, "
+                f"{prof['syncs_per_call']:g} stream syncs and {prof['htod_per_call']:g} "
+                f"HtoD copies per call), plain {plain_ms:.3f} ms, library (einsum + "
+                f"cholesky + cholesky_solve) {lib_ms:.3f} ms, bound {bound:.4f} ms "
+                f"({nbytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP), "
+                f"{bound / prof['device_ms']:.0%} of bound")
+            if prof["syncs_per_call"] or prof["htod_per_call"]:
+                raise AssertionError("newton_step syncs or copies to the card")
+            stats["newton_step"] = dict(ms=ms, device_ms=prof["device_ms"],
+                                        plain_ms=plain_ms, library_ms=lib_ms,
                                         bound_ms=bound, bound_by=by)
     stats.setdefault("newton_step", {})["max_abs_err"] = worst
 
@@ -705,14 +778,13 @@ def phase_card_vs_cpu(host, xg):
                   f"({m} rows)", gpu, cpu, _glmix_config(), ["per-user"])
 
 
-def _compact_case(num_e, dim, k_model, n, k_feat, dtype, gen):
-    """match_dot inputs on the card: sorted unique model rows (one id block
+def _compact_case(num_e, dim, k_model, n, k_feat, dtype, gen, dev="cuda"):
+    """match_dot inputs on ``dev``: sorted unique model rows (one id block
     per entry), ragged and padded with ``dim`` (value 0); slots in [-1, E);
     features mostly drawn from their entity's row, with a duplicate id in
     every third row and about 20% zero-valued padded slots."""
     import torch
 
-    dev = "cuda"
     block = dim // k_model
     w_idx = (torch.arange(k_model, device=dev) * block)[None, :] + torch.randint(
         0, block, (num_e, k_model), generator=gen, device=dev)
@@ -761,14 +833,21 @@ def _time_match_dot(label, args, reps):
     from photon_ml_tpu_torch.ops.compact_score import match_dot, match_dot_plain
 
     ms = cuda_ms(lambda: match_dot(*args), reps)
+    prof = profiled(lambda: match_dot(*args), reps, ("match_dot",))
     plain_ms = cuda_ms(lambda: match_dot_plain(*args), reps)
     lib_ms = cuda_ms(lambda: score_compact_sparse_search(*args), reps)
     bound, by, nbytes, ops = _compact_bound(args)
-    log(f"match_dot timing {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"match_dot timing {label}: kernel {ms:.4f} ms (events; device alone "
+        f"{prof['device_ms']:.4f} ms, {prof['syncs_per_call']:g} stream syncs and "
+        f"{prof['htod_per_call']:g} HtoD copies per call), plain {plain_ms:.4f} ms, "
         f"library (searchsorted chain) {lib_ms:.4f} ms, bound {bound:.4f} ms "
         f"({nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} M compare-selects, {by}), "
-        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+        f"{bound / prof['device_ms']:.0%} of bound, "
+        f"{nbytes / (prof['device_ms'] * 1e-3) / 1e12:.3f} TB/s")
+    if prof["syncs_per_call"] or prof["htod_per_call"]:
+        raise AssertionError("match_dot syncs or copies to the card")
+    return dict(ms=ms, device_ms=prof["device_ms"], plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=by)
 
 
 def _check_match_dot(label, args) -> float:
@@ -779,17 +858,21 @@ def _check_match_dot(label, args) -> float:
     from photon_ml_tpu_torch.ops.compact_score import match_dot, match_dot_plain
 
     k = match_dot(*args)
+    again = match_dot(*args)
     p = match_dot_plain(*args)
     torch.cuda.synchronize()
     tol = COMPACT_F32_RTOL if k.dtype == torch.float32 else F64_KERNEL_RTOL
     e = rel_err(k, p)
+    same = torch.equal(k, again)
     no_model = args[2] < 0
-    ok = (e <= tol and bool(torch.isfinite(k).all())
+    ok = (e <= tol and bool(torch.isfinite(k).all()) and same
           and not bool((k[no_model] != 0).any()))
     log(f"match_dot {label}: rel err vs plain {e:.2e} (tol {tol:g}), "
+        f"{'bitwise repeatable' if same else 'NOT REPEATABLE'}, "
         f"{int(no_model.sum())} no-model samples score 0 {'ok' if ok else 'MISMATCH'}")
     if not ok:
-        raise AssertionError(f"match_dot disagrees with its plain version at {label}")
+        raise AssertionError(f"match_dot disagrees with its plain version or itself at "
+                             f"{label}")
     return abs_err(k, p)
 
 
@@ -801,6 +884,7 @@ def phase_match_dot():
     b = COMPACT_BENCH
     cases = [(COMPACT_TIMED_NS[0], b["k_model"], b["k_feat"])]
     cases += [(n, km, kf) for n in COMPACT_NS for km, kf in COMPACT_WIDTHS]
+    cases += [(n, km, kf) for n in COMPACT_EDGE_NS for km, kf in COMPACT_EDGE_WIDTHS]
     cases += [(n, b["k_model"], b["k_feat"]) for n in COMPACT_TIMED_NS[1:]
               if n not in COMPACT_NS]
     for dt in (torch.float32, torch.float64):
@@ -864,14 +948,16 @@ def phase_sparse1m(stats: dict):
         kern.launches = 0
     cfg = _sparse1m_config()
     fits = {}
-    for where, device in (("card", "cuda"), ("cpu", "cpu")):
+    for where, device in (("card", "cuda"), ("card again", "cuda"), ("cpu", "cpu")):
         t0 = time.perf_counter()
         res = GameEstimator(device=device).fit(data, [cfg])[0]
         if where == "card":
             torch.cuda.synchronize()
             launches = {name: kern.launches for name, kern in kernels.items()}
         fits[where] = (res, time.perf_counter() - t0)
+    again = fits.pop("card again")[0].model["fixed"].coefficients.means
     w = {k: fits[k][0].model["fixed"].coefficients.means for k in fits}
+    repeatable = torch.equal(torch.as_tensor(w["card"]), torch.as_tensor(again))
     obj = {k: _poisson_objective(w[k], host, "cuda") for k in fits}
     obj0 = _poisson_objective(torch.zeros(host["dim"]), host, "cuda")
     it = {k: fits[k][0].history.steps[0]["solver_iterations"] for k in fits}
@@ -879,12 +965,14 @@ def phase_sparse1m(stats: dict):
     w_err = rel_err(w["card"], w["cpu"])
     o_err = abs(obj["card"] - obj["cpu"]) / abs(obj["cpu"])
     ok = (obj["card"] < obj0 and o_err <= SPARSE1M_OBJ_RTOL and w_err <= F32_PATH_RTOL
-          and bool(torch.isfinite(scores).all()) and scores.shape == (n,))
+          and repeatable and bool(torch.isfinite(scores).all()) and scores.shape == (n,))
     log(f"sparse1m: card fit {fits['card'][1]:.2f} s ({it['card']} TRON iterations), "
         f"objective {obj['card']:.6f} vs {obj0:.6f} at w = 0; CPU fit {fits['cpu'][1]:.2f} s "
         f"({it['cpu']} iterations), objective {obj['cpu']:.6f}; rel diff objective "
         f"{o_err:.2e} (tol {SPARSE1M_OBJ_RTOL:g}), coefficients {w_err:.2e} (tol "
-        f"{F32_PATH_RTOL:g}); launches {launches} {'ok' if ok else 'FAILED'}")
+        f"{F32_PATH_RTOL:g}); a second card fit "
+        f"{'bitwise equal' if repeatable else 'NOT BITWISE EQUAL'}; launches {launches} "
+        f"{'ok' if ok else 'FAILED'}")
     if not ok:
         raise AssertionError("sparse1m: the card fit is wrong or disagrees with the CPU")
     for name, v in launches.items():
@@ -1154,6 +1242,7 @@ def main() -> int:
                             "launches": sum(by_path.values()),
                             "launches_by_path": by_path,
                             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                            "device_ms": s["device_ms"],
                             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                             "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
         log(json.dumps({"kernels": kernels}))

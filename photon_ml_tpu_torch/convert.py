@@ -17,6 +17,8 @@ A caller holding a JAX ``GameModel`` fills the dict from its fixed
 ``coefficients.means``, its dense random effects' ``w_stack`` and its
 ``CompactRandomEffectModel``s' ``indices``, ``values`` and ``dim``, each
 with ``slot_of``, ``random_effect_type``, ``feature_shard`` and ``task``.
+Compact rows are checked on the way in (``models.game.check_compact_rows``):
+sorted ascending, unique ids, padding last, as scoring relies on.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from typing import Dict
 import numpy as np
 
 from photon_ml_tpu_torch.models.game import (CompactRandomEffectModel, FixedEffectModel,
-                                             GameModel, RandomEffectModel)
+                                             GameModel, RandomEffectModel,
+                                             check_compact_rows)
 from photon_ml_tpu_torch.models.glm import Coefficients
 from photon_ml_tpu_torch.types import TaskType
 
@@ -50,9 +53,10 @@ def game_model_from_arrays(d: Dict[str, dict]) -> GameModel:
                 random_effect_type=c["random_effect_type"],
                 feature_shard=c["feature_shard"], task=task)
         elif c["kind"] == "compact":
+            indices, values = np.array(c["indices"], np.int32), np.array(c["values"])
+            check_compact_rows(indices, values, int(c["dim"]))
             models[cid] = CompactRandomEffectModel(
-                indices=np.array(c["indices"], np.int32), values=np.array(c["values"]),
-                dim=int(c["dim"]), slot_of=_slot_of(c),
+                indices=indices, values=values, dim=int(c["dim"]), slot_of=_slot_of(c),
                 random_effect_type=c["random_effect_type"],
                 feature_shard=c["feature_shard"], task=task)
         else:

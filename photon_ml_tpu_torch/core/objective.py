@@ -11,13 +11,14 @@ on the card, its plain version for a batch on the CPU.
 A ``SparseBatch`` (row-padded COO) takes the JAX package's XLA path, which
 is no Pallas kernel: margins are a gather and a row sum, and Xᵀr is a
 scatter-add (``index_add_``) of value·r into each row's feature slots, in
-plain PyTorch.  On the CPU ``index_add_`` adds in row order, so the CPU tests
-hold the sparse objective to the JAX package's within 1e-12 relative in
-float64 (tests/test_torch_sparse.py).  On CUDA it adds with atomics, in an
-order that changes from run to run: the gradient and Hessian-vector product
-of a sparse batch are not bitwise repeatable on the card, and card and CPU
-fits over sparse shards are compared within the float32 path tolerance of
-chip_smoke.py (5e-3 relative), not bitwise.
+plain PyTorch.  Each column's terms are added in row order on both devices
+(``_xt_dot_sparse``), so the CPU tests hold the sparse objective to the JAX
+package's within 1e-12 relative in float64 (tests/test_torch_sparse.py), and
+a sparse fit on the card is bitwise repeatable: with atomics, the order of
+the float32 sums would change from run to run, and with it TRON's path near
+the optimum (its accepted and rejected steps).  Card and CPU fits over sparse
+shards are compared within the float32 path tolerance of chip_smoke.py
+(5e-3 relative), not bitwise: exp and log round differently.
 
 ``LaneObjective`` is the same objective over a random-effect bucket held
 lanes-first (x [L, cap, d], one GLM per lane, a per-lane L2 [L]): what the
@@ -45,10 +46,17 @@ Tensor = torch.Tensor
 
 def _xt_dot_sparse(batch: SparseBatch, r: Tensor) -> Tensor:
     """Xᵀr of a sparse batch: value·r scatter-added into each row's feature
-    slots; padded slots carry value 0 and add nothing wherever they point."""
+    slots; padded slots carry value 0 and add nothing wherever they point.
+    Each column's terms are added in row order on either device: on the CPU
+    by ``index_add_``; on CUDA, where ``index_add_`` adds with atomics in an
+    order that changes from run to run, by ``index_put_(accumulate=True)``,
+    which stable-sorts the slots by column first."""
     contrib = batch.values * r[:, None]
     out = torch.zeros(batch.dim, dtype=contrib.dtype, device=contrib.device)
-    return out.index_add_(0, batch.indices.reshape(-1), contrib.reshape(-1))
+    idx, terms = batch.indices.reshape(-1), contrib.reshape(-1)
+    if out.is_cuda:
+        return out.index_put_((idx,), terms, accumulate=True)
+    return out.index_add_(0, idx, terms)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -201,6 +201,24 @@ def score_compact_sparse(w_idx: Tensor, w_val: Tensor, slots: Tensor, f_idx: Ten
     return score_compact_sparse_search(w_idx, w_val, slots, f_idx, f_val)
 
 
+def check_compact_rows(indices: np.ndarray, values: np.ndarray, dim: int) -> None:
+    """Raise unless every compact row is what the match-dot kernel and the
+    searchsorted chain rely on: column ids in [0, dim) strictly ascending,
+    then only padding (id ``dim``, value 0)."""
+    idx, val = np.asarray(indices), np.asarray(values)
+    if idx.shape != val.shape or idx.ndim != 2:
+        raise ValueError(f"compact indices {idx.shape} and values {val.shape} must be "
+                         "one [E, k] shape")
+    pad = idx == dim
+    if ((idx < 0) | (idx > dim)).any() or (val[pad] != 0).any():
+        raise ValueError(f"compact ids must lie in [0, {dim}], padding (id {dim}) "
+                         "carrying value 0")
+    if (pad[:, :-1] & ~pad[:, 1:]).any() or \
+            ((np.diff(idx, axis=1) <= 0) & ~pad[:, 1:]).any():
+        raise ValueError("compact rows must be sorted ascending with unique ids, "
+                         "padding last")
+
+
 @dataclasses.dataclass(frozen=True)
 class CompactRandomEffectModel(DatumScoringModel):
     """Per-entity GLMs as sparse coefficient rows, the wide-vocabulary

@@ -131,7 +131,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                                            P, P]
         lib.newton_step_launch.restype = I
     elif name == "compact_score":
-        lib.match_dot_launch.argtypes = [I, P, P, L, I, P, P, P, L, I, P, P]
+        lib.match_dot_launch.argtypes = [I, P, P, L, I, P, P, P, L, I, I, I, P, P]
         lib.match_dot_launch.restype = I
     else:
         raise ValueError(f"unknown kernel library {name!r}")

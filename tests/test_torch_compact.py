@@ -267,3 +267,113 @@ def test_models_score_a_tensor_shard_as_dense():
         as_tensor = m.score(GameData(y=np.zeros(n), features={"u": torch.from_numpy(x)},
                                      id_tags={"userId": ids}), device="cpu")
         assert _rel(as_tensor, as_np) == 0.0
+
+
+def _lower_bound_walk(w_idx, w_val, slots, f_idx, f_val):
+    """The CUDA kernel's search, step for step, in PyTorch: per (sample,
+    feature) lane the lower bound of the feature id in its entity's row by
+    halving windows (lo += half while row[lo + half - 1] < id; len -= half),
+    then one compare; products summed over features in order."""
+    k_model = w_idx.shape[1]
+    valid = (slots >= 0) & (slots < w_idx.shape[0])
+    rows = w_idx[torch.where(valid, slots, 0).long()]
+    vals = w_val[torch.where(valid, slots, 0).long()]
+    fid = f_idx.long()
+    lo = torch.zeros_like(fid)
+    length = k_model
+    while length > 1:
+        half = length >> 1
+        probe = torch.gather(rows, 1, lo + half - 1).long()
+        lo = torch.where(probe < fid, lo + half, lo)
+        length -= half
+    hit = torch.gather(rows, 1, lo).long() == fid
+    prod = torch.where(hit, f_val * torch.gather(vals, 1, lo), 0.0)
+    return torch.where(valid, prod.sum(dim=1), 0.0)
+
+
+@pytest.mark.parametrize("k_model,k_feat", [(1, 1), (3, 5), (8, 24), (16, 24), (32, 24),
+                                            (33, 24), (24, 32), (64, 64)])
+def test_kernel_search_walk_matches_plain_on_sorted_rows(k_model, k_feat):
+    """On rows sorted ascending with unique ids and trailing padding, the
+    kernel's lower-bound walk computes match_dot_plain's function."""
+    args = [torch.from_numpy(a) for a in
+            _compact_inputs(29, 700, k_model, 257, k_feat, seed=k_model * k_feat)]
+    assert _rel(_lower_bound_walk(*args), tcs.match_dot_plain(*args)) <= RTOL
+
+
+@pytest.mark.parametrize("k_model,k_feat,group", [
+    (32, 24, 8), (16, 24, 8), (8, 24, 8), (33, 24, 8), (24, 32, 32), (64, 64, 32),
+    (16, 2, 2), (16, 12, 4), (16, 16, 16), (1, 1, 1), (4096, 1, 1), (3, 1365, 1)])
+def test_match_plan_groups(k_model, k_feat, group):
+    plan = tcs.match_plan(k_model, k_feat)
+    assert plan.group == group
+    # the lanes of a group take every feature exactly once
+    assert plan.feats_per_lane * plan.group >= k_feat > \
+        (plan.feats_per_lane - 1) * plan.group
+    assert plan.steps == int(np.ceil(np.log2(k_model))) + 1
+
+
+def test_match_plan_never_exceeds_the_flattened_walk():
+    """Over the whole eligible range, a sample's lane-steps (its group's
+    lanes, idle ones included, times the features a lane takes, times the
+    dependent loads of each search) fit in the warp-per-sample walk's
+    ceil(k_model * k_feat / 32) trips of 32 lanes; at glmix_sparse's (32, 24)
+    and the bench's (16, 24) they are a third of it or less."""
+    checked = 0
+    for k_model in range(1, tcs.MAX_MATCH_WORK + 1):
+        for k_feat in range(1, tcs.MAX_MATCH_WORK // k_model + 1):
+            assert tcs.eligible(k_model, k_feat)
+            plan = tcs.match_plan(k_model, k_feat)
+            assert 0 <= plan.log_group <= 5
+            assert plan.lane_steps <= 32 * tcs.flat_trips(k_model, k_feat), \
+                (k_model, k_feat, plan)
+            checked += 1
+    assert checked > 30_000
+    for k_model, k_feat in ((32, 24), (16, 24)):
+        plan = tcs.match_plan(k_model, k_feat)
+        assert plan.lane_steps * 3 <= 32 * tcs.flat_trips(k_model, k_feat)
+
+
+def _rows_sorted_unique_padded(indices, values, dim):
+    idx, val = np.asarray(indices), np.asarray(values)
+    for r, v in zip(idx, val):
+        real = r[r < dim]
+        assert (r[len(real):] == dim).all() and (v[len(real):] == 0).all()
+        assert (np.diff(real) > 0).all() and (real >= 0).all()
+
+
+def test_every_producer_gives_sorted_unique_rows():
+    """match_dot's kernel relies on sorted rows with unique ids and trailing
+    padding: to_compact (port and JAX, tight and roomy), convert's compact
+    kind and chip_smoke's generated cases all give them."""
+    jm, tm = _dense_re(seed=11)
+    for m in (tm.to_compact(), tm.to_compact(k=25), jm.to_compact()):
+        _rows_sorted_unique_padded(m.indices, m.values, m.dim)
+    jc = jm.to_compact()
+    arrays = {"u": {"kind": "compact", "indices": np.asarray(jc.indices),
+                    "values": np.asarray(jc.values), "dim": jc.dim,
+                    "slot_of": dict(jc.slot_of), "random_effect_type": "userId",
+                    "feature_shard": "u", "task": jc.task.value}}
+    cm = convert.game_model_from_arrays(arrays)["u"]
+    _rows_sorted_unique_padded(cm.indices, cm.values, cm.dim)
+
+    import chip_smoke
+
+    gen = torch.Generator().manual_seed(5)
+    for k_model in (1, 16, 33, 4096):
+        w_idx, w_val, *_ = chip_smoke._compact_case(50, 50_000, k_model, 10, 3,
+                                                    torch.float64, gen, dev="cpu")
+        _rows_sorted_unique_padded(w_idx.numpy(), w_val.numpy(), 50_000)
+
+
+@pytest.mark.parametrize("row,vals", [([5, 3, 9], [1.0, 2.0, 3.0]),  # unsorted
+                                      ([3, 3, 9], [1.0, 2.0, 3.0]),  # duplicate id
+                                      ([3, 10, 9], [1.0, 0.0, 3.0]),  # padding not last
+                                      ([3, 9, 10], [1.0, 3.0, 0.5])])  # padding value
+def test_convert_refuses_rows_the_kernel_cannot_search(row, vals):
+    arrays = {"u": {"kind": "compact", "indices": np.array([row, [1, 10, 10]], np.int32),
+                    "values": np.array([vals, [1.0, 0.0, 0.0]]), "dim": 10,
+                    "slot_of": {7: 0, 8: 1}, "random_effect_type": "userId",
+                    "feature_shard": "u", "task": TaskType.LOGISTIC_REGRESSION.value}}
+    with pytest.raises(ValueError, match="compact"):
+        convert.game_model_from_arrays(arrays)

@@ -160,6 +160,24 @@ def test_launch_shape_covers_rows_once():
         assert blocks <= 132 * 4
 
 
+@pytest.mark.parametrize("d", [1, 3, 100, 256, 512, 8192])
+@pytest.mark.parametrize("item", [4, 8])
+def test_launch_shape_tiles_every_row_once_and_fits_shared_memory(d, item):
+    """The fused kernels' plan at n below one tile, ragged n and glmix2's n:
+    the blocks' contiguous tile ranges cover every row exactly once, and a
+    block's shared memory (csrc/fused_glm.cu smem_bytes: the row tile, the
+    [d] accumulator, the tile's row coefficients and 16 scalar sums) fits
+    the H100's 227 KB."""
+    for n in (3, 1_000_003, 524_288):
+        tile, rpb, blocks = tfused.launch_shape(n, d, item, num_sms=132)
+        covered = np.zeros(n, np.int8)
+        for b in range(blocks):
+            for r0 in range(b * rpb, min(n, (b + 1) * rpb), tile):
+                covered[r0:min(r0 + tile, (b + 1) * rpb, n)] += 1
+        assert (covered == 1).all()
+        assert item * (tile * d + d + tile + 16) <= 227 << 10
+
+
 def _soa_inputs(d, num_l, cap, seed):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(cap, d, num_l))
