@@ -11,7 +11,8 @@ Phases, each printing its result and wall time on its own line:
    and spill-store bytes for every template instantiation;
 3. ``fused_value_and_grad`` and ``fused_hvp`` against their plain PyTorch
    versions on the card: the main paths' shapes (glmix_chip's n = 8,388,608,
-   d = 512 and glmix2's n = 524,288, d = 256, float32), d in {1, 3, 100,
+   d = 512, glmix2's n = 524,288, d = 256, and glmix2-norm-var's d = 257,
+   float32, timed too), d in {1, 3, 100,
    8192} with ragged n and n below one tile, all four losses, weight-0 rows,
    nonzero shifts, float32 and float64, each kernel twice (bitwise equal);
    times of each kernel (CUDA events over back-to-back calls with the shifts
@@ -66,8 +67,28 @@ Phases, each printing its result and wall time on its own line:
 13. phase 12's fit against the same full-width fit on the CPU (the plain
     match-dot scores there): coefficients, compact-model scores and the
     GAME objective, within stated float32 tolerances;
-14. one JSON line describing each kernel, with its launches on each path
-    and its device time alone (``device_ms``) beside the event time (``ms``).
+15. glmix2-norm-var at full width: glmix2's rows with an intercept column
+    (257 fixed features), the fixed shard under STANDARDIZATION (nonzero
+    margin shifts through both fused kernels) with SIMPLE variances, the
+    per-user shard under SCALE_WITH_STANDARD_DEVIATION (a shared context:
+    lane TRON) with FULL variances; TRON on both; feature stats on the card;
+    ``fused_value_and_grad`` and ``fused_hvp`` launches > 0, AUC against the
+    Bayes AUC, the fixed SIMPLE variances against a float64 recomputation
+    from the raw design, the per-user FULL variances finite, positive and,
+    for 16 seeded users, against float64 inverse Hessians; the fit time and
+    what variances add to it;
+16. card against CPU with normalization and variances, within the float32
+    path tolerance: (a) phase 15's configuration at scale 8; (b) sparse1m at
+    full width under SCALE_WITH_MAX_MAGNITUDE from its sparse stats, SIMPLE
+    variances (objectives within 1e-5, a second card fit bitwise equal);
+    (c) glmix_chip at 4,096 users with SIMPLE variances on both coordinates
+    (the per-user one on the SoA path, ``newton_step`` launches > 0); (d)
+    glmix_sparse at full width with SIMPLE variances on the compact per-user
+    coordinate (``to_compact`` must refuse the model; scores through the
+    dense model);
+14. printed last, after phases 15 and 16: one JSON line describing each
+    kernel, with its launches on each path and its device time alone
+    (``device_ms``) beside the event time (``ms``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero and prints no result; so does a run without a
@@ -108,6 +129,12 @@ F32_OBJECTIVE_RTOL = 1e-4  # glmix2 GAME objective, TRON vs L-BFGS on the card,
 # ~5e-7 relative) or 1e-7; two sweeps of coordinate descent from both leave
 # the objectives ~1e-6 apart
 
+VARIANCE_F32_RTOL = 1e-4  # glmix2-norm-var's float32 variances on the card vs a
+# float64 recomputation at the same published optimum: the SIMPLE diagonal
+# sums 524,288 float32 terms a feature in row chunks (~1e-6 relative), and
+# the FULL variances invert 16x16 float32 Hessians of condition ~10^2 by
+# Cholesky (~eps·cond); both well inside 1e-4
+
 COMPACT_F32_RTOL = 1e-5  # match_dot vs plain, float32, relative to the
 # largest score: a sample sums at most k_model matched products (64 at the
 # largest tested width) in another order, a few ulps of the largest term
@@ -124,7 +151,11 @@ REDUCED_USERS = 4096
 GLMIX2_N, GLMIX2_D = 524_288, 256
 GLMIX3_N = 262_144
 REDUCED_GLMIX2_SCALE = 8  # 2048 users x 32 rows
+NORM_VAR_II = GLMIX2_D  # glmix2-norm-var: the intercept column appended to glmix2's
+FULL_VARIANCE_ENTITIES, FULL_VARIANCE_SEED = 16, 6  # per-user FULL variance check
+NORM_VAR_SCALE_SEED = 7  # glmix2-norm-var: the per-column scales and shifts
 FUSED_CASES = [(MAIN_N, MAIN_D, "float32"), (GLMIX2_N, GLMIX2_D, "float32"),
+               (GLMIX2_N, NORM_VAR_II + 1, "float32"),  # glmix2-norm-var: odd rows
                (3_000_001, 1, "float32"),
                (1_000_003, 100, "float32"), (65_537, 8192, "float32"),
                (1_000_003, 1, "float64"), (200_003, 100, "float64"),
@@ -351,7 +382,8 @@ def phase_fused_glm(stats: dict):
                 worst["fused_value_and_grad"] = e1
             if loss is L.logistic_loss and (n, d, dt) == (GLMIX2_N, GLMIX2_D, torch.float32):
                 worst["fused_hvp"] = e2
-        if dt == torch.float32 and (n, d) in ((MAIN_N, MAIN_D), (GLMIX2_N, GLMIX2_D)):
+        if dt == torch.float32 and (n, d) in ((MAIN_N, MAIN_D), (GLMIX2_N, GLMIX2_D),
+                                              (GLMIX2_N, NORM_VAR_II + 1)):
             _time_fused(stats, n, d, w, v, b, shift, v_shift, gen)
         del w, v, b
         torch.cuda.empty_cache()
@@ -510,21 +542,23 @@ def phase_soa_newton(stats: dict):
     stats.setdefault("newton_step", {})["max_abs_err"] = worst
 
 
-def _glmix_config(num_iters=2):
+def _glmix_config(num_iters=2, variance="none"):
     from photon_ml_tpu_torch.core.regularization import Regularization
     from photon_ml_tpu_torch.game import FixedEffectConfig, GameConfig, RandomEffectConfig
     from photon_ml_tpu_torch.opt.types import SolverConfig
-    from photon_ml_tpu_torch.types import TaskType
+    from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
 
     s = SolverConfig(max_iters=30, tolerance=1e-7)
+    var = VarianceComputationType(variance)
     return GameConfig(task=TaskType.LOGISTIC_REGRESSION, num_outer_iterations=num_iters,
                       coordinates={
                           "fixed": FixedEffectConfig(feature_shard="g", solver=s,
-                                                     reg=Regularization(l2=1.0)),
+                                                     reg=Regularization(l2=1.0),
+                                                     variance=var),
                           "per-user": RandomEffectConfig(
                               random_effect_type="userId", feature_shard="u",
                               solver=s, reg=Regularization(l2=1.0),
-                              active_cap=MAIN_CAP)})
+                              active_cap=MAIN_CAP, variance=var)})
 
 
 def _baseline_config(three: bool, optimizer):
@@ -562,14 +596,14 @@ def _baseline_data(host: dict):
     return GameData(y=host["y"], features=feats, id_tags=tags)
 
 
-def _fit_and_score(data, device, config):
+def _fit_and_score(data, device, config, normalization=None):
     import torch
 
     from photon_ml_tpu_torch.evaluation.metrics import auc_roc
     from photon_ml_tpu_torch.game import GameEstimator
 
     t0 = time.perf_counter()
-    res = GameEstimator(device=device).fit(data, [config])[0]
+    res = GameEstimator(device=device, normalization=normalization).fit(data, [config])[0]
     if device == "cuda":
         torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
@@ -591,18 +625,35 @@ def _counted_kernels() -> dict:
             "newton_step": newton_step, "match_dot": match_dot}
 
 
-def _drive(path: str, data, config, stats: dict, required):
+def _zero_launches() -> dict:
+    kernels = _counted_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    return kernels
+
+
+def _record_launches(path: str, kernels: dict, stats: dict, required) -> dict:
+    """Each kernel's launches since ``_zero_launches``, recorded under
+    ``path``; each kernel in ``required`` must have launched."""
+    launches = {name: k.launches for name, k in kernels.items()}
+    for name in required:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the {path} path")
+    for name, v in launches.items():
+        stats.setdefault(name, {}).setdefault("launches_by_path", {})[path] = v
+    return launches
+
+
+def _drive(path: str, data, config, stats: dict, required, normalization=None):
     """One main path on the card: fit -> score -> AUC, with every kernel's
     launch count set to 0 just before and read just after; each kernel in
     ``required`` must have launched, and the scores must be finite."""
     import torch
 
-    kernels = _counted_kernels()
-    for k in kernels.values():
-        k.launches = 0
+    kernels = _zero_launches()
     torch.cuda.reset_peak_memory_stats()
-    res, scores, auc, t_fit, t_score = _fit_and_score(data, "cuda", config)
-    launches = {name: k.launches for name, k in kernels.items()}
+    res, scores, auc, t_fit, t_score = _fit_and_score(data, "cuda", config, normalization)
+    launches = _record_launches(path, kernels, stats, required)
     upd = ", ".join(f"it{s['iteration']} {s['coordinate']} {s['seconds']:.3f} s"
                     for s in res.history.steps)
     t_upd = sum(s["seconds"] for s in res.history.steps)
@@ -612,11 +663,6 @@ def _drive(path: str, data, config, stats: dict, required):
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if not bool(torch.isfinite(scores).all()) or scores.shape != (data.num_samples,):
         raise AssertionError(f"{path} scores are not finite of shape [n]")
-    for name in required:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the {path} path")
-    for name, v in launches.items():
-        stats.setdefault(name, {}).setdefault("launches_by_path", {})[path] = v
     stats[path] = dict(fit_s=t_fit, build_s=t_fit - t_upd, score_s=t_score, auc=auc)
     return res, scores, auc
 
@@ -734,16 +780,40 @@ def phase_glmix3(stats: dict):
     _check_bayes("glmix3", auc, _bayes_auc(host))
 
 
-def _compare_fits(label, data_gpu, data_cpu, config, coords):
-    rg, sg, auc_g, tg, _ = _fit_and_score(data_gpu, "cuda", config)
-    rc, sc, auc_c, tc, _ = _fit_and_score(data_cpu, "cpu", config)
-    errs = {"fixed": rel_err(rg.model["fixed"].coefficients.means,
-                             rc.model["fixed"].coefficients.means)}
+def _compare_fits(label, data_gpu, data_cpu, config, coords, norms=(None, None),
+                  path=None, stats=None, required=(), check_card=None):
+    """Card and CPU fits of ``config`` (under the normalization contexts
+    ``norms``, one per device): coefficients, variances where the config
+    asks for them, scores and AUC; random-effect stacks are compared on the
+    card.  With ``path``, the card fit's kernel launches are counted (from
+    0) and recorded under it.  ``check_card`` gets the card fit's result
+    before the CPU fit."""
+    import torch
+
+    kernels = _zero_launches()
+    rg, sg, auc_g, tg, _ = _fit_and_score(data_gpu, "cuda", config, norms[0])
+    if path is not None:
+        _record_launches(path, kernels, stats, required)
+    if check_card is not None:
+        check_card(rg)
+    rc, sc, auc_c, tc, _ = _fit_and_score(data_cpu, "cpu", config, norms[1])
+    fg, fc = rg.model["fixed"].coefficients, rc.model["fixed"].coefficients
+    errs = {"fixed": rel_err(fg.means, fc.means)}
+    if (fg.variances is None) != (fc.variances is None):
+        raise AssertionError(f"{label}: only one of the fits has fixed-effect variances")
+    if fc.variances is not None:
+        errs["fixed variances"] = rel_err(fg.variances, fc.variances)
     for cid in coords:
-        if rg.model[cid].slot_of != rc.model[cid].slot_of:
+        mg, mc = rg.model[cid], rc.model[cid]
+        if mg.slot_of != mc.slot_of:
             raise AssertionError(f"{label}: card and CPU {cid} models have different "
                                  "entities")
-        errs[cid] = rel_err(rg.model[cid].w_stack, rc.model[cid].w_stack)
+        on_card = lambda a: torch.as_tensor(a, device="cuda")
+        errs[cid] = rel_err(on_card(mg.w_stack), on_card(mc.w_stack))
+        if (mg.variances is None) != (mc.variances is None):
+            raise AssertionError(f"{label}: only one of the fits has {cid} variances")
+        if mc.variances is not None:
+            errs[f"{cid} variances"] = rel_err(on_card(mg.variances), on_card(mc.variances))
     errs["scores"] = rel_err(sg.cpu(), sc)
     ok = max(errs.values()) <= F32_PATH_RTOL and abs(auc_g - auc_c) <= 1e-3
     log(f"card vs CPU, {label}: fit {tg:.2f} s vs {tc:.2f} s; max rel diff "
@@ -774,8 +844,12 @@ def phase_card_vs_cpu(host, xg):
                  id_tags={"userId": host["uids"][:m]})
     gpu = GameData(features={"g": xg[:m].contiguous(), "u": host["xu"][:m]}, **parts)
     cpu = GameData(features={"g": xg[:m].cpu(), "u": host["xu"][:m]}, **parts)
-    _compare_fits(f"glmix_chip at {REDUCED_USERS} users x {host['per_user']} rows "
-                  f"({m} rows)", gpu, cpu, _glmix_config(), ["per-user"])
+    label = f"glmix_chip at {REDUCED_USERS} users x {host['per_user']} rows ({m} rows)"
+    _compare_fits(label, gpu, cpu, _glmix_config(), ["per-user"])
+    # phase 16 (c) fits these rows again: a copy of its own, since the slice
+    # above is a view that would keep the whole 17 GB design on the card
+    gpu = GameData(features={"g": xg[:m].clone(), "u": host["xu"][:m]}, **parts)
+    return label, gpu, cpu
 
 
 def _compact_case(num_e, dim, k_model, n, k_feat, dtype, gen, dev="cuda"):
@@ -900,34 +974,39 @@ def phase_match_dot():
     torch.cuda.empty_cache()
 
 
-def _sparse1m_config():
+def _sparse1m_config(variance="none"):
     from photon_ml_tpu_torch.core.regularization import Regularization
     from photon_ml_tpu_torch.game import FixedEffectConfig, GameConfig
     from photon_ml_tpu_torch.opt.types import SolverConfig
-    from photon_ml_tpu_torch.types import OptimizerType, TaskType
+    from photon_ml_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
 
     # bench.py run_sparse1m: TRON with its default settings, L2 1.0
     return GameConfig(task=TaskType.POISSON_REGRESSION, num_outer_iterations=1,
                       coordinates={"fixed": FixedEffectConfig(
                           feature_shard="g", optimizer=OptimizerType.TRON,
                           solver=SolverConfig.tron_default(),
-                          reg=Regularization(l2=1.0))})
+                          reg=Regularization(l2=1.0),
+                          variance=VarianceComputationType(variance))})
 
 
-def _poisson_objective(w, host, device) -> float:
-    """The sparse1m objective Σ (exp(z) - y z) + (1 / 2)||w||² at ``w``, in
-    float64 on ``device``."""
+def _poisson_objective(w, host, device, norm=None) -> float:
+    """The sparse1m objective Σ (exp(z) - y z) + (1 / 2)||w'||² at the
+    original-space ``w``, w' its transformed-space twin under ``norm`` (w
+    itself without one), in float64 on ``device``."""
     import torch
 
     from photon_ml_tpu_torch.core.batch import sparse_batch
     from photon_ml_tpu_torch.core.losses import poisson_loss
+    from photon_ml_tpu_torch.core.normalization import no_normalization
     from photon_ml_tpu_torch.core.objective import GLMObjective
     from photon_ml_tpu_torch.core.regularization import Regularization
 
     b = sparse_batch(host["indices"], host["values"], host["y"], host["dim"],
                      dtype=torch.float64, device=device)
-    obj = GLMObjective(loss=poisson_loss, reg=Regularization(l2=1.0))
-    return float(obj.value_and_grad(torch.as_tensor(w, device=device).double(), b)[0])
+    norm = (norm or no_normalization()).to(torch.float64, torch.device(device))
+    w_t = norm.model_to_transformed_space(torch.as_tensor(w, device=device).double(), None)
+    obj = GLMObjective(loss=poisson_loss, reg=Regularization(l2=1.0), norm=norm)
+    return float(obj.value_and_grad(w_t, b)[0])
 
 
 def phase_sparse1m(stats: dict):
@@ -982,11 +1061,11 @@ def phase_sparse1m(stats: dict):
                              objective_w0=obj0)
 
 
-def _glmix_sparse_config(num_iters=2):
+def _glmix_sparse_config(num_iters=2, user_variance="none"):
     from photon_ml_tpu_torch.core.regularization import Regularization
     from photon_ml_tpu_torch.game import FixedEffectConfig, GameConfig, RandomEffectConfig
     from photon_ml_tpu_torch.opt.types import SolverConfig
-    from photon_ml_tpu_torch.types import OptimizerType, TaskType
+    from photon_ml_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
 
     reg = Regularization(l2=1.0)
     return GameConfig(task=TaskType.LOGISTIC_REGRESSION, num_outer_iterations=num_iters,
@@ -996,7 +1075,8 @@ def _glmix_sparse_config(num_iters=2):
                               solver=SolverConfig.tron_default(), reg=reg),
                           "per-user": RandomEffectConfig(
                               random_effect_type="userId", feature_shard="u",
-                              solver=SolverConfig(max_iters=30, tolerance=1e-7), reg=reg)})
+                              solver=SolverConfig(max_iters=30, tolerance=1e-7), reg=reg,
+                              variance=VarianceComputationType(user_variance))})
 
 
 def _glmix_sparse_data(host):
@@ -1165,6 +1245,366 @@ def phase_glmix_sparse_card_vs_cpu(card: dict):
                              "tolerance")
 
 
+def _with_intercept(host: dict) -> dict:
+    """glmix2's data, scaled and shifted as raw features are, with a column
+    of ones appended to the fixed shard as its intercept (d = 257, index
+    NORM_VAR_II).  Fixed column j becomes xg_j·a_j + c_j and per-user column
+    j becomes xu_j·b_j, with a and b log-uniform in [1/2, 2] and c uniform in
+    [-1, 1] (seed NORM_VAR_SCALE_SEED).  STANDARDIZATION of the fixed shard
+    and SCALE_WITH_STANDARD_DEVIATION of the per-user shard undo these maps
+    up to sampling noise, so the transformed problems and the Bayes AUC stay
+    glmix2's while the shifts and factors are far from the identity's."""
+    import numpy as np
+
+    rng = np.random.default_rng(NORM_VAR_SCALE_SEED)
+    n, d_g = host["xg"].shape
+    d_u = host["xu"].shape[1]
+    a = np.exp(rng.uniform(-np.log(2.0), np.log(2.0), d_g)).astype(np.float32)
+    c = rng.uniform(-1.0, 1.0, d_g).astype(np.float32)
+    b = np.exp(rng.uniform(-np.log(2.0), np.log(2.0), d_u)).astype(np.float32)
+    xg = np.concatenate([host["xg"] * a + c, np.ones((n, 1), np.float32)], axis=1)
+    return dict(host, xg=xg, xu=host["xu"] * b)
+
+
+def _norm_var_config(variances=True, num_iters=2):
+    """glmix2-norm-var: ``_baseline_config``'s glmix2 under TRON, the fixed
+    effect with its intercept and SIMPLE variances, the per-user coordinate
+    with FULL variances (NONE for both when ``variances`` is False)."""
+    from photon_ml_tpu_torch.core.regularization import Regularization
+    from photon_ml_tpu_torch.game import FixedEffectConfig, GameConfig, RandomEffectConfig
+    from photon_ml_tpu_torch.opt.types import SolverConfig
+    from photon_ml_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
+
+    s = SolverConfig(max_iters=30, tolerance=1e-7)
+    reg = Regularization(l2=1.0)
+    var = VarianceComputationType
+    return GameConfig(task=TaskType.LOGISTIC_REGRESSION, num_outer_iterations=num_iters,
+                      coordinates={
+                          "fixed": FixedEffectConfig(
+                              feature_shard="g", optimizer=OptimizerType.TRON, solver=s,
+                              reg=reg, intercept_index=NORM_VAR_II,
+                              variance=var.SIMPLE if variances else var.NONE),
+                          "per-user": RandomEffectConfig(
+                              random_effect_type="userId", feature_shard="u",
+                              optimizer=OptimizerType.TRON, solver=s, reg=reg,
+                              variance=var.FULL if variances else var.NONE)})
+
+
+def _norm_var_contexts(xg, xu):
+    """({shard: context}, seconds): STANDARDIZATION of the fixed shard and
+    SCALE_WITH_STANDARD_DEVIATION of the per-user shard, from their dense
+    feature stats on the tensors' device."""
+    import torch
+
+    from photon_ml_tpu_torch.core.normalization import (build_normalization,
+                                                        compute_feature_stats)
+    from photon_ml_tpu_torch.types import NormalizationType
+
+    t0 = time.perf_counter()
+    ctx_g = build_normalization(NormalizationType.STANDARDIZATION,
+                                compute_feature_stats(xg, intercept_index=NORM_VAR_II))
+    ctx_u = build_normalization(NormalizationType.SCALE_WITH_STANDARD_DEVIATION,
+                                compute_feature_stats(xu))
+    if xg.is_cuda:
+        torch.cuda.synchronize()
+    return {"g": ctx_g, "u": ctx_u}, time.perf_counter() - t0
+
+
+def _norm_var_data(host: dict, device: str):
+    """(GameData, xg, xu): the shards as tensors on ``device``."""
+    import torch
+
+    from photon_ml_tpu_torch.game import GameData
+
+    xg = torch.as_tensor(host["xg"], device=device)
+    xu = torch.as_tensor(host["xu"], device=device)
+    data = GameData(y=host["y"], features={"g": xg, "u": xu},
+                    id_tags={"userId": host["uids"]})
+    return data, xg, xu
+
+
+def _elementwise_rel(a, b) -> float:
+    import torch
+
+    a = torch.as_tensor(a).double()
+    b = torch.as_tensor(b).double().to(a.device)
+    return float(((a - b).abs() / b.abs()).max())
+
+
+def _fixed_simple_variance_err(res, xg, ctx, offsets, l2: float):
+    """The fixed effect's published SIMPLE variances, every feature but the
+    intercept, against a float64 recomputation on the card from the raw
+    design: at the transformed-space optimum w' (``model_to_transformed_space``
+    of the published means), Σ p(1-p)·((x_j - s_j)·f_j)² + λ with p the
+    logistic mean of ((x - s)·f)·w' + offset, inverted and mapped by the same
+    coefficient map as the means.  Returns (the largest relative difference,
+    the same measure for variances from a diagonal without the shift terms,
+    Σ p(1-p)·(x_j·f_j)² + λ): the second must lie far above the gate for the
+    gate to see the shifts."""
+    import torch
+
+    ctx = ctx.to(torch.float64, xg.device)
+    coef = res.model["fixed"].coefficients
+    w_t = ctx.model_to_transformed_space(
+        torch.as_tensor(coef.means, device=xg.device).double(), NORM_VAR_II)
+    diag, unshifted = torch.zeros_like(w_t), torch.zeros_like(w_t)
+    step = 1 << 16
+    for lo in range(0, xg.shape[0], step):
+        xc = xg[lo:lo + step].double()
+        xn = (xc - ctx.shifts) * ctx.factors
+        q = torch.sigmoid(xn @ w_t + offsets[lo:lo + step])
+        q = q * (1.0 - q)
+        diag += q @ (xn * xn)
+        unshifted += q @ (xc * ctx.factors) ** 2
+    expected, wrong = (ctx.model_to_original_space(1.0 / (h + l2), NORM_VAR_II)
+                       for h in (diag, unshifted))
+    keep = torch.arange(len(w_t), device=xg.device) != NORM_VAR_II
+    return (_elementwise_rel(torch.as_tensor(coef.variances, device=xg.device)[keep],
+                             expected[keep]),
+            _elementwise_rel(wrong[keep], expected[keep]))
+
+
+def _user_full_variance_err(res, xu, uids, ctx, offsets, l2: float) -> float:
+    """The per-user FULL variances of FULL_VARIANCE_ENTITIES seeded entities
+    against the diagonal of a float64 ``torch.linalg.inv`` of each entity's
+    transformed-space Hessian at its published optimum (all its rows), mapped
+    by the same coefficient map; the largest relative difference."""
+    import numpy as np
+    import torch
+
+    ctx = ctx.to(torch.float64, xu.device)
+    model = res.model["per-user"]
+    ids = np.random.default_rng(FULL_VARIANCE_SEED).choice(
+        sorted(model.slot_of), FULL_VARIANCE_ENTITIES, replace=False)
+    uids = torch.as_tensor(uids, device=xu.device)
+    eye = torch.eye(xu.shape[1], dtype=torch.float64, device=xu.device)
+    worst = 0.0
+    for e in ids:
+        rows = uids == int(e)
+        slot = model.slot_of[int(e)]
+        w_t = ctx.model_to_transformed_space(
+            torch.as_tensor(model.w_stack[slot], device=xu.device).double(), None)
+        xn = xu[rows].double() * ctx.factors
+        p = torch.sigmoid(xn @ w_t + offsets[rows])
+        h = (xn * (p * (1.0 - p))[:, None]).T @ xn + l2 * eye
+        expected = ctx.model_to_original_space(torch.diagonal(torch.linalg.inv(h)), None)
+        worst = max(worst, _elementwise_rel(
+            torch.as_tensor(model.variances[slot], device=xu.device), expected))
+    return worst
+
+
+def phase_glmix2_norm_var(stats: dict):
+    """glmix2-norm-var at full width: normalization and variances through
+    ``GameEstimator.fit`` on the card, with nonzero margin shifts in the
+    fused kernels."""
+    import torch
+
+    from photon_ml_tpu_torch.data.synthetic import synth_glmix
+    from photon_ml_tpu_torch.game import GameEstimator
+
+    t0 = time.perf_counter()
+    host = _with_intercept(synth_glmix(1, three=False))
+    data, xg, xu = _norm_var_data(host, "cuda")
+    assert tuple(xg.shape) == (GLMIX2_N, NORM_VAR_II + 1), tuple(xg.shape)
+    log(f"glmix2-norm-var data: {GLMIX2_N} rows x {NORM_VAR_II + 1} fixed (intercept "
+        f"column {NORM_VAR_II}) + {xu.shape[1]} per-user features, 2048 users, generated "
+        f"on the host in {time.perf_counter() - t0:.2f} s")
+    norms, t_stats = _norm_var_contexts(xg, xu)
+    spread = lambda f: (float(f.min()), float(f.max()))
+    log(f"glmix2-norm-var feature stats + contexts on the card {t_stats:.4f} s; fixed "
+        f"shard STANDARDIZATION (max |shift| {float(norms['g'].shifts.abs().max()):.3e}, "
+        f"factors in [{spread(norms['g'].factors)[0]:.3f}, "
+        f"{spread(norms['g'].factors)[1]:.3f}]), per-user SCALE_WITH_STANDARD_DEVIATION "
+        f"(factors in [{spread(norms['u'].factors)[0]:.3f}, "
+        f"{spread(norms['u'].factors)[1]:.3f}])")
+    res, scores, auc = _drive("glmix2_norm_var", data, _norm_var_config(), stats,
+                              required=("fused_value_and_grad", "fused_hvp"),
+                              normalization=norms)
+    bayes = _bayes_auc(host)
+    _check_bayes("glmix2_norm_var", auc, bayes)
+
+    # what variances add to the fit: the same fit without them, then with
+    # them again (both after the driven fit, so neither pays a first call)
+    _, _, _, t_plain, _ = _fit_and_score(data, "cuda", _norm_var_config(False), norms)
+    _, _, _, t_var, _ = _fit_and_score(data, "cuda", _norm_var_config(), norms)
+    t_fit = stats["glmix2_norm_var"]["fit_s"]
+    log(f"glmix2-norm-var: fit with variances {t_fit:.3f} s (driven) and {t_var:.3f} s "
+        f"(again), without {t_plain:.3f} s (variances add {t_var - t_plain:.3f} s); "
+        f"feature stats {t_stats:.4f} s")
+
+    # the offsets each coordinate's last update saw: the fixed effect (first
+    # in the sweep) the per-user model of sweep 1; the per-user coordinate
+    # the final fixed model
+    one = GameEstimator(device="cuda", normalization=norms).fit(
+        data, [_norm_var_config(False, num_iters=1)])[0]
+    off_fixed = one.model["per-user"].score(data, device="cuda").double()
+    off_user = res.model["fixed"].score(data, device="cuda").double()
+    l2 = 1.0
+    v_user = torch.as_tensor(res.model["per-user"].variances, device="cuda")
+    positive = bool(torch.isfinite(v_user).all()) and bool((v_user > 0).all())
+    e_fixed, e_unshifted = _fixed_simple_variance_err(res, xg, norms["g"], off_fixed, l2)
+    e_user = _user_full_variance_err(res, xu, host["uids"], norms["u"], off_user, l2)
+    intercept_var = float(res.model["fixed"].coefficients.variances[NORM_VAR_II])
+    ok = (positive and e_fixed <= VARIANCE_F32_RTOL and e_user <= VARIANCE_F32_RTOL
+          and e_unshifted > 100 * VARIANCE_F32_RTOL)
+    log(f"glmix2-norm-var variances: fixed SIMPLE vs float64 recomputation, every "
+        f"feature but the intercept, max rel diff {e_fixed:.2e} (a diagonal without the "
+        f"shift terms would read {e_unshifted:.2e}; must exceed "
+        f"{100 * VARIANCE_F32_RTOL:g}); the intercept's mapped "
+        f"entry {intercept_var:.6e}; per-user FULL {tuple(v_user.shape)} finite and "
+        f"positive: {positive}; {FULL_VARIANCE_ENTITIES} entities vs float64 inverse "
+        f"Hessians, max rel diff {e_user:.2e} (tol {VARIANCE_F32_RTOL:g}) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("glmix2-norm-var: the variances are wrong")
+    var_ms = _time_norm_var_variances(res, host, xg, xu, norms, off_fixed, off_user, l2)
+    stats["glmix2_norm_var"].update(fit_plain_s=t_plain, fit_var_again_s=t_var,
+                                    stats_s=t_stats, bayes_auc=bayes, fixed_var_err=e_fixed,
+                                    fixed_var_unshifted_err=e_unshifted,
+                                    user_var_err=e_user, **var_ms)
+
+
+def _time_norm_var_variances(res, host, xg, xu, norms, off_fixed, off_user, l2) -> dict:
+    """CUDA-event times of one update's variance computations at
+    glmix2-norm-var's published optimum: the fixed effect's SIMPLE diagonal
+    (``compute_variances``) and the per-user FULL variances of the one
+    [2048, 256, 16] bucket (``compute_variances`` over a ``LaneObjective``), each warm."""
+    import numpy as np
+    import torch
+
+    from photon_ml_tpu_torch.core.batch import DenseBatch
+    from photon_ml_tpu_torch.core.losses import logistic_loss
+    from photon_ml_tpu_torch.core.objective import GLMObjective, LaneObjective
+    from photon_ml_tpu_torch.core.regularization import Regularization
+    from photon_ml_tpu_torch.opt.solve import compute_variances
+    from photon_ml_tpu_torch.types import VarianceComputationType as Var
+
+    y = torch.as_tensor(host["y"], device="cuda")
+    ctx_g, ctx_u = norms["g"], norms["u"]
+    w_g = ctx_g.model_to_transformed_space(
+        torch.as_tensor(res.model["fixed"].coefficients.means, device="cuda"), NORM_VAR_II)
+    obj = GLMObjective(loss=logistic_loss, reg=Regularization(l2=l2), norm=ctx_g)
+    batch = DenseBatch(x=xg, y=y, offset=off_fixed.float(), weight=torch.ones_like(y))
+    fixed_ms = cuda_ms(lambda: compute_variances(obj, w_g, batch, Var.SIMPLE), 10)
+
+    model = res.model["per-user"]
+    order = torch.as_tensor(np.argsort(host["uids"], kind="stable"), device="cuda")
+    users = len(model.slot_of)
+    lanes = lambda t: t[order].reshape(users, -1, *t.shape[1:])
+    ids = np.unique(host["uids"])
+    w_u = ctx_u.model_to_transformed_space(torch.as_tensor(
+        model.w_stack[[model.slot_of[int(e)] for e in ids]], device="cuda"), None)
+    lane_batch = DenseBatch(x=lanes(xu), y=lanes(y), offset=lanes(off_user.float()),
+                            weight=torch.ones_like(lanes(y)))
+    lobj = LaneObjective(logistic_loss, torch.full((users,), l2, device="cuda"), ctx_u)
+    user_ms = cuda_ms(lambda: compute_variances(lobj, w_u, lane_batch, Var.FULL), 10)
+    log(f"glmix2-norm-var variance computations, one update, warm (CUDA events): fixed "
+        f"SIMPLE over [{xg.shape[0]}, {xg.shape[1]}] {fixed_ms:.4f} ms; per-user FULL over "
+        f"{tuple(lane_batch.x.shape)} {user_ms:.4f} ms")
+    return dict(fixed_var_ms=fixed_ms, user_var_ms=user_ms)
+
+
+def phase_norm_var_card_vs_cpu(stats: dict, glmix_chip_reduced):
+    """Card against CPU, normalization and variances: (a) glmix2-norm-var at
+    REDUCED_GLMIX2_SCALE; (b) sparse1m at full width, SCALE_WITH_MAX_MAGNITUDE
+    from its sparse stats and SIMPLE variances; (c) glmix_chip at
+    REDUCED_USERS, SIMPLE variances on both coordinates (per-user on the SoA
+    path); (d) glmix_sparse at full width, SIMPLE variances on the compact
+    per-user coordinate."""
+    import torch
+
+    from photon_ml_tpu_torch.core.normalization import (build_normalization,
+                                                        compute_feature_stats_sparse)
+    from photon_ml_tpu_torch.data.synthetic import (synth_glmix, synth_glmix_sparse,
+                                                    synth_sparse1m)
+    from photon_ml_tpu_torch.game import GameData, GameEstimator, SparseShard
+    from photon_ml_tpu_torch.types import NormalizationType
+
+    # (a)
+    t0 = time.perf_counter()
+    host = _with_intercept(synth_glmix(REDUCED_GLMIX2_SCALE, three=False))
+    gpu, xg, xu = _norm_var_data(host, "cuda")
+    cpu, xg_c, xu_c = _norm_var_data(host, "cpu")
+    norm_gpu, _ = _norm_var_contexts(xg, xu)
+    norm_cpu, _ = _norm_var_contexts(xg_c, xu_c)
+    _compare_fits(f"glmix2-norm-var at scale {REDUCED_GLMIX2_SCALE} ({gpu.num_samples} "
+                  "rows)", gpu, cpu, _norm_var_config(), ["per-user"],
+                  norms=(norm_gpu, norm_cpu), path="glmix2_norm_var_reduced", stats=stats,
+                  required=("fused_value_and_grad", "fused_hvp"))
+    stats["card_vs_cpu_a_s"] = time.perf_counter() - t0
+
+    # (b)
+    t0 = time.perf_counter()
+    host = synth_sparse1m(1)
+    data = GameData(y=host["y"], features={"g": SparseShard(
+        indices=host["indices"], values=host["values"], dim=host["dim"])})
+    t1 = time.perf_counter()
+    ctx = build_normalization(NormalizationType.SCALE_WITH_MAX_MAGNITUDE,
+                              compute_feature_stats_sparse(host["indices"], host["values"],
+                                                           host["dim"]))
+    t_stats = time.perf_counter() - t1
+    cfg = _sparse1m_config("simple")
+    fits = {}
+    for where, device in (("card", "cuda"), ("card again", "cuda"), ("cpu", "cpu")):
+        kernels = _zero_launches()
+        t1 = time.perf_counter()
+        fits[where] = GameEstimator(device=device, normalization={"g": ctx}).fit(
+            data, [cfg])[0].model["fixed"].coefficients
+        if where == "card":
+            torch.cuda.synchronize()
+            _record_launches("sparse1m_norm_var", kernels, stats, ())
+            t_card = time.perf_counter() - t1
+    c, again, p = fits["card"], fits["card again"], fits["cpu"]
+    repeatable = (torch.equal(torch.as_tensor(c.means), torch.as_tensor(again.means))
+                  and torch.equal(torch.as_tensor(c.variances),
+                                  torch.as_tensor(again.variances)))
+    obj = {k: _poisson_objective(fits[k].means, host, "cuda", ctx) for k in ("card", "cpu")}
+    obj0 = _poisson_objective(torch.zeros(host["dim"]), host, "cuda", ctx)
+    o_err = abs(obj["card"] - obj["cpu"]) / abs(obj["cpu"])
+    errs = {"coefficients": rel_err(c.means, p.means),
+            "variances": rel_err(c.variances, p.variances)}
+    ok = (obj["card"] < obj0 and o_err <= SPARSE1M_OBJ_RTOL and repeatable
+          and max(errs.values()) <= F32_PATH_RTOL
+          and bool(torch.isfinite(torch.as_tensor(c.variances)).all()))
+    log(f"card vs CPU, sparse1m-norm-var at full width: sparse feature stats on the host "
+        f"{t_stats:.2f} s; card fit {t_card:.2f} s; objective {obj['card']:.6f} vs "
+        f"{obj['cpu']:.6f} (w = 0: {obj0:.6f}), rel diff {o_err:.2e} (tol "
+        f"{SPARSE1M_OBJ_RTOL:g}); max rel diff " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {F32_PATH_RTOL:g}); a "
+        f"second card fit {'bitwise equal' if repeatable else 'NOT BITWISE EQUAL'} "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("sparse1m-norm-var: the card fit is wrong or disagrees with "
+                             "the CPU")
+    stats["card_vs_cpu_b_s"] = time.perf_counter() - t0
+
+    # (c)
+    t0 = time.perf_counter()
+    label, gpu, cpu = glmix_chip_reduced
+    _compare_fits(label + ", SIMPLE variances", gpu, cpu, _glmix_config(variance="simple"),
+                  ["per-user"], path="glmix_chip_var_reduced", stats=stats,
+                  required=("fused_value_and_grad", "newton_step"))
+    stats["card_vs_cpu_c_s"] = time.perf_counter() - t0
+
+    # (d)
+    t0 = time.perf_counter()
+    data = _glmix_sparse_data(synth_glmix_sparse(1))
+
+    def refuses_compact(res):
+        try:
+            res.model["per-user"].to_compact()
+        except ValueError as e:
+            log(f"glmix_sparse-var: to_compact refused the per-user model with variances "
+                f"{res.model['per-user'].variances.shape} ({e}); scoring is dense")
+        else:
+            raise AssertionError("glmix_sparse-var: to_compact kept a model with variances")
+
+    _compare_fits(f"glmix_sparse-var at full width ({data.num_samples} rows)", data, data,
+                  _glmix_sparse_config(user_variance="simple"), ["per-user"],
+                  path="glmix_sparse_var", stats=stats, check_card=refuses_compact)
+    stats["card_vs_cpu_d_s"] = time.perf_counter() - t0
+
+
 KERNELS = {
     "fused_value_and_grad": dict(
         source="photon_ml_tpu_torch/csrc/fused_glm.cu",
@@ -1215,7 +1655,7 @@ def main() -> int:
     with Phase("5 main path glmix_chip full width"):
         host, xg = phase_main_path(stats)
     with Phase("6 card vs CPU reduced glmix_chip"):
-        phase_card_vs_cpu(host, xg)
+        glmix_chip_reduced = phase_card_vs_cpu(host, xg)
     del xg, host
     with Phase("7 main path glmix2 TRON full width"):
         phase_glmix2_tron(stats)
@@ -1232,6 +1672,11 @@ def main() -> int:
     with Phase("13 card vs CPU full-width glmix_sparse"):
         phase_glmix_sparse_card_vs_cpu(card)
     del card
+    with Phase("15 glmix2-norm-var full width"):
+        phase_glmix2_norm_var(stats)
+    with Phase("16 card vs CPU, normalization and variances"):
+        phase_norm_var_card_vs_cpu(stats, glmix_chip_reduced)
+    del glmix_chip_reduced
     with Phase("14 kernels"):
         kernels = []
         for kname, meta in KERNELS.items():

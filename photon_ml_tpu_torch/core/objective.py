@@ -21,9 +21,16 @@ shards are compared within the float32 path tolerance of chip_smoke.py
 (5e-3 relative), not bitwise: exp and log round differently.
 
 ``LaneObjective`` is the same objective over a random-effect bucket held
-lanes-first (x [L, cap, d], one GLM per lane, a per-lane L2 [L]): what the
-JAX package computes as a ``jax.vmap`` of the plain XLA path, written out as
-batched products.
+lanes-first (x [L, cap, d], one GLM per lane, a per-lane L2 [L], one
+normalization context shared by every lane): what the JAX package computes
+as a ``jax.vmap`` of the plain XLA path, written out as batched products.
+
+``hessian_diag`` and ``hessian`` (coefficient variances) are plain PyTorch
+on either device, as the JAX package computes them in plain XLA outside any
+Pallas kernel: the dense diagonal Σ wt·l''·x_j² runs over row chunks so the
+squared design never exists at full size.  ``soa_hessian_diag`` /
+``soa_hessian`` are their forms for the lanes-last buckets [cap, d, L] of
+the SoA Newton path (no normalization there: its gate excludes it).
 
 Objectives are weighted SUMS, not means, as in the reference.
 """
@@ -40,8 +47,13 @@ from photon_ml_tpu_torch.core.losses import PointwiseLoss
 from photon_ml_tpu_torch.core.normalization import NormalizationContext, no_normalization
 from photon_ml_tpu_torch.core.regularization import Regularization
 from photon_ml_tpu_torch.ops.fused_glm import fused_hvp, fused_value_and_grad
+from photon_ml_tpu_torch.ops.soa_newton import hessian_soa, soa_margins
 
 Tensor = torch.Tensor
+
+# the dense Hessian diagonal squares the design one row chunk at a time; a
+# chunk holds at most this many elements (64 MB in float32)
+HESSIAN_DIAG_CHUNK_ELEMS = 1 << 24
 
 
 def _xt_dot_sparse(batch: SparseBatch, r: Tensor) -> Tensor:
@@ -136,6 +148,49 @@ class GLMObjective:
         """H·v = Xnᵀ diag(wt·l'') Xn v + l2·v."""
         return self.finish_hvp(v, *self.raw_hvp(w, batch, v))
 
+    # -- Hessian diagonal / full matrix (variances) ----------------------------
+
+    def _curvature(self, w: Tensor, batch: Batch) -> Tensor:
+        """q = wt·l''(z) per row."""
+        return batch.weight * self.loss.d2(self._safe_margins(w, batch), batch.y)
+
+    def hessian_diag(self, w: Tensor, batch: Batch) -> Tensor:
+        """diag(H)_j = Σ wt·l''·((x_j - s_j)·f_j)² + l2, from the raw sums
+        Σ q x_j² and Σ q x_j."""
+        q = self._curvature(w, batch)
+        with_shift = self.norm.shifts is not None
+        if isinstance(batch, SparseBatch):
+            x2 = _xt_dot_sparse(batch.replace(values=batch.values * batch.values), q)
+            x1 = _xt_dot_sparse(batch, q) if with_shift else None
+        else:
+            full_f32_matmul()
+            n, d = batch.x.shape
+            step = max(1, HESSIAN_DIAG_CHUNK_ELEMS // max(d, 1))
+            x2 = torch.zeros(d, dtype=q.dtype, device=q.device)
+            x1 = torch.zeros_like(x2) if with_shift else None
+            for i in range(0, n, step):
+                xc, qc = batch.x[i:i + step], q[i:i + step]
+                x2 += qc @ (xc * xc)
+                if with_shift:
+                    x1 += qc @ xc
+        diag = x2
+        if with_shift:
+            s = self.norm.shifts
+            diag = x2 - 2.0 * s * x1 + s * s * q.sum()
+        if self.norm.factors is not None:
+            diag = diag * self.norm.factors * self.norm.factors
+        return diag + self.reg.l2
+
+    def hessian(self, w: Tensor, batch: Batch) -> Tensor:
+        """The full d×d Hessian Xnᵀ diag(q) Xn + l2·I; a sparse batch is
+        densified (small d only)."""
+        dense = batch.to_dense() if isinstance(batch, SparseBatch) else batch
+        q = self._curvature(w, dense)
+        xn = self.norm.transform_features(dense.x)
+        full_f32_matmul()
+        h = (xn * q[:, None]).T @ xn
+        return h + self.reg.l2 * torch.eye(w.shape[-1], dtype=h.dtype, device=h.device)
+
 
 def lane_margins(x: Tensor, w: Tensor) -> Tensor:
     """[L, cap] raw margins of lanes-first x [L, cap, d] against w [L, d]."""
@@ -163,24 +218,73 @@ def lane_norm(a: Tensor) -> Tensor:
 class LaneObjective:
     """One GLM per lane over a bucket held lanes-first: ``batch.x`` is
     [L, cap, d] and ``batch.y``/``offset``/``weight`` are [L, cap]; ``l2`` is
-    the per-lane L2 weight [L].  No normalization (the coordinates refuse
-    it).  Values are [L], gradients and Hessian-vector products [L, d]."""
+    the per-lane L2 weight [L]; ``norm`` is one context shared by every lane,
+    with ``GLMObjective``'s margin algebra and chain rule.  Values are [L],
+    gradients and Hessian-vector products [L, d]."""
 
     loss: PointwiseLoss
     l2: Tensor
+    norm: NormalizationContext = dataclasses.field(default_factory=no_normalization)
+
+    def _margins(self, w: Tensor, batch: Batch) -> Tensor:
+        """[L, cap] margins against the raw x, normalization folded in."""
+        z = lane_margins(batch.x, self.norm.effective_coefficients(w))
+        if self.norm.shifts is not None:
+            z = z + self.norm.margin_shift(w)[:, None]
+        return z
 
     def _safe_margins(self, w: Tensor, batch: Batch) -> Tensor:
-        z = lane_margins(batch.x, w) + batch.offset
+        z = self._margins(w, batch) + batch.offset
         return torch.where(batch.weight > 0, z, 0.0)
+
+    def _chain(self, g_raw: Tensor, r: Tensor) -> Tensor:
+        """factor * (Xᵀr - (Σr)·shift), per lane."""
+        g = g_raw
+        if self.norm.shifts is not None:
+            g = g - r.sum(-1)[:, None] * self.norm.shifts
+        if self.norm.factors is not None:
+            g = g * self.norm.factors
+        return g
 
     def value_and_grad(self, w: Tensor, batch: DenseBatch) -> Tuple[Tensor, Tensor]:
         z = self._safe_margins(w, batch)
         l, d1 = self.loss.loss_and_d1(z, batch.y)
         r = batch.weight * d1
         val = (batch.weight * l).sum(-1) + 0.5 * self.l2 * lane_dot(w, w)
-        return val, _lane_xt(batch.x, r) + self.l2[:, None] * w
+        return val, self._chain(_lane_xt(batch.x, r), r) + self.l2[:, None] * w
 
     def hvp(self, w: Tensor, batch: Batch, v: Tensor) -> Tensor:
         z = self._safe_margins(w, batch)
-        q = batch.weight * self.loss.d2(z, batch.y) * lane_margins(batch.x, v)
-        return _lane_xt(batch.x, q) + self.l2[:, None] * v
+        q = batch.weight * self.loss.d2(z, batch.y) * self._margins(v, batch)
+        return self._chain(_lane_xt(batch.x, q), q) + self.l2[:, None] * v
+
+    def hessian_diag(self, w: Tensor, batch: DenseBatch) -> Tensor:
+        """[L, d] per-lane diag(H)."""
+        q = batch.weight * self.loss.d2(self._safe_margins(w, batch), batch.y)
+        xn = self.norm.transform_features(batch.x)
+        return _lane_xt(xn * xn, q) + self.l2[:, None]
+
+    def hessian(self, w: Tensor, batch: DenseBatch) -> Tensor:
+        """[L, d, d] per-lane Hessians."""
+        q = batch.weight * self.loss.d2(self._safe_margins(w, batch), batch.y)
+        xn = self.norm.transform_features(batch.x)
+        full_f32_matmul()
+        h = torch.bmm((xn * q[..., None]).mT, xn)
+        eye = torch.eye(h.shape[-1], dtype=h.dtype, device=h.device)
+        return h + self.l2[:, None, None] * eye
+
+
+def soa_hessian_diag(loss: PointwiseLoss, w_t: Tensor, x_t: Tensor, y_t: Tensor,
+                     off_t: Tensor, wt_t: Tensor, l2: Tensor) -> Tensor:
+    """[d, L] per-lane diag(H) of lanes-last buckets (w_t [d, L], x_t
+    [cap, d, L], the rest [cap, L], l2 [L])."""
+    q = wt_t * loss.d2(soa_margins(w_t, x_t, off_t), y_t)
+    return (x_t * x_t * q[:, None, :]).sum(0) + l2
+
+
+def soa_hessian(loss: PointwiseLoss, w_t: Tensor, x_t: Tensor, y_t: Tensor,
+                off_t: Tensor, wt_t: Tensor, l2: Tensor) -> Tensor:
+    """[L, d, d] per-lane Hessians of lanes-last buckets, from the Newton
+    step's plain Hessian assembly."""
+    hh = hessian_soa(loss, w_t, x_t, y_t, off_t, wt_t, l2)
+    return torch.stack([torch.stack(row) for row in hh]).permute(2, 0, 1)

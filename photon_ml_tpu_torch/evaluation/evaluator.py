@@ -58,13 +58,13 @@ def make_evaluator(spec: str) -> Evaluator:
     if ":" in spec:
         raise NotImplementedError(
             f"grouped evaluator {spec!r} is not ported yet (ROADMAP.md "
-            "'Modules still to port', evaluation/)")
+            "'Modules still to port', item 5, evaluation/)")
     try:
         return Evaluator(EvaluatorType(spec))
     except ValueError:
         raise NotImplementedError(
             f"evaluator {spec!r} is not ported yet (ROADMAP.md 'Modules still "
-            "to port', evaluation/); this slice has 'auc' and 'logistic_loss'")
+            "to port', item 5, evaluation/); this slice has 'auc' and 'logistic_loss'")
 
 
 @dataclasses.dataclass

@@ -1,10 +1,11 @@
 """Per-coordinate configuration.
 
 Port of photon_ml_tpu/game/config.py, holding the fields the port trains
-with, plus the reference's variance, box-constraint and projector fields,
-whose non-default values the coordinates refuse (NotImplementedError naming
-the ROADMAP item that brings them; the RANDOM projector is one of them), and
-the INDEX_MAP projector's ``features_to_samples_ratio`` / ``intercept_index``.
+with (variances among them, and each coordinate's ``intercept_index``, the
+column that absorbs a shift normalization and that the INDEX_MAP filter
+keeps), plus the reference's box-constraint and projector fields, whose
+non-default values the coordinates refuse (NotImplementedError naming the
+ROADMAP item that brings them; the RANDOM projector is one of them).
 The rest of the reference's fields (``projected_dim`` of the RANDOM
 projector, down-sampling, storage dtypes, feature sharding) arrive with the
 slices that carry them.
@@ -34,6 +35,7 @@ class FixedEffectConfig:
     reg: Regularization = Regularization()
     variance: VarianceComputationType = VarianceComputationType.NONE
     constraints: Optional[ConstraintMap] = None
+    intercept_index: Optional[int] = None  # column that absorbs a shift normalization
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +53,8 @@ class RandomEffectConfig:
     # in the compact space of its observed columns
     projector: ProjectorType = ProjectorType.IDENTITY
     features_to_samples_ratio: Optional[float] = None  # per-entity Pearson top-k cap
-    intercept_index: Optional[int] = None  # column the Pearson filter must keep
+    # column the Pearson filter must keep, and that absorbs a shift normalization
+    intercept_index: Optional[int] = None
     variance: VarianceComputationType = VarianceComputationType.NONE
     # Per-entity regularization: multiplicative factors on this coordinate's
     # L2 weight, keyed by entity id (default 1).  Accepts a dict or pairs;

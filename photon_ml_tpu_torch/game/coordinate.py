@@ -4,7 +4,9 @@ Port of photon_ml_tpu/game/coordinate.py:
 
 - ``FixedEffectCoordinate``: a dense or sparse shard, no mesh, L-BFGS or
   TRON.  The design is laid out on the device once; each update re-solves
-  with new residual offsets through ``GLMObjective``.  On a dense shard its
+  with new residual offsets through ``GLMObjective``, in the transformed
+  space of the shard's normalization context (warm starts mapped in, the
+  model published in original space).  On a dense shard its
   value and gradient (and, under TRON, Hessian-vector products) come from
   the fused CUDA kernels on the card; rows are not padded, the kernels mask
   their ragged last block.  A sparse shard (``SparseBatch``) takes the
@@ -25,7 +27,18 @@ Port of photon_ml_tpu/game/coordinate.py:
   entity's multiplier).  The published [E, d] stack is built on the device
   (``publish_stack``).  Scoring covers every sample, including the rows the
   active cap left out of training; on a sparse shard it never builds
-  [n, d_full].
+  [n, d_full].  A dense IDENTITY coordinate may carry one normalization
+  context shared by every entity; it then solves on the lanes (the SoA gate
+  excludes normalization, as in the reference).  Normalization under
+  compaction (per-lane contexts) is not ported yet.
+
+Coefficient variances (SIMPLE: 1 / diag(H); FULL: diag(H⁻¹)) are computed at
+the transformed-space optimum of each solve, with the update's offsets, and
+mapped through the same coefficient map as the means, as the reference does
+(so under STANDARDIZATION the intercept's entry takes -⟨v∘f, s⟩ and can be
+negative).  On compact lanes they are expanded to full width with the
+prior-only 1/λ2 of each lane's L2 at unobserved features, which is exact:
+the full-space Hessian is block-diagonal there.
 
 Anything outside the port raises NotImplementedError naming the ROADMAP item
 that brings it.
@@ -41,7 +54,8 @@ import torch
 
 from photon_ml_tpu_torch.core.batch import DenseBatch, SparseBatch
 from photon_ml_tpu_torch.core.losses import loss_for_task
-from photon_ml_tpu_torch.core.objective import GLMObjective
+from photon_ml_tpu_torch.core.normalization import NormalizationContext, no_normalization
+from photon_ml_tpu_torch.core.objective import GLMObjective, LaneObjective
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.game.config import (CoordinateConfig, FixedEffectConfig,
                                              RandomEffectConfig)
@@ -51,7 +65,8 @@ from photon_ml_tpu_torch.models.game import (DatumScoringModel, FixedEffectModel
                                              dense_random_effect, seed_device_copies)
 from photon_ml_tpu_torch.models.glm import Coefficients
 from photon_ml_tpu_torch.opt.newton_soa import soa_eligible, solve_newton_soa
-from photon_ml_tpu_torch.opt.solve import (check_supported, default_config,
+from photon_ml_tpu_torch.opt.solve import (check_supported, compute_soa_variances,
+                                           compute_variances, default_config,
                                            make_lane_solver, make_solver)
 from photon_ml_tpu_torch.opt.types import SolverResult
 from photon_ml_tpu_torch.parallel.bucketing import (bucket_by_entity,
@@ -68,21 +83,41 @@ Tensor = torch.Tensor
 SOA_MAX_CAP_D2 = 2 * 1280
 
 
+NORM_COMPACT_REFUSAL = (
+    "normalization under compaction (INDEX_MAP or a sparse shard: per-lane "
+    "contexts) is not ported yet: ROADMAP.md 'Modules still to port', item 2, "
+    "per-lane normalization under compaction")
+
+
 def _refuse_unported(coordinate_id: str, config: CoordinateConfig) -> None:
     """Raise NotImplementedError for the configuration fields the port does
-    not carry yet, naming the ROADMAP item; then the optimizer check."""
+    not carry yet, naming the ROADMAP item; then the optimizer check.
+    Variances under the RANDOM projector are a ValueError, as in the
+    reference: the projection mixes features."""
     where = f"coordinate {coordinate_id!r}: "
-    if config.variance != VarianceComputationType.NONE:
-        raise NotImplementedError(
-            where + "coefficient variances are not ported yet: ROADMAP.md 'Next "
-            "slices', variances (hessian_diag / hessian, compute_variances)")
     if config.constraints:
         raise NotImplementedError(
             where + "box constraints are not ported yet: ROADMAP.md 'Modules "
-            "still to port', opt/constraints.py and the projected L-BFGS")
+            "still to port', item 3, opt/constraints.py and the projected L-BFGS")
     if getattr(config, "projector", None) == ProjectorType.RANDOM:
+        if config.variance != VarianceComputationType.NONE:
+            raise ValueError(where + "per-entity variances are not defined under a "
+                             "RANDOM projection (the Gaussian matrix mixes features)")
         raise NotImplementedError(where + RANDOM_REFUSAL)
     check_supported(config.optimizer, config.reg.l1)
+
+
+def _coordinate_norm(coordinate_id: str, norm: Optional[NormalizationContext],
+                     intercept_index: Optional[int], dtype: torch.dtype,
+                     device: torch.device) -> NormalizationContext:
+    """The coordinate's context in its dtype and on its device (None is the
+    identity); a shift needs the intercept column that absorbs it."""
+    if norm is None or norm.is_identity:
+        return no_normalization()
+    if norm.shifts is not None and intercept_index is None:
+        raise ValueError(f"coordinate {coordinate_id!r}: shift normalization requires "
+                         "an intercept (set intercept_index)")
+    return norm.to(dtype, device)
 
 
 def _numpy_dtype(dtype: torch.dtype):
@@ -101,6 +136,7 @@ class Coordinate:
 
     coordinate_id: str
     config: CoordinateConfig
+    norm_source: Optional[NormalizationContext] = None  # the context built with
     _n: int
 
     @property
@@ -125,8 +161,12 @@ class FixedEffectCoordinate(Coordinate):
     """Global GLM coordinate over a dense or sparse shard."""
 
     def __init__(self, coordinate_id: str, data: GameData, config: FixedEffectConfig,
-                 task: TaskType, dtype: torch.dtype, device: torch.device):
+                 task: TaskType, dtype: torch.dtype, device: torch.device,
+                 norm: Optional[NormalizationContext] = None):
         _refuse_unported(coordinate_id, config)
+        self.norm_source = norm
+        self._norm = _coordinate_norm(coordinate_id, norm, config.intercept_index, dtype,
+                                      device)
         self.coordinate_id = coordinate_id
         self.config = config
         self.task = task
@@ -145,20 +185,31 @@ class FixedEffectCoordinate(Coordinate):
                                       dim=shard.dim, **rows)
         else:
             self._batch = DenseBatch(x=_as_device(shard, dtype, device), **rows)
-        self._objective = GLMObjective(loss=loss_for_task(task), reg=config.reg)
+        self._objective = GLMObjective(loss=loss_for_task(task), reg=config.reg,
+                                       norm=self._norm)
         self._solve = make_solver(self._objective, config.optimizer, config.solver)
 
     def update(self, total_offsets: Tensor, seed: int = 0,
                init: Optional[FixedEffectModel] = None
                ) -> Tuple[FixedEffectModel, SolverResult]:
+        """Solve in transformed space from the (original-space) warm start
+        mapped in; publish means and variances in original space."""
+        ii = self.config.intercept_index
         if init is not None:
-            w0 = _as_device(init.coefficients.means, self._dtype, self._device)
+            w0 = self._norm.model_to_transformed_space(
+                _as_device(init.coefficients.means, self._dtype, self._device), ii)
         else:
             w0 = torch.zeros(self.dim, dtype=self._dtype, device=self._device)
         offs = _as_device(total_offsets, self._dtype, self._device)
-        res = self._solve(w0, self._batch.replace(offset=offs))
+        batch = self._batch.replace(offset=offs)
+        res = self._solve(w0, batch)
+        v = compute_variances(self._objective, res.w, batch, self.config.variance)
+        variances = None if v is None else self._norm.model_to_original_space(v, ii)
+        means = self._norm.model_to_original_space(res.w, ii)
         model = FixedEffectModel(
-            coefficients=Coefficients(means=res.w.detach().cpu().numpy()),
+            coefficients=Coefficients(
+                means=means.detach().cpu().numpy(),
+                variances=None if variances is None else variances.cpu().numpy()),
             feature_shard=self.config.feature_shard, task=self.task)
         return model, res
 
@@ -173,10 +224,18 @@ class RandomEffectCoordinate(Coordinate):
     it; compact solve spaces for INDEX_MAP and every sparse shard."""
 
     def __init__(self, coordinate_id: str, data: GameData, config: RandomEffectConfig,
-                 task: TaskType, seed: int, dtype: torch.dtype, device: torch.device):
+                 task: TaskType, seed: int, dtype: torch.dtype, device: torch.device,
+                 norm: Optional[NormalizationContext] = None):
         _refuse_unported(coordinate_id, config)
         shard = data.features[config.feature_shard]
         self._sparse = isinstance(shard, SparseShard)
+        compact = self._sparse or config.projector == ProjectorType.INDEX_MAP
+        self.norm_source = norm
+        self._norm = _coordinate_norm(coordinate_id, norm, config.intercept_index, dtype,
+                                      device)
+        if not self._norm.is_identity and compact:
+            raise NotImplementedError(f"coordinate {coordinate_id!r}: "
+                                      + NORM_COMPACT_REFUSAL)
         self.coordinate_id = coordinate_id
         self.config = config
         self.task = task
@@ -221,17 +280,23 @@ class RandomEffectCoordinate(Coordinate):
                 solve_buckets, self._projections = proj.buckets, proj.projections
 
         # the SoA Newton gate (reference game/coordinate.py:1179-1198) on the
-        # solve-space shapes; with no normalization, box or L1 in the port,
-        # what remains is the solve width, the cap*d^2 traffic guard and a
-        # smooth loss.  The optimizer does not enter: a TRON coordinate
+        # solve-space shapes; with no box or L1 in the port, what remains is
+        # the solve width, the cap*d^2 traffic guard, a smooth loss and no
+        # normalization.  The optimizer does not enter: a TRON coordinate
         # inside the gate runs SoA Newton.
         worst = max((b.capacity * b.x.shape[2] ** 2 for b in solve_buckets), default=0)
         max_dim = max((b.x.shape[2] for b in solve_buckets), default=0)
-        self.use_soa = soa_eligible(max_dim, self._loss.name) and worst <= SOA_MAX_CAP_D2
+        self.use_soa = (soa_eligible(max_dim, self._loss.name) and worst <= SOA_MAX_CAP_D2
+                        and self._norm.is_identity)
         self._solver_config = config.solver or default_config(config.optimizer)
         if not self.use_soa:
             self._solve_lanes = make_lane_solver(self._loss, config.optimizer,
-                                                 self._solver_config)
+                                                 self._solver_config, self._norm)
+        # compact lanes' column ids on the device, to expand their variances
+        self._proj_idx = None
+        if self._projections is not None and config.variance != VarianceComputationType.NONE:
+            self._proj_idx = [_as_device(p.indices, torch.int64, device)
+                              for p in self._projections]
 
         # stacked-model slot order = sorted entity id
         self._slot_of = {eid: i for i, eid in enumerate(sorted(self.buckets.lane_of))}
@@ -277,14 +342,34 @@ class RandomEffectCoordinate(Coordinate):
             idx = self._projections[bucket_index].indices
             w0 = np.where(known[:, None] & (idx >= 0),
                           w_stack[rows[:, None], np.where(idx >= 0, idx, 0)], 0.0)
-        return _as_device(w0, self._dtype, self._device)
+        # models are original-space, solves transformed
+        return self._norm.model_to_transformed_space(
+            _as_device(w0, self._dtype, self._device), self.config.intercept_index)
+
+    def _lanes_to_original(self, lanes: Tensor) -> Tensor:
+        """A bucket's transformed-space lane vectors [L, d] in original space."""
+        return self._norm.model_to_original_space(lanes, self.config.intercept_index)
+
+    def _expand_compact_variances(self, v: Tensor, bucket_index: int,
+                                  l2: Tensor) -> Tensor:
+        """Compact lane variances [L, d_compact] at full width [L, d]:
+        unobserved features take the prior-only 1/λ2 of the lane's L2 (the
+        entity's multiplier included); padded compact slots are dropped."""
+        idx = self._proj_idx[bucket_index]
+        fill = 1.0 / torch.clamp(l2, min=1e-30)
+        out = fill[:, None].expand(v.shape[0], self.dim).clone()
+        keep = idx >= 0
+        rows = torch.arange(v.shape[0], device=v.device)[:, None].expand_as(idx)
+        out[rows[keep], idx[keep]] = v[keep]
+        return out
 
     def update(self, total_offsets: Tensor, seed: int = 0,
                init: Optional[RandomEffectModel] = None
                ) -> Tuple[RandomEffectModel, List[SolverResult]]:
         init = None if init is None else dense_random_effect(init)
         offs = _as_device(total_offsets, self._dtype, self._device)
-        coeffs, results = [], []
+        kind = self.config.variance
+        coeffs, variances, results = [], [], []
         for bi, (b, dev) in enumerate(zip(self.buckets.buckets, self._dev)):
             if init is not None:
                 w0 = self._warm_start(bi, init)
@@ -297,22 +382,35 @@ class RandomEffectCoordinate(Coordinate):
             if self.use_soa:
                 res = solve_newton_soa(self._loss, w0.T.contiguous(), dev["x"], dev["y"],
                                        off, dev["wt"], dev["l2"], self._solver_config)
-                coeffs.append(res.w.T)
+                w_lanes = res.w.T
+                v = compute_soa_variances(self._loss, res.w, dev["x"], dev["y"], off,
+                                          dev["wt"], dev["l2"], kind)
             else:
                 batch = DenseBatch(x=dev["x"], y=dev["y"], offset=off, weight=dev["wt"])
                 res = self._solve_lanes(w0, batch, dev["l2"])
-                coeffs.append(res.w)
+                w_lanes = res.w
+                v = compute_variances(LaneObjective(self._loss, dev["l2"], self._norm),
+                                      res.w, batch, kind)
+            coeffs.append(self._lanes_to_original(w_lanes))
+            if v is not None:
+                if self._proj_idx is not None:
+                    v = self._expand_compact_variances(v, bi, dev["l2"])
+                variances.append(self._lanes_to_original(v))
             results.append(res)
         # publish: lanes (back-projected where compact) scattered into the
         # [E, d] stack on the device; the host copy is the model's, and the
-        # device stack becomes its scoring copy
-        w_dev = publish_stack(coeffs, self._lane_slots, len(self._slot_of), self.dim,
+        # device stack becomes its scoring copy.  Variances are full width.
+        num_e = len(self._slot_of)
+        w_dev = publish_stack(coeffs, self._lane_slots, num_e, self.dim,
                               self._projections)
         w_stack = w_dev.cpu().numpy()
+        var_stack = (publish_stack(variances, self._lane_slots, num_e, self.dim)
+                     .cpu().numpy() if variances else None)
         model = RandomEffectModel(
             w_stack=w_stack, slot_of=dict(self._slot_of),
             random_effect_type=self.config.random_effect_type,
-            feature_shard=self.config.feature_shard, task=self.task)
+            feature_shard=self.config.feature_shard, task=self.task,
+            variances=var_stack)
         seed_device_copies(model, (w_stack,), (w_dev,))
         return merge_carry_through(model, init), results
 
@@ -334,7 +432,9 @@ def merge_carry_through(model: RandomEffectModel,
                         init: Optional[RandomEffectModel]) -> RandomEffectModel:
     """Prior-model entities this update did not retrain keep their old
     coefficients in the published model (the reference's leftOuterJoin
-    passthrough, RandomEffectCoordinate.scala:114-127)."""
+    passthrough, RandomEffectCoordinate.scala:114-127).  Where the model has
+    variances, carried rows keep the prior's, or 0 ("not estimated") when the
+    prior has none."""
     if init is None:
         return model
     carried = sorted(eid for eid in init.slot_of if eid not in model.slot_of)
@@ -345,19 +445,28 @@ def merge_carry_through(model: RandomEffectModel,
     slot_of = dict(model.slot_of)
     for i, eid in enumerate(carried):
         slot_of[eid] = len(model.slot_of) + i
+    var_stack = model.variances
+    if var_stack is not None:
+        vrows = (np.stack([init.variances[init.slot_of[eid]] for eid in carried])
+                 .astype(rows.dtype) if init.variances is not None
+                 else np.zeros_like(rows))
+        var_stack = np.concatenate([var_stack, vrows])
     return dataclasses.replace(model, w_stack=np.concatenate([model.w_stack, rows]),
-                               slot_of=slot_of)
+                               slot_of=slot_of, variances=var_stack)
 
 
 def build_coordinate(coordinate_id: str, data: GameData, config: CoordinateConfig,
                      task: TaskType, seed: int = 0, dtype: torch.dtype = torch.float32,
-                     device: "torch.device | str" = "cuda") -> Coordinate:
+                     device: "torch.device | str" = "cuda",
+                     norm: Optional[NormalizationContext] = None) -> Coordinate:
     """Construct the coordinate for ``config`` on ``device`` (default: the
-    card, raising when none is present)."""
+    card, raising when none is present), in the transformed space of
+    ``norm`` (the shard's normalization context; None is the identity)."""
     device = resolve_device(device)
     if isinstance(config, FixedEffectConfig):
-        return FixedEffectCoordinate(coordinate_id, data, config, task, dtype, device)
+        return FixedEffectCoordinate(coordinate_id, data, config, task, dtype, device,
+                                     norm)
     if isinstance(config, RandomEffectConfig):
         return RandomEffectCoordinate(coordinate_id, data, config, task, seed, dtype,
-                                      device)
+                                      device, norm)
     raise TypeError(f"unknown coordinate config {type(config)!r}")

@@ -3,9 +3,10 @@
 Port of photon_ml_tpu/game/estimator.py along its host-paced path
 (``GameEstimator(fused=False)``, the parity target): build the coordinates
 on the device once, run coordinate descent per configuration, and warm-start
-each configuration from the previous one's model.  The whole-sweep fused
-program (``FusedSweep``), locked coordinates, checkpoints and normalization
-are later slices.
+each configuration from the previous one's model.  ``normalization`` maps a
+feature shard to the context that every coordinate on that shard solves
+under (models come out in original space).  The whole-sweep fused program
+(``FusedSweep``), locked coordinates and checkpoints are later slices.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.core.normalization import NormalizationContext
 from photon_ml_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from photon_ml_tpu_torch.evaluation.evaluator import EvaluationResults, EvaluationSuite
 from photon_ml_tpu_torch.game.config import GameConfig
@@ -53,14 +55,18 @@ class GameEstimator:
 
     ``device``: where the coordinates live and train; the default ``"cuda"``
     raises when no card is present.  ``dtype``: compute precision
-    (float32 on the card; float64 for reference-precision runs)."""
+    (float32 on the card; float64 for reference-precision runs).
+    ``normalization``: feature shard -> ``NormalizationContext``, applied to
+    every coordinate on that shard, fixed and random alike."""
 
     def __init__(self, device: "str | torch.device" = DEFAULT_DEVICE,
                  validation_suite: Optional[EvaluationSuite] = None,
-                 dtype=torch.float32):
+                 dtype=torch.float32,
+                 normalization: Optional[Dict[str, NormalizationContext]] = None):
         self.device = resolve_device(device)
         self.validation_suite = validation_suite
         self.dtype = torch_dtype(dtype)
+        self.normalization = normalization or {}
 
     def fit(self, data: GameData, configs: Sequence[GameConfig],
             validation_data: Optional[GameData] = None,
@@ -71,13 +77,15 @@ class GameEstimator:
         for config in configs:
             coordinates = {}
             for cid, ccfg in config.coordinates.items():
+                norm = self.normalization.get(ccfg.feature_shard)
                 old = prev.get(cid)
-                if old is not None and old.config == ccfg and old.task == config.task:
-                    coordinates[cid] = old  # same data layout and solver: reuse
+                if (old is not None and old.config == ccfg and old.task == config.task
+                        and old.norm_source is norm):
+                    coordinates[cid] = old  # same data layout, solver and context: reuse
                 else:
                     coordinates[cid] = build_coordinate(
                         cid, data, ccfg, config.task, seed=seed, dtype=self.dtype,
-                        device=self.device)
+                        device=self.device, norm=norm)
             prev = coordinates
             validation = None
             if validation_data is not None and self.validation_suite is not None:

@@ -114,6 +114,7 @@ class RandomEffectModel(DatumScoringModel):
     random_effect_type: str  # the id-tag column name
     feature_shard: str
     task: TaskType = TaskType.LOGISTIC_REGRESSION
+    variances: Optional[np.ndarray] = None  # [num_entities, d], aligned with w_stack
 
     @property
     def num_entities(self) -> int:
@@ -139,7 +140,15 @@ class RandomEffectModel(DatumScoringModel):
         """The sparse per-entity container: each entity's nonzero columns,
         ascending, padded with ``dim`` (value 0) to ``k`` (default: the
         densest entity's count).  A ``k`` below that count is an error:
-        truncation would change scores.  An O(nnz) build on the host."""
+        truncation would change scores.  An O(nnz) build on the host.  A
+        model with variances is refused: their support is not the
+        coefficients' (prior-only variances sit at zero coefficients), so
+        compacting would drop them."""
+        if self.variances is not None:
+            raise ValueError(
+                "to_compact would silently drop coefficient variances (their "
+                "support differs from the coefficients'); keep the dense model, "
+                "or compact a variance-free copy deliberately")
         w = np.asarray(self.w_stack)
         e, d = w.shape
         rows, cols = np.nonzero(w)  # row-major: columns ascend within a row

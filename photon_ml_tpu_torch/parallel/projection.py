@@ -31,7 +31,7 @@ from photon_ml_tpu_torch.types import ProjectorType
 Tensor = torch.Tensor
 
 RANDOM_REFUSAL = ("the RANDOM projector is not ported yet: ROADMAP.md 'Modules "
-                  "still to port', random-effect projectors (RANDOM)")
+                  "still to port', item 10, random-effect projectors (RANDOM)")
 
 
 def _pow2_at_least(k: int) -> int:

@@ -28,6 +28,7 @@ from photon_ml_tpu.parallel import bucketing as jbucketing
 from photon_ml_tpu.types import OptimizerType as JOpt
 from photon_ml_tpu.types import TaskType as JTask
 from photon_ml_tpu_torch import convert
+from photon_ml_tpu_torch.core.normalization import NormalizationContext
 from photon_ml_tpu_torch.core.regularization import Regularization as TReg
 from photon_ml_tpu_torch.data import synthetic as tsynth
 from photon_ml_tpu_torch.evaluation import metrics as tmetrics
@@ -218,10 +219,11 @@ def test_glmix_chip_generator_matches_bench():
 
 def test_out_of_slice_configurations_raise(glmix):
     """What the port does not carry yet raises NotImplementedError naming
-    its ROADMAP item (OWLQN / L1, variances, box constraints, the RANDOM
-    projector); TRON with L1 is refused as a ValueError, as in the
-    reference, and a shard that is neither an array, a tensor nor a
-    SparseShard as a TypeError."""
+    its ROADMAP item (OWLQN / L1, box constraints, the RANDOM projector,
+    normalization under compaction); TRON with L1 and variances under the
+    RANDOM projector are refused as a ValueError, as in the reference, and a
+    shard that is neither an array, a tensor nor a SparseShard as a
+    TypeError."""
     data = _data(GameData, glmix)
     task = TaskType.LOGISTIC_REGRESSION
     with pytest.raises(NotImplementedError, match="OWLQN"):
@@ -235,14 +237,16 @@ def test_out_of_slice_configurations_raise(glmix):
         build_coordinate("f", data, FixedEffectConfig(
             feature_shard="g", optimizer=OptimizerType.TRON, reg=TReg(l1=0.1)),
             task, device="cpu")
-    with pytest.raises(NotImplementedError, match="variances"):
-        build_coordinate("f", data, FixedEffectConfig(
-            feature_shard="g", variance=VarianceComputationType.SIMPLE),
-            task, device="cpu")
-    with pytest.raises(NotImplementedError, match="variances"):
+    with pytest.raises(ValueError, match="variances"):
         build_coordinate("u", data, RandomEffectConfig(
             random_effect_type="userId", feature_shard="u",
+            projector=ProjectorType.RANDOM,
             variance=VarianceComputationType.FULL), task, device="cpu")
+    with pytest.raises(NotImplementedError, match="normalization under compaction"):
+        build_coordinate("u", data, RandomEffectConfig(
+            random_effect_type="userId", feature_shard="u",
+            projector=ProjectorType.INDEX_MAP), task, device="cpu",
+            norm=NormalizationContext(factors=torch.full((D_U,), 0.5), shifts=None))
     with pytest.raises(NotImplementedError, match="box constraints"):
         build_coordinate("u", data, RandomEffectConfig(
             random_effect_type="userId", feature_shard="u",

@@ -52,8 +52,7 @@ from photon_ml_tpu_torch.opt.types import SolverConfig
 from photon_ml_tpu_torch.ops import fused_glm as tfused
 from photon_ml_tpu_torch.parallel import bucketing as tbucketing
 from photon_ml_tpu_torch.parallel import projection as tprojection
-from photon_ml_tpu_torch.types import (OptimizerType, ProjectorType, TaskType,
-                                       VarianceComputationType)
+from photon_ml_tpu_torch.types import OptimizerType, ProjectorType, TaskType
 
 LOSSES = ["logistic", "squared", "poisson", "smoothed_hinge"]
 FIT_RTOL = 1e-6
@@ -332,7 +331,7 @@ def test_index_map_dense_random_effect_fit_matches_jax():
 
 
 def test_sparse_random_effect_refusals():
-    """RANDOM, variances and box constraints on a sparse shard raise
+    """RANDOM, normalization and box constraints on a sparse shard raise
     NotImplementedError naming their ROADMAP items."""
     idx, vals, uids, y = _re_data(2, n=256, dim=64, k=4, n_users=8)
     data = GameData(y=y, features={"u": SparseShard(indices=idx, values=vals, dim=64)},
@@ -344,8 +343,10 @@ def test_sparse_random_effect_refusals():
 
     with pytest.raises(NotImplementedError, match=r"random-effect projectors \(RANDOM\)"):
         build(projector=ProjectorType.RANDOM)
-    with pytest.raises(NotImplementedError, match="variances"):
-        build(variance=VarianceComputationType.SIMPLE)
+    with pytest.raises(NotImplementedError, match="normalization under compaction"):
+        build_coordinate("c", data, RandomEffectConfig("userId", "u"),
+                         TaskType.LOGISTIC_REGRESSION, device="cpu",
+                         norm=TNorm(factors=torch.full((64,), 0.5), shifts=None))
     with pytest.raises(NotImplementedError, match="box constraints"):
         build(constraints=((1, -1.0, 1.0),))
     assert build().buckets.num_entities == 8  # the plain sparse coordinate builds
