@@ -11,16 +11,19 @@ Phases, each printing its result and wall time on its own line:
    and spill-store bytes for every template instantiation;
 3. ``fused_value_and_grad`` and ``fused_hvp`` against their plain PyTorch
    versions on the card: the main paths' shapes (glmix_chip's n = 8,388,608,
-   d = 512, glmix2's n = 524,288, d = 256, and glmix2-norm-var's d = 257,
-   float32, timed too), d in {1, 3, 100,
-   8192} with ragged n and n below one tile, all four losses, weight-0 rows,
-   nonzero shifts, float32 and float64, each kernel twice (bitwise equal);
-   times of each kernel (CUDA events over back-to-back calls with the shifts
+   d = 512, glmix2's n = 524,288, d = 256, glmix2-norm-var's d = 257 and
+   glmix3's n = 262,144, d = 128, float32, timed too), d in {1, 2, 3, 5,
+   100, 127, 129, 8192} with ragged n, X not 16-byte aligned (rows 1.. of
+   a contiguous tensor, odd d), n below one tile and n = one tile + 1, all
+   four losses, weight-0 rows, nonzero shifts, float32 and float64, each
+   kernel twice (bitwise equal), each case's launch plan logged (tile rows,
+   stages, blocks, shared memory); times of each kernel after 0.3 s of
+   calls at the shape (CUDA events over back-to-back calls with the shifts
    as 0-d tensors on the card, as ``GLMObjective`` passes them, and its
-   device time alone from a ``torch.profiler`` trace, which must show no
-   stream sync or host-to-device copy in the wrapper), its plain version and
-   a library yardstick (``torch.mv`` / ``torch.mm`` calls, never used by the
-   port);
+   device time alone, and the partials' reduction's, from a
+   ``torch.profiler`` trace, which must show no stream sync or
+   host-to-device copy in the wrapper), its plain version and a library
+   yardstick (``torch.mv`` / ``torch.mm`` calls, never used by the port);
 4. ``newton_step`` against its plain version on the card: d in {1, 4, 16},
    cap in {16, 32}, L in {131072, 1000}, logistic / squared / Poisson;
    times and device time as above (yardstick: batched ``torch.linalg.cholesky`` +
@@ -93,6 +96,15 @@ Phases, each printing its result and wall time on its own line:
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero and prints no result; so does a run without a
 CUDA device or without the package beside this script.
+
+    python3 chip_smoke.py --ab TREE  # one side of an A/B of the fused kernels
+
+runs only phases 1-2 against the package in directory TREE, then times
+both fused kernels at the four main-path shapes (after one parity check
+each against the plain version) and fits glmix_chip, glmix2-TRON, glmix3
+and glmix2-norm-var at full width, printing one JSON line of device times
+and fit times last.  To compare two trees on one card, unpack both into
+git-ignored directories and run one process per tree in the order A B B A.
 """
 
 from __future__ import annotations
@@ -154,14 +166,32 @@ REDUCED_GLMIX2_SCALE = 8  # 2048 users x 32 rows
 NORM_VAR_II = GLMIX2_D  # glmix2-norm-var: the intercept column appended to glmix2's
 FULL_VARIANCE_ENTITIES, FULL_VARIANCE_SEED = 16, 6  # per-user FULL variance check
 NORM_VAR_SCALE_SEED = 7  # glmix2-norm-var: the per-column scales and shifts
+GLMIX3_D = 128
 FUSED_CASES = [(MAIN_N, MAIN_D, "float32"), (GLMIX2_N, GLMIX2_D, "float32"),
                (GLMIX2_N, NORM_VAR_II + 1, "float32"),  # glmix2-norm-var: odd rows
+               (GLMIX3_N, GLMIX3_D, "float32"),  # glmix3's fixed effect
                (3_000_001, 1, "float32"),
                (1_000_003, 100, "float32"), (65_537, 8192, "float32"),
                (1_000_003, 1, "float64"), (200_003, 100, "float64"),
                (16_411, 8192, "float64"),
                (7, 256, "float32"),  # n below one tile of rows
-               (100_003, 3, "float32")]  # rows not a whole number of 16-byte vectors
+               (5, 129, "float64"),
+               # rows not a whole number of 16-byte vectors: each tile's span
+               # has a ragged head and tail around its 16-byte interior
+               (100_003, 2, "float32"), (100_003, 3, "float32"),
+               (100_003, 5, "float32"), (100_003, 127, "float32"),
+               (100_003, 129, "float32"), (100_001, 3, "float64"),
+               (100_001, 5, "float64"), (100_001, 129, "float64")]
+# X is rows 1.. of a contiguous [n + 1, d] tensor: with odd d its data_ptr is
+# not 16-byte aligned, so even the first tile's span starts mid-vector
+FUSED_UNALIGNED = [(100_003, 257, "float32"), (100_003, 3, "float32"),
+                   (100_001, 129, "float64")]
+# n = the plan's tile rows + 1: one whole tile and a one-row tile
+FUSED_TILE_PLUS_ONE = [(257, "float32"), (5, "float32"), (100, "float64")]
+# the main paths' fixed effects, timed: glmix_chip (kernel 1), glmix2-TRON
+# (kernels 1 and 2), glmix2-norm-var (both, d = 257), glmix3 (kernel 1)
+FUSED_TIMED = [(MAIN_N, MAIN_D), (GLMIX2_N, GLMIX2_D), (GLMIX2_N, NORM_VAR_II + 1),
+               (GLMIX3_N, GLMIX3_D)]
 NEWTON_LANES = (MAIN_USERS, 1000)
 COMPACT_BENCH = dict(num_e=20_000, dim=50_000, k_model=16, k_feat=24)  # bench.py:3296
 COMPACT_NS = (1, 1000, 1_048_576)
@@ -207,6 +237,18 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def settle(fn, seconds: float = 0.3) -> None:
+    """Calls ``fn`` back to back for ``seconds`` before a timing: right after
+    another shape's work, the card's first timings at a new shape read
+    slow."""
+    import torch
+
+    t_end = time.perf_counter() + seconds
+    while time.perf_counter() < t_end:
+        fn()
+        torch.cuda.synchronize()
 
 
 def profiled(fn, reps: int, kernels) -> dict:
@@ -307,13 +349,15 @@ def phase_build():
                 f"registers/spill-store bytes: {cells}")
 
 
-def _glm_batch(n, d, dtype, gen, scale=0.05):
+def _glm_batch(n, d, dtype, gen, scale=0.05, skip_rows=0):
+    """(w, batch) on the card; X is rows ``skip_rows``.. of a contiguous
+    [n + skip_rows, d] tensor."""
     import torch
 
     from photon_ml_tpu_torch.core.batch import DenseBatch
 
     dev = "cuda"
-    x = torch.randn((n, d), generator=gen, device=dev, dtype=dtype)
+    x = torch.randn((n + skip_rows, d), generator=gen, device=dev, dtype=dtype)[skip_rows:]
     y = (torch.rand(n, generator=gen, device=dev) < 0.4).to(dtype)
     off = torch.randn(n, generator=gen, device=dev, dtype=dtype) * 0.1
     wt = torch.rand(n, generator=gen, device=dev, dtype=dtype) + 0.5
@@ -345,6 +389,38 @@ def _check_close(label, k, again, p, tol):
     return max(abs_err(a, c) for a, c in zip(k, p))
 
 
+def _fused_plan(n, d, dtype):
+    """The wrappers' launch plan at (n, d), or None for a package without
+    one (the A/B mode's parent tree)."""
+    import torch
+
+    from photon_ml_tpu_torch.ops import fused_glm
+
+    if not hasattr(fused_glm, "launch_plan"):
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return fused_glm.launch_plan(n, d, torch.tensor([], dtype=dtype).element_size(), sms)
+
+
+def _plan_text(plan) -> str:
+    if plan is None:
+        return "plan: not reported"
+    return (f"plan: tile rows {plan.tile_rows}, stages {plan.stages}, blocks "
+            f"{plan.blocks} x {plan.rows_per_block} rows, shared memory "
+            f"{plan.smem_bytes} bytes")
+
+
+def _fused_cases():
+    """(n, d, dtype, rows skipped at X's start) of phase 3."""
+    import torch
+
+    cases = [(n, d, getattr(torch, dt), 0) for n, d, dt in FUSED_CASES]
+    cases += [(n, d, getattr(torch, dt), 1) for n, d, dt in FUSED_UNALIGNED]
+    cases += [(_fused_plan(10**6, d, getattr(torch, dt)).tile_rows + 1, d,
+               getattr(torch, dt), 0) for d, dt in FUSED_TILE_PLUS_ONE]
+    return cases
+
+
 def phase_fused_glm(stats: dict):
     import torch
 
@@ -358,13 +434,14 @@ def phase_fused_glm(stats: dict):
     gen.manual_seed(0)
     losses = (L.logistic_loss, L.squared_loss, L.poisson_loss, L.smoothed_hinge_loss)
     shift, v_shift = 0.03, -0.02
-    cases = [(n, d, getattr(torch, dt)) for n, d, dt in FUSED_CASES]
     worst = {"fused_value_and_grad": 0.0, "fused_hvp": 0.0}
-    for n, d, dt in cases:
-        w, b = _glm_batch(n, d, dt, gen)
+    for n, d, dt, skip in _fused_cases():
+        w, b = _glm_batch(n, d, dt, gen, skip_rows=skip)
         v = torch.randn(d, generator=gen, device="cuda", dtype=dt) / max(1, d) ** 0.5
         tol = F32_KERNEL_RTOL if dt == torch.float32 else F64_KERNEL_RTOL
-        tag = f"n={n} d={d} {str(dt)[6:]}"
+        tag = f"n={n} d={d} {str(dt)[6:]}" + (f" data_ptr%16={b.x.data_ptr() % 16}"
+                                               if skip else "")
+        log(f"fused {tag}: {_plan_text(_fused_plan(n, d, dt))}")
         for loss in losses:
             def fvg():
                 return fused_value_and_grad(loss, w, b, margin_shift=shift)
@@ -382,8 +459,7 @@ def phase_fused_glm(stats: dict):
                 worst["fused_value_and_grad"] = e1
             if loss is L.logistic_loss and (n, d, dt) == (GLMIX2_N, GLMIX2_D, torch.float32):
                 worst["fused_hvp"] = e2
-        if dt == torch.float32 and (n, d) in ((MAIN_N, MAIN_D), (GLMIX2_N, GLMIX2_D),
-                                              (GLMIX2_N, NORM_VAR_II + 1)):
+        if dt == torch.float32 and not skip and (n, d) in FUSED_TIMED:
             _time_fused(stats, n, d, w, v, b, shift, v_shift, gen)
         del w, v, b
         torch.cuda.empty_cache()
@@ -430,25 +506,30 @@ def _time_fused(stats, n, d, w, v, b, shift, v_shift, gen):
             main=(n, d) == (GLMIX2_N, GLMIX2_D)),
     }
     for name, row in rows.items():
+        settle(row["kernel"])
         ms = cuda_ms(row["kernel"], reps)
         float_ms = cuda_ms(row["float_shifts"], reps)
         prof = profiled(row["kernel"], reps, row["names"] + ("reduce_partials",))
+        red = profiled(row["kernel"], reps, ("reduce_partials",))["device_ms"]
         plain_ms = cuda_ms(row["plain"], reps)
         lib_ms = cuda_ms(row["library"], reps)
         bound, by = _bound(row["nbytes"], row["flops"])
         log(f"{name} timing n={n} d={d} float32 logistic: kernel {ms:.4f} ms (events; "
-            f"device alone {prof['device_ms']:.4f} ms, {prof['syncs_per_call']:g} stream "
+            f"device alone {prof['device_ms']:.4f} ms, of which the partials' "
+            f"reduction {red:.4f} ms; {prof['syncs_per_call']:g} stream "
             f"syncs and {prof['htod_per_call']:g} HtoD copies per call; float shifts "
             f"{float_ms:.4f} ms), plain {plain_ms:.4f} ms, library ({row['library_name']}) "
             f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({row['nbytes'] / 1e9:.3f} GB, {by}), "
             f"{bound / prof['device_ms']:.0%} of bound, "
-            f"{row['nbytes'] / (prof['device_ms'] * 1e-3) / 1e12:.2f} TB/s")
+            f"{row['nbytes'] / (prof['device_ms'] * 1e-3) / 1e12:.2f} TB/s; "
+            f"{_plan_text(_fused_plan(n, d, b.x.dtype))}")
         if prof["syncs_per_call"] or prof["htod_per_call"]:
             raise AssertionError(f"{name} syncs or copies to the card on the real path")
+        timed = dict(ms=ms, device_ms=prof["device_ms"], reduce_ms=red, plain_ms=plain_ms,
+                     library_ms=lib_ms, bound_ms=bound, bound_by=by)
+        stats.setdefault(name, {}).setdefault("by_shape", {})[f"{n}x{d}"] = timed
         if row["main"]:
-            stats.setdefault(name, {}).update(ms=ms, device_ms=prof["device_ms"],
-                                              plain_ms=plain_ms, library_ms=lib_ms,
-                                              bound_ms=bound, bound_by=by)
+            stats[name].update(timed)
 
 
 def _soa_inputs(d, cap, num_l, dtype, gen):
@@ -1625,8 +1706,82 @@ KERNELS = {
 }
 
 
+def run_ab(tree: Path) -> int:
+    """One side of an A/B of the fused kernels (module docstring)."""
+    import torch
+
+    import photon_ml_tpu_torch
+    from photon_ml_tpu_torch.core import losses as L
+    from photon_ml_tpu_torch.data.synthetic import chip_design, synth_glmix, synth_glmix_chip
+    from photon_ml_tpu_torch.game import GameData
+    from photon_ml_tpu_torch.ops.fused_glm import (fused_hvp, fused_hvp_plain,
+                                                   fused_value_and_grad,
+                                                   fused_value_and_grad_plain)
+    from photon_ml_tpu_torch.types import OptimizerType
+
+    pkg = Path(photon_ml_tpu_torch.__file__).resolve().parent
+    if pkg.parent != tree:
+        raise AssertionError(f"imported {pkg}, not the package of {tree}")
+    log(f"A/B side: {pkg}")
+    stats: dict = {}
+    with Phase("1 device"):
+        _, _, smi = phase_device()
+    with Phase("2 kernel build"):
+        phase_build()
+    with Phase("ab kernels"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        shift, v_shift, loss = 0.03, -0.02, L.logistic_loss
+        for n, d in FUSED_TIMED:
+            w, b = _glm_batch(n, d, torch.float32, gen)
+            v = torch.randn(d, generator=gen, device="cuda") / d ** 0.5
+            _check_close(f"fused_value_and_grad n={n} d={d}",
+                         fused_value_and_grad(loss, w, b, shift),
+                         fused_value_and_grad(loss, w, b, shift),
+                         fused_value_and_grad_plain(loss, w, b, shift), F32_KERNEL_RTOL)
+            _check_close(f"fused_hvp n={n} d={d}",
+                         fused_hvp(loss, w, v, b, shift, v_shift),
+                         fused_hvp(loss, w, v, b, shift, v_shift),
+                         fused_hvp_plain(loss, w, v, b, shift, v_shift), F32_KERNEL_RTOL)
+            _time_fused(stats, n, d, w, v, b, shift, v_shift, gen)
+            del w, v, b
+            torch.cuda.empty_cache()
+    fits = {}
+    with Phase("ab fits"):
+        host = synth_glmix_chip()
+        xg = chip_design(host["n"], "cuda")
+        data = GameData(y=host["y"], features={"g": xg, "u": host["xu"]},
+                        id_tags={"userId": host["uids"]})
+        fits["glmix_chip"] = _fit_and_score(data, "cuda", _glmix_config())[3]
+        del data, xg, host
+        torch.cuda.empty_cache()
+        glmix2 = synth_glmix(1, three=False)
+        fits["glmix2_tron"] = _fit_and_score(_baseline_data(glmix2), "cuda",
+                                             _baseline_config(False, OptimizerType.TRON))[3]
+        fits["glmix3"] = _fit_and_score(_baseline_data(synth_glmix(1, three=True)), "cuda",
+                                        _baseline_config(True, OptimizerType.LBFGS))[3]
+        host = _with_intercept(glmix2)
+        data, xg, xu = _norm_var_data(host, "cuda")
+        norms, _ = _norm_var_contexts(xg, xu)
+        fits["glmix2_norm_var"] = _fit_and_score(data, "cuda", _norm_var_config(),
+                                                 norms)[3]
+        log("fit seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in fits.items()))
+    kernels = {k: stats[k]["by_shape"] for k in ("fused_value_and_grad", "fused_hvp")}
+    log(json.dumps({"ab": str(tree), "card": smi, "kernels": kernels, "fit_s": fits}))
+    return 0
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
+    ab = None
+    if sys.argv[1:2] == ["--ab"]:
+        if len(sys.argv) != 3:
+            print("usage: chip_smoke.py [--ab TREE]", file=sys.stderr)
+            return 2
+        ab = root = Path(sys.argv[2]).resolve()
+        while str(Path(__file__).resolve().parent) in sys.path:  # only TREE's package
+            sys.path.remove(str(Path(__file__).resolve().parent))
     sys.path.insert(0, str(root))
     try:
         import torch
@@ -1642,6 +1797,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    if ab is not None:
+        return run_ab(ab)
     t_all = time.perf_counter()
     stats: dict = {}
     with Phase("1 device"):
@@ -1689,7 +1846,8 @@ def main() -> int:
                             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                             "device_ms": s["device_ms"],
                             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                            "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+                            "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+                            **({"by_shape": s["by_shape"]} if "by_shape" in s else {})})
         log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

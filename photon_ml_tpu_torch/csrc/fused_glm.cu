@@ -13,21 +13,47 @@
 //
 // Bound on an H100: bytes.  Value+gradient does 4 flops per element of X and
 // the Hessian-vector product 6, against one 4-byte read of it, so X's bytes
-// over HBM bandwidth is the floor (~5 ms for the 17.2 GB f32 design of
+// over HBM bandwidth is the floor (~5.2 ms for the 17.2 GB f32 design of
 // glmix_chip, ~0.16 ms for glmix2's 0.54 GB) and the FP32 pipes are never the
-// limit.  Design for that bound, shared by both kernels: X is read from HBM
-// once.  Each block owns a contiguous range of rows and walks it in tiles of
-// whole rows staged in shared memory (one contiguous, vectorised copy per
-// tile); a warp per staged row forms the row's dot product(s) from the tile,
-// with w (and v) read through L1 rather than held in shared memory (at
-// d = 8192 in f64 they would take 128 KB beside the tile), lane 0 evaluates
-// the loss, then every thread folds the row coefficient times x into its own
-// columns of a per-block accumulator held in shared memory.  Blocks write
-// [grid, width] partials and a second kernel sums them over blocks in a fixed
-// order: no float atomics, so results are bitwise repeatable.  The TPU
-// kernels' carried accumulators relied on their grid running in order on one
-// core; blocks here run concurrently.  Products are plain FP32 (or FP64) FMAs,
-// the precision the TPU kernels forced on the MXU.
+// limit.  The design keeps bytes in flight at every row width:
+//
+// - A persistent grid (the wrapper plans one or two blocks per SM) in which
+//   each block walks a contiguous range of whole tiles of rows.
+// - An asynchronous ring of `stages` tile buffers in shared memory
+//   (stage_tile): while the block computes on tile t, tiles t+1 .. t+S-1 are
+//   in flight.  One thread starts each tile's copy as a Hopper bulk copy
+//   (cp.async.bulk, 1D, no tensor map) that completes on the stage's
+//   mbarrier; the consumers wait on it by phase parity.  The compute warps
+//   spend no instructions or registers on the bytes.  (Per-thread cp.async
+//   of 16 bytes each, tried first, read markedly less of the bound at
+//   d <= 257 on an H100: the issuing warps stalled on the copies they
+//   queued, and those warps are the ones computing.)  The tile's ragged head and
+//   tail and its rows' y, offset and weight (a few hundred bytes) go as
+//   element-sized cp.async in one commit group a tile.  A slot is refilled
+//   only after the block barrier that follows every warp's last use of it.
+// - 16-byte copies at every d and base alignment.  A tile of whole rows is
+//   one contiguous span of X.  Its 16-byte-aligned interior is the bulk
+//   copy, into a stage whose start is offset by the span's misalignment
+//   (`pad` elements), so the interior lands aligned in shared memory; the
+//   head and tail (under 16 bytes each) go element by element.  Nothing
+//   reads past the span.
+// - Short dependency chains on each staged row.  w (and v) sit in
+//   registers up to 32 * kRegCoefs columns (768 in f32, 256 in f64: every
+//   main path's fixed effect) and are read through L1 above that.  Past the
+//   bytes, the cost of a row is its loss, so a row's dot products are formed
+//   by the fewest of 8, 16 or 32 lanes that hold its columns (24 a lane in
+//   f32), and a warp works on up to four rows and their losses at once:
+//   each lane reads its columns of its row at immediate offsets into the
+//   staged tile, the group sums them by a butterfly, evaluates the loss,
+//   and its first lane stores the row coefficient.  After a block barrier
+//   each thread folds coefficient times x into its own columns of a
+//   per-block accumulator in shared memory.  Two block barriers a tile.
+// - Blocks write [grid, width] partials and a second kernel sums them over
+//   blocks in a fixed order: no float atomics, so results are bitwise
+//   repeatable.  The TPU kernels' carried accumulators relied on their grid
+//   running in order on one core; blocks here run concurrently.  Products
+//   are plain FP32 (or FP64) FMAs, the precision the TPU kernels forced on
+//   the MXU.
 //
 // Plain C interface for ctypes.  Every entry point returns the CUDA error of
 // its launches (0 on success) or -1 for arguments it does not take.
@@ -41,229 +67,448 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
+constexpr int kMaxStages = 8;
+// Columns of w (and v) each lane holds in registers: a row of up to 8 * 24,
+// 16 * 24 or 32 * 24 columns on 8, 16 or 32 lanes in f32 (8 a lane in f64).
 template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  using type = float4;
-  static constexpr int width = 4;
-};
-template <>
-struct Vec<double> {
-  using type = double2;
-  static constexpr int width = 2;
+constexpr int kRegCoefs = sizeof(T) == 4 ? 24 : 8;
+// Elements in one 16-byte copy.
+template <typename T>
+constexpr int kVec = 16 / (int)sizeof(T);
+
+__host__ __device__ inline int64_t round_up(int64_t v, int64_t m) {
+  return (v + m - 1) / m * m;
+}
+
+// One stage of the ring, in elements: the tile's span of X (up to kVec - 1
+// elements of pad before it), then the tile's y, offset and weight; a whole
+// number of 16-byte pieces, so every stage starts aligned.
+template <typename T>
+__host__ __device__ int64_t stage_x_elems(int d, int tile_rows) {
+  return round_up((int64_t)tile_rows * d + kVec<T> - 1, kVec<T>);
+}
+template <typename T>
+__host__ __device__ int64_t stage_elems(int d, int tile_rows) {
+  return round_up(stage_x_elems<T>(d, tile_rows) + 3 * (int64_t)tile_rows, kVec<T>);
+}
+
+// Shared memory of either kernel: the ring, then the block accumulator [d],
+// the tile's row coefficients [tile_rows], the per-warp scalar sums
+// [2 * kWarps], and from the next 8-byte boundary one mbarrier per stage.
+template <typename T>
+__host__ __device__ int64_t barrier_offset(int d, int tile_rows, int stages) {
+  return round_up(
+      sizeof(T) * (stages * stage_elems<T>(d, tile_rows) + d + tile_rows + 2 * kWarps), 8);
+}
+template <typename T>
+size_t smem_bytes(int d, int tile_rows, int stages) {
+  return barrier_offset<T>(d, tile_rows, stages) + 8 * (size_t)stages;
+}
+
+// The tensors both kernels read, and the launch plan.
+template <typename T>
+struct GlmIn {
+  const T* __restrict__ x;
+  const T* __restrict__ y;
+  const T* __restrict__ off;
+  const T* __restrict__ wt;
+  int64_t n;
+  int d;
+  int64_t rows_per_block;
+  int tile_rows;
+  int stages;
 };
 
-// Shared memory of either kernel: the row tile [tile_rows, d], then the block
-// accumulator [d], the tile's row coefficients [tile_rows] and the per-warp
-// scalar sums [2 * kWarps].
-template <typename T>
-size_t smem_bytes(int d, int tile_rows) {
-  return sizeof(T) * ((size_t)tile_rows * d + d + tile_rows + 2 * kWarps);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 template <typename T>
-struct BlockSmem {
-  T* tile;
-  T* acc;
-  T* coef;
-  T* red;
-  __device__ BlockSmem(unsigned char* raw, int d, int tile_rows) {
-    tile = reinterpret_cast<T*>(raw);
-    acc = tile + (size_t)tile_rows * d;
-    coef = acc + d;
-    red = coef + tile_rows;
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "n"((int)sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Arrive on `bar` and have its phase also wait for `bytes` of bulk copies.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Hopper's bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait until at most `pending` of this thread's commit groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
   }
-};
+}
 
-// Copy `count` contiguous elements of X into the tile, vectorised when the
-// rows and the base pointer allow it.
+// Elements of the span starting at `p` that lie past its last 16-byte
+// boundary: the stage's pad, which puts the span's aligned interior on a
+// 16-byte boundary of shared memory.
 template <typename T>
-__device__ __forceinline__ void stage_tile(T* tile, const T* __restrict__ src,
-                                           int64_t count, bool vec_ok) {
-  using V = typename Vec<T>::type;
-  constexpr int VW = Vec<T>::width;
-  if (vec_ok) {
-    const V* s4 = reinterpret_cast<const V*>(src);
-    V* t4 = reinterpret_cast<V*>(tile);
-    const int64_t nv = count / VW;
-    for (int64_t k = threadIdx.x; k < nv; k += kThreads) t4[k] = __ldg(s4 + k);
-  } else {
-    for (int64_t k = threadIdx.x; k < count; k += kThreads) tile[k] = __ldg(src + k);
+__device__ __forceinline__ int span_pad(const T* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) % 16) / sizeof(T));
+}
+
+// Start the copies of rows [r0, r0 + rows) into `stage`: X's span
+// [r0 * d, (r0 + rows) * d) at stage[pad ..], its aligned interior as one
+// bulk copy that completes on `bar`, its head and tail element by element,
+// then the rows' y, offset and weight.  The caller commits the group of
+// element copies.
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* stage, const GlmIn<T>& in, int64_t r0,
+                                           int rows, uint64_t* bar) {
+  constexpr int VW = kVec<T>;
+  const int tid = threadIdx.x;
+  const T* src = in.x + r0 * in.d;
+  const int64_t count = (int64_t)rows * in.d;
+  const int pad = span_pad(src);
+  const int head = pad ? (int)(VW - pad < count ? VW - pad : count) : 0;
+  const int64_t nvec = (count - head) / VW;
+  const int tail = (int)(count - head - nvec * VW);
+  T* dst = stage + pad;
+  if (tid == 0) {
+    mbar_arrive_expect(bar, (uint32_t)(nvec * 16));
+    if (nvec > 0) bulk_copy(dst + head, src + head, (uint32_t)(nvec * 16), bar);
+  }
+  if (tid < head) cp_async_elem(dst + tid, src + tid);
+  if (tid >= kThreads - tail) {
+    const int64_t e = head + nvec * VW + (tid - (kThreads - tail));
+    cp_async_elem(dst + e, src + e);
+  }
+  T* vec = stage + stage_x_elems<T>(in.d, in.tile_rows);
+  for (int i = tid; i < rows; i += kThreads) {
+    cp_async_elem(vec + i, in.y + r0 + i);
+    cp_async_elem(vec + in.tile_rows + i, in.off + r0 + i);
+    cp_async_elem(vec + 2 * in.tile_rows + i, in.wt + r0 + i);
   }
 }
 
+// Fixed-order butterfly sum over aligned groups of `lanes` lanes (a power of
+// 2); every lane of a group gets the same bits.
 template <typename T>
-__device__ __forceinline__ bool vectorisable(const T* x, int d) {
-  using V = typename Vec<T>::type;
-  return (d % Vec<T>::width) == 0 && (reinterpret_cast<uintptr_t>(x) % sizeof(V)) == 0;
-}
-
-// Fixed-order butterfly sum over the warp.
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+__device__ __forceinline__ T group_sum(T v, int lanes) {
+  for (int o = lanes / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// acc[j] += sum over the tile's rows of coef[rr] * tile[rr, j]; each thread
-// owns columns j = tid + k * kThreads.
+// ... and over the groups of a warp: every lane gets the warp's sum.
 template <typename T>
-__device__ __forceinline__ void fold_rows(T* acc, const T* coef, const T* tile,
-                                          int rows, int d) {
-  for (int j = threadIdx.x; j < d; j += kThreads) {
-    T g = acc[j];
-    for (int rr = 0; rr < rows; ++rr) g += coef[rr] * tile[(size_t)rr * d + j];
-    acc[j] = g;
+__device__ __forceinline__ T across_groups(T v, int lanes) {
+  for (int o = lanes; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Lanes that form one row's dot products: the fewest of 8, 16 and 32 that
+// hold the row's columns in registers, kRegCoefs each; 32 when none does.
+template <typename T>
+__host__ __device__ inline int row_lanes(int d) {
+  return d <= 8 * kRegCoefs<T> ? 8 : d <= 16 * kRegCoefs<T> ? 16 : 32;
+}
+
+// The NV coefficient vectors of a group of L lanes' row dot products: lane p
+// of the group holds columns p + L * k in registers when d <= L * kRegCoefs,
+// and reads them through L1 above that (L = 32 only).
+template <typename T, int NV>
+struct RowCoefs {
+  static constexpr int K = kRegCoefs<T>;
+  T r[NV][K];
+  const T* g[NV];
+  bool in_regs;
+
+  template <int L>
+  __device__ __forceinline__ void load(const T* const* vecs, int d, int p) {
+    in_regs = d <= L * K;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      g[v] = vecs[v];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = p + L * k;
+        r[v][k] = in_regs && j < d ? __ldg(vecs[v] + j) : T(0);
+      }
+    }
+  }
+};
+
+// The dot-product half of a tile: a warp takes 32 / L rows at a time, one
+// per group of L lanes; each lane reads its columns of its group's row at
+// immediate offsets, the group sums its products by a butterfly, and its
+// lanes evaluate the row's loss (so a warp works on up to four losses at
+// once), the first storing the row coefficient.
+template <int L, typename T, class Row, int NV>
+__device__ __forceinline__ void tile_dots(const RowCoefs<T, NV>& cs, Row& row, const T* xt,
+                                          const T* vy, const T* voff, const T* vwt,
+                                          int rows, int d, int warp, int lane, T* coef) {
+  constexpr int G = 32 / L;
+  const int p = lane % L;
+  for (int base = warp * G; base < rows; base += kWarps * G) {
+    const int rr = base + lane / L;
+    const bool ok = rr < rows;
+    // a group past the tile's last row reads row 0 (finite data) and is
+    // discarded
+    const T* xr = xt + (size_t)(ok ? rr : 0) * d + p;
+    T m[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) m[v] = T(0);
+    if (cs.in_regs) {
+#pragma unroll
+      for (int k = 0; k < RowCoefs<T, NV>::K; ++k) {
+        if (p + L * k < d) {
+          const T x = xr[L * k];
+#pragma unroll
+          for (int v = 0; v < NV; ++v) m[v] += x * cs.r[v][k];
+        }
+      }
+    } else {
+      for (int j = 0; p + j < d; j += L) {
+        const T x = xr[j];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) m[v] += x * __ldg(cs.g[v] + p + j);
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v) m[v] = group_sum(m[v], L);
+    if (ok) {
+      const T c = row(m, vy[rr], voff[rr], vwt[rr]);
+      if (p == 0) coef[rr] = c;
+    }
   }
 }
 
-template <typename T, int LOSS>
-__global__ void __launch_bounds__(kThreads)
-fvg_partial_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   const T* __restrict__ y, const T* __restrict__ off,
-                   const T* __restrict__ wt, const T* __restrict__ shift,
-                   int64_t n, int d, int64_t rows_per_block, int tile_rows,
-                   T* __restrict__ partials) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  BlockSmem<T> s(smem_raw, d, tile_rows);
+// The row pipeline both kernels share.  Walks this block's rows in tiles
+// through the ring; for each row, `row` turns the row's NV dot products with
+// `vecs` (and its y, offset, weight) into its coefficient c; after a block
+// barrier each thread folds c * x of the tile's rows into its columns
+// tid + k * kThreads of the block accumulator in shared memory.  Then
+// writes the block's row of partials: the accumulator, and the NS scalar
+// sums that `row` keeps (its `sums()`, summed over a group's rows, the
+// groups and the warps in a fixed order).
+template <typename T, int NV, int NS, class Row>
+__device__ __forceinline__ void fold_rows(const GlmIn<T>& in, const T* const* vecs,
+                                          Row& row, unsigned char* smem_raw,
+                                          T* __restrict__ partials) {
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  for (int j = tid; j < d; j += kThreads) s.acc[j] = T(0);
+  const int d = in.d;
+  const int S = in.stages;
+  const int64_t se = stage_elems<T>(d, in.tile_rows);
+  const int64_t sx = stage_x_elems<T>(d, in.tile_rows);
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  T* acc = ring + S * se;
+  T* coef = acc + d;
+  T* red = coef + in.tile_rows;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem_raw + barrier_offset<T>(d, in.tile_rows, S));  // one per stage
+  if (tid == 0) {
+    for (int k = 0; k < S; ++k) mbar_init(full + k, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const int L = row_lanes<T>(d);
+  RowCoefs<T, NV> cs;
+  if (L == 8)
+    cs.template load<8>(vecs, d, lane % 8);
+  else if (L == 16)
+    cs.template load<16>(vecs, d, lane % 16);
+  else
+    cs.template load<32>(vecs, d, lane);
+  for (int j = tid; j < d; j += kThreads) acc[j] = T(0);
+  __syncthreads();  // the barriers are ready
 
-  const T sh = shift[0];
-  T val_acc = T(0);
-  T rsum_acc = T(0);
-  const int64_t row_begin = (int64_t)blockIdx.x * rows_per_block;
+  const int64_t row_begin = (int64_t)blockIdx.x * in.rows_per_block;
   const int64_t row_end =
-      row_begin + rows_per_block < n ? row_begin + rows_per_block : n;
-  const bool vec_ok = vectorisable(x, d);
+      row_begin + in.rows_per_block < in.n ? row_begin + in.rows_per_block : in.n;
+  const int num_tiles = (int)((row_end - row_begin + in.tile_rows - 1) / in.tile_rows);
+  auto rows_of = [&](int t) {
+    const int64_t left = row_end - (row_begin + (int64_t)t * in.tile_rows);
+    return (int)(left < in.tile_rows ? left : in.tile_rows);
+  };
 
-  for (int64_t r0 = row_begin; r0 < row_end; r0 += tile_rows) {
-    const int rows = (int)(row_end - r0 < tile_rows ? row_end - r0 : tile_rows);
-    __syncthreads();  // the previous tile's fold is done with it
-    stage_tile(s.tile, x + r0 * (int64_t)d, (int64_t)rows * d, vec_ok);
-    __syncthreads();
+  // one commit group of element copies per tile slot, empty past the last
+  // tile, so that wait_group(S - 2) and the stage's barrier in phase t / S
+  // always mean "tile t has landed"
+  for (int t = 0; t < S - 1; ++t) {
+    if (t < num_tiles)
+      stage_tile(ring + t * se, in, row_begin + (int64_t)t * in.tile_rows, rows_of(t),
+                 full + t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < num_tiles; ++t) {
+    cp_async_wait(S - 2);
+    mbar_wait(full + t % S, (uint32_t)((t / S) & 1));
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1's slot
+    const int tn = t + S - 1;
+    if (tn < num_tiles)
+      stage_tile(ring + (tn % S) * se, in, row_begin + (int64_t)tn * in.tile_rows,
+                 rows_of(tn), full + tn % S);
+    cp_async_commit();
 
-    // margins, loss and residual: one warp per row
-    for (int rr = warp; rr < rows; rr += kWarps) {
-      const T* xr = s.tile + (size_t)rr * d;
-      T acc = T(0);
-      for (int j = lane; j < d; j += 32) acc += xr[j] * __ldg(w + j);
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        const int64_t row = r0 + rr;
-        const T wtv = wt[row];
-        T z = acc + off[row] + sh;
-        z = wtv > T(0) ? z : T(0);  // weight-0 rows stay finite
-        T l, d1;
-        photon::loss_and_d1<LOSS>(z, y[row], l, d1);
-        const T r = wtv * d1;
-        s.coef[rr] = r;
-        val_acc += wtv * l;
-        rsum_acc += r;
-      }
+    const int64_t r0 = row_begin + (int64_t)t * in.tile_rows;
+    const int rows = rows_of(t);
+    const T* stage = ring + (t % S) * se;
+    const T* xt = stage + span_pad(in.x + r0 * d);
+    const T* vy = stage + sx;
+    const T* voff = vy + in.tile_rows;
+    const T* vwt = voff + in.tile_rows;
+    if (L == 8)
+      tile_dots<8>(cs, row, xt, vy, voff, vwt, rows, d, warp, lane, coef);
+    else if (L == 16)
+      tile_dots<16>(cs, row, xt, vy, voff, vwt, rows, d, warp, lane, coef);
+    else
+      tile_dots<32>(cs, row, xt, vy, voff, vwt, rows, d, warp, lane, coef);
+    __syncthreads();  // the tile's coefficients are in
+    for (int j = tid; j < d; j += kThreads) {
+      T a = acc[j];
+#pragma unroll 4
+      for (int rr = 0; rr < rows; ++rr) a += coef[rr] * xt[(size_t)rr * d + j];
+      acc[j] = a;
     }
-    __syncthreads();
-    fold_rows(s.acc, s.coef, s.tile, rows, d);
   }
 
+  T sums[NS];
+  row.sums(sums);
+#pragma unroll
+  for (int k = 0; k < NS; ++k) sums[k] = across_groups(sums[k], L);
   if (lane == 0) {
-    s.red[warp] = val_acc;
-    s.red[kWarps + warp] = rsum_acc;
+#pragma unroll
+    for (int k = 0; k < NS; ++k) red[k * kWarps + warp] = sums[k];
   }
   __syncthreads();
-  T* out = partials + (int64_t)blockIdx.x * (d + 2);
-  for (int j = tid; j < d; j += kThreads) out[j] = s.acc[j];
-  if (tid == 0) {
-    T v = T(0), rs = T(0);
-    for (int k = 0; k < kWarps; ++k) {
-      v += s.red[k];
-      rs += s.red[kWarps + k];
-    }
-    out[d] = v;
-    out[d + 1] = rs;
+  T* out = partials + (int64_t)blockIdx.x * (d + NS);
+  for (int j = tid; j < d; j += kThreads) out[j] = acc[j];
+  if (tid < NS) {
+    T v = T(0);
+    for (int k = 0; k < kWarps; ++k) v += red[tid * kWarps + k];
+    out[d + tid] = v;
   }
+}
+
+// value and gradient: c = wt * l'(z, y), sums (sum wt * l, sum c)
+template <typename T, int LOSS>
+struct FvgRow {
+  T shift;
+  T value = T(0);
+  T rsum = T(0);
+
+  __device__ __forceinline__ T operator()(const T (&m)[1], T yv, T offv, T wtv) {
+    T z = m[0] + offv + shift;
+    z = wtv > T(0) ? z : T(0);  // weight-0 rows stay finite
+    T l, d1;
+    photon::loss_and_d1<LOSS>(z, yv, l, d1);
+    const T r = wtv * d1;
+    value += wtv * l;
+    rsum += r;
+    return r;
+  }
+  __device__ __forceinline__ void sums(T (&s)[2]) const {
+    s[0] = value;
+    s[1] = rsum;
+  }
+};
+
+// Hessian-vector product: c = wt * l''(z, y) * (x.v + v_shift), sum (sum c);
+// m = (x.w, x.v) from one read of the row
+template <typename T, int LOSS>
+struct HvpRow {
+  T shift;
+  T vshift;
+  T qsum = T(0);
+
+  __device__ __forceinline__ T operator()(const T (&m)[2], T yv, T offv, T wtv) {
+    T z = m[0] + offv + shift;
+    z = wtv > T(0) ? z : T(0);  // weight-0 rows stay finite
+    const T q = wtv * photon::d2<LOSS>(z, yv) * (m[1] + vshift);
+    qsum += q;
+    return q;
+  }
+  __device__ __forceinline__ void sums(T (&s)[1]) const { s[0] = qsum; }
+};
+
+template <typename T, int LOSS>
+__global__ void __launch_bounds__(kThreads, 2)
+fvg_partial_kernel(GlmIn<T> in, const T* __restrict__ w, const T* __restrict__ shift,
+                   T* __restrict__ partials) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const T* vecs[1] = {w};
+  FvgRow<T, LOSS> row{shift[0]};
+  fold_rows<T, 1, 2>(in, vecs, row, smem_raw, partials);
 }
 
 template <typename T, int LOSS>
-__global__ void __launch_bounds__(kThreads)
-hvp_partial_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   const T* __restrict__ v, const T* __restrict__ y,
-                   const T* __restrict__ off, const T* __restrict__ wt,
+__global__ void __launch_bounds__(kThreads, 2)
+hvp_partial_kernel(GlmIn<T> in, const T* __restrict__ w, const T* __restrict__ v,
                    const T* __restrict__ shift, const T* __restrict__ vshift,
-                   int64_t n, int d, int64_t rows_per_block, int tile_rows,
                    T* __restrict__ partials) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  BlockSmem<T> s(smem_raw, d, tile_rows);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  for (int j = tid; j < d; j += kThreads) s.acc[j] = T(0);
-
-  const T sh = shift[0];
-  const T vsh = vshift[0];
-  T qsum_acc = T(0);
-  const int64_t row_begin = (int64_t)blockIdx.x * rows_per_block;
-  const int64_t row_end =
-      row_begin + rows_per_block < n ? row_begin + rows_per_block : n;
-  const bool vec_ok = vectorisable(x, d);
-
-  for (int64_t r0 = row_begin; r0 < row_end; r0 += tile_rows) {
-    const int rows = (int)(row_end - r0 < tile_rows ? row_end - r0 : tile_rows);
-    __syncthreads();
-    stage_tile(s.tile, x + r0 * (int64_t)d, (int64_t)rows * d, vec_ok);
-    __syncthreads();
-
-    // X w and X v from one read of the staged row, then the curvature weight
-    for (int rr = warp; rr < rows; rr += kWarps) {
-      const T* xr = s.tile + (size_t)rr * d;
-      T aw = T(0), av = T(0);
-      for (int j = lane; j < d; j += 32) {
-        const T xv = xr[j];
-        aw += xv * __ldg(w + j);
-        av += xv * __ldg(v + j);
-      }
-      aw = warp_sum(aw);
-      av = warp_sum(av);
-      if (lane == 0) {
-        const int64_t row = r0 + rr;
-        const T wtv = wt[row];
-        T z = aw + off[row] + sh;
-        z = wtv > T(0) ? z : T(0);  // weight-0 rows stay finite
-        const T q = wtv * photon::d2<LOSS>(z, y[row]) * (av + vsh);
-        s.coef[rr] = q;
-        qsum_acc += q;
-      }
-    }
-    __syncthreads();
-    fold_rows(s.acc, s.coef, s.tile, rows, d);
-  }
-
-  if (lane == 0) s.red[warp] = qsum_acc;
-  __syncthreads();
-  T* out = partials + (int64_t)blockIdx.x * (d + 1);
-  for (int j = tid; j < d; j += kThreads) out[j] = s.acc[j];
-  if (tid == 0) {
-    T q = T(0);
-    for (int k = 0; k < kWarps; ++k) q += s.red[k];
-    out[d] = q;
-  }
+  const T* vecs[2] = {w, v};
+  HvpRow<T, LOSS> row{shift[0], vshift[0]};
+  fold_rows<T, 2, 1>(in, vecs, row, smem_raw, partials);
 }
 
-// out[j] = sum over blocks of partials[b, j], blocks in order.
+// out[j] = sum over blocks of partials[b, j] in a fixed order: each of 8
+// groups sums blocks g, g + 8, ... in order, then the 8 group sums are added
+// in order.  A block serves 32 columns.
 template <typename T>
-__global__ void reduce_partials_kernel(const T* __restrict__ partials,
-                                       int num_blocks, int width,
-                                       T* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= width) return;
+__global__ void __launch_bounds__(256)
+reduce_partials_kernel(const T* __restrict__ partials, int num_blocks, int width,
+                       T* __restrict__ out) {
+  __shared__ T part[8][32];
+  const int c = threadIdx.x % 32;
+  const int g = threadIdx.x / 32;
+  const int j = blockIdx.x * 32 + c;
   T s = T(0);
-  for (int b = 0; b < num_blocks; ++b) s += partials[(int64_t)b * width + j];
-  out[j] = s;
+  if (j < width)
+    for (int b = g; b < num_blocks; b += 8) s += partials[(int64_t)b * width + j];
+  part[g][c] = s;
+  __syncthreads();
+  if (g == 0 && j < width) {
+    T t = part[0][c];
+    for (int k = 1; k < 8; ++k) t += part[k][c];
+    out[j] = t;
+  }
 }
 
 // Arguments of either pass; v and vshift are read by the Hessian-vector
@@ -281,6 +526,7 @@ struct GlmArgs {
   int d;
   int64_t rows_per_block;
   int tile_rows;
+  int stages;
   int num_blocks;
   void* partials;
   void* out;
@@ -288,36 +534,39 @@ struct GlmArgs {
 
 template <typename T, int LOSS, bool HVP>
 int launch_typed(const GlmArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(a.d, a.tile_rows);
-  const T* x = static_cast<const T*>(a.x);
+  const size_t smem = smem_bytes<T>(a.d, a.tile_rows, a.stages);
+  const GlmIn<T> in{static_cast<const T*>(a.x), static_cast<const T*>(a.y),
+                    static_cast<const T*>(a.off), static_cast<const T*>(a.wt),
+                    a.n, a.d, a.rows_per_block, a.tile_rows, a.stages};
   const T* w = static_cast<const T*>(a.w);
-  const T* y = static_cast<const T*>(a.y);
-  const T* off = static_cast<const T*>(a.off);
-  const T* wt = static_cast<const T*>(a.wt);
   const T* shift = static_cast<const T*>(a.shift);
   T* partials = static_cast<T*>(a.partials);
+  auto prepare = [&](const void* kern) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)  // room for two blocks an SM where the plan asks for it
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    return err;
+  };
   cudaError_t err;
   if constexpr (HVP) {
     auto kern = hvp_partial_kernel<T, LOSS>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = prepare(reinterpret_cast<const void*>(kern));
     if (err != cudaSuccess) return (int)err;
     kern<<<a.num_blocks, kThreads, smem, stream>>>(
-        x, w, static_cast<const T*>(a.v), y, off, wt, shift,
-        static_cast<const T*>(a.vshift), a.n, a.d, a.rows_per_block, a.tile_rows,
+        in, w, static_cast<const T*>(a.v), shift, static_cast<const T*>(a.vshift),
         partials);
   } else {
     auto kern = fvg_partial_kernel<T, LOSS>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = prepare(reinterpret_cast<const void*>(kern));
     if (err != cudaSuccess) return (int)err;
-    kern<<<a.num_blocks, kThreads, smem, stream>>>(
-        x, w, y, off, wt, shift, a.n, a.d, a.rows_per_block, a.tile_rows, partials);
+    kern<<<a.num_blocks, kThreads, smem, stream>>>(in, w, shift, partials);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int width = a.d + (HVP ? 1 : 2);
-  reduce_partials_kernel<T><<<(width + 255) / 256, 256, 0, stream>>>(
+  reduce_partials_kernel<T><<<(width + 31) / 32, 256, 0, stream>>>(
       partials, a.num_blocks, width, static_cast<T*>(a.out));
   return (int)cudaGetLastError();
 }
@@ -338,9 +587,19 @@ int dispatch_loss(int loss, const GlmArgs& a, cudaStream_t stream) {
   }
 }
 
+// The plan must give every block a nonempty range of whole tiles, and the
+// blocks must cover the rows.
+bool plan_ok(const GlmArgs& a) {
+  return a.d >= 1 && a.n >= 1 && a.tile_rows >= 1 && a.stages >= 2 &&
+         a.stages <= kMaxStages && a.num_blocks >= 1 && a.rows_per_block >= 1 &&
+         a.rows_per_block % a.tile_rows == 0 &&
+         (int64_t)(a.num_blocks - 1) * a.rows_per_block < a.n &&
+         (int64_t)a.num_blocks * a.rows_per_block >= a.n;
+}
+
 template <bool HVP>
 int dispatch(int dtype, int loss, const GlmArgs& a, void* stream) {
-  if (a.d < 1 || a.n < 1 || a.tile_rows < 1 || a.num_blocks < 1) return -1;
+  if (!plan_ok(a)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_loss<float, HVP>(loss, a, s);
   if (dtype == 1) return dispatch_loss<double, HVP>(loss, a, s);
@@ -351,21 +610,21 @@ int dispatch(int dtype, int loss, const GlmArgs& a, void* stream) {
 
 extern "C" {
 
-// Shared-memory bytes one block of either kernel needs; the wrapper sizes
-// tiles with it.
-long long glm_smem_bytes(int dtype, int d, int tile_rows) {
-  return dtype == 0 ? (long long)smem_bytes<float>(d, tile_rows)
-                    : (long long)smem_bytes<double>(d, tile_rows);
+// Shared-memory bytes one block of either kernel needs; the wrapper checks
+// its plan against it.
+long long glm_smem_bytes(int dtype, int d, int tile_rows, int stages) {
+  return dtype == 0 ? (long long)smem_bytes<float>(d, tile_rows, stages)
+                    : (long long)smem_bytes<double>(d, tile_rows, stages);
 }
 
 // dtype: 0 float32, 1 float64.  x [n, d] row-major; w [d]; y, off, wt [n];
 // shift [1]; partials [num_blocks, d + 2]; out [d + 2] = (grad, value, rsum).
 int fvg_launch(int dtype, int loss, const void* x, const void* w, const void* y,
                const void* off, const void* wt, const void* shift, long long n,
-               int d, long long rows_per_block, int tile_rows, int num_blocks,
-               void* partials, void* out, void* stream) {
+               int d, long long rows_per_block, int tile_rows, int stages,
+               int num_blocks, void* partials, void* out, void* stream) {
   const GlmArgs a{x, w, nullptr, y, off, wt, shift, nullptr, n, d,
-                  rows_per_block, tile_rows, num_blocks, partials, out};
+                  rows_per_block, tile_rows, stages, num_blocks, partials, out};
   return dispatch<false>(dtype, loss, a, stream);
 }
 
@@ -374,10 +633,10 @@ int fvg_launch(int dtype, int loss, const void* x, const void* w, const void* y,
 int hvp_launch(int dtype, int loss, const void* x, const void* w, const void* v,
                const void* y, const void* off, const void* wt, const void* shift,
                const void* vshift, long long n, int d, long long rows_per_block,
-               int tile_rows, int num_blocks, void* partials, void* out,
+               int tile_rows, int stages, int num_blocks, void* partials, void* out,
                void* stream) {
   const GlmArgs a{x, w, v, y, off, wt, shift, vshift, n, d,
-                  rows_per_block, tile_rows, num_blocks, partials, out};
+                  rows_per_block, tile_rows, stages, num_blocks, partials, out};
   return dispatch<true>(dtype, loss, a, stream);
 }
 

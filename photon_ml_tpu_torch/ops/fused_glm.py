@@ -4,8 +4,9 @@
 Port of ``fused_value_and_grad`` and ``fused_hvp`` in
 photon_ml_tpu/ops/fused_glm.py, whose TPU kernels ``_value_grad_kernel`` and
 ``_hvp_kernel`` become the CUDA C++ kernels in ``csrc/fused_glm.cu`` (source
-note there: bytes-bound on the H100, one HBM read of X, per-block partials
-reduced in a fixed order, no float atomics).
+note there: bytes-bound on the H100, one HBM read of X through an
+asynchronous ring of row tiles, per-block partials reduced in a fixed order,
+no float atomics).  ``launch_plan`` sizes the ring and the persistent grid.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its ``*_plain`` version, the same function in plain PyTorch (the
@@ -16,6 +17,7 @@ counts its kernel launches and nothing else.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,10 +26,14 @@ from photon_ml_tpu_torch.core.losses import PointwiseLoss
 
 Tensor = torch.Tensor
 
-_TILE_BYTES = 32 << 10  # staged rows per tile: ~32 KB of X
+_WARPS = 8  # csrc/fused_glm.cu kThreads / 32
+_TILE_BYTES = 40 << 10  # one stage of the ring: ~40 KB of rows, with their y, offset, weight
 _MAX_TILE_ROWS = 256
-_BLOCKS_PER_SM = 4
-_SMEM_LIMIT = 227 << 10  # H100 shared memory a block may use
+_MAX_STAGES = 8  # csrc/fused_glm.cu kMaxStages
+_BLOCKS_PER_SM = 2  # persistent blocks an SM, where two fit
+_SMEM_PER_SM = 228 << 10  # H100: shared memory of one SM ...
+_SMEM_RESERVED = 1 << 10  # ... of which each resident block costs 1 KB more
+_SMEM_LIMIT = 227 << 10  # ... and the most one block may use
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 
@@ -73,15 +79,68 @@ def fused_hvp_plain(loss: PointwiseLoss, w_eff: Tensor, v_eff: Tensor,
     return q @ batch.x, torch.sum(q)
 
 
-def launch_shape(n: int, d: int, itemsize: int, num_sms: int):
-    """(tile_rows, rows_per_block, num_blocks) for the CUDA kernels: tiles of
-    ~32 KB of whole rows, about four blocks per SM, each block a contiguous
-    range of whole tiles."""
-    tile_rows = max(1, min(_MAX_TILE_ROWS, _TILE_BYTES // (d * itemsize), n))
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _reg_coefs(itemsize: int) -> int:
+    """Columns a lane holds in registers (csrc/fused_glm.cu kRegCoefs)."""
+    return 24 if itemsize == 4 else 8
+
+
+def row_lanes(d: int, itemsize: int) -> int:
+    """Lanes that form one row's dot products in the kernels (csrc/fused_glm.cu
+    ``row_lanes``): the fewest of 8, 16 and 32 that hold the row in
+    registers; 32 when none does."""
+    k = _reg_coefs(itemsize)
+    return 8 if d <= 8 * k else 16 if d <= 16 * k else 32
+
+
+def _smem_bytes(d: int, tile_rows: int, stages: int, itemsize: int) -> int:
+    """Shared memory of one block (csrc/fused_glm.cu ``smem_bytes``): ``stages``
+    ring buffers, each the tile's rows of X behind up to 16 bytes of pad and
+    its rows' y, offset and weight, in whole 16-byte pieces; then the [d]
+    accumulator, the tile's row coefficients, 16 per-warp scalar sums and,
+    from the next 8-byte boundary, one 8-byte mbarrier per stage."""
+    vw = 16 // itemsize
+    stage = _round_up(_round_up(tile_rows * d + vw - 1, vw) + 3 * tile_rows, vw)
+    return _round_up(itemsize * (stages * stage + d + tile_rows + 2 * _WARPS), 8) + 8 * stages
+
+
+class LaunchPlan(NamedTuple):
+    tile_rows: int
+    stages: int
+    rows_per_block: int
+    blocks: int
+    smem_bytes: int
+
+
+def launch_plan(n: int, d: int, itemsize: int, num_sms: int) -> LaunchPlan:
+    """The CUDA kernels' plan: tiles of ~40 KB of whole rows (a whole number of
+    waves, the rows the block's 8 warps take at once, where a wave fits), a
+    ring of 2-8 of them per block, two persistent blocks per SM where that
+    leaves at least two stages (else one), each block a contiguous range of
+    whole tiles.  Raises where even one row in two stages does not fit a
+    block's shared memory."""
+    wave = _WARPS * (32 // row_lanes(d, itemsize))
+    tile_rows = max(1, min(_MAX_TILE_ROWS, _TILE_BYTES // ((d + 3) * itemsize), n))
+    if tile_rows >= wave:
+        tile_rows -= tile_rows % wave
+    for per_sm in (_BLOCKS_PER_SM, 1):
+        budget = min(_SMEM_LIMIT, _SMEM_PER_SM // per_sm - _SMEM_RESERVED)
+        stages = next((s for s in range(_MAX_STAGES, 1, -1)
+                       if _smem_bytes(d, tile_rows, s, itemsize) <= budget), 0)
+        if stages:
+            break
+    else:
+        raise ValueError(f"d={d} does not fit one block's shared memory "
+                         f"({_smem_bytes(d, 1, 2, itemsize)} bytes for two one-row "
+                         f"stages, limit {_SMEM_LIMIT})")
     tiles = -(-n // tile_rows)
-    blocks = max(1, min(tiles, num_sms * _BLOCKS_PER_SM))
+    blocks = max(1, min(tiles, num_sms * per_sm))
     rows_per_block = -(-tiles // blocks) * tile_rows
-    return tile_rows, rows_per_block, -(-n // rows_per_block)
+    return LaunchPlan(tile_rows, stages, rows_per_block, -(-n // rows_per_block),
+                      _smem_bytes(d, tile_rows, stages, itemsize))
 
 
 def fused_value_and_grad(loss: PointwiseLoss, w_eff: Tensor, batch: DenseBatch,
@@ -139,18 +198,20 @@ def _run(entry: str, name: str, loss: PointwiseLoss, batch: DenseBatch, coefs, s
     lib = _build.load("fused_glm")
     code = _DTYPE_CODE[x.dtype]
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tile_rows, rows_per_block, blocks = launch_shape(n, d, x.element_size(), num_sms)
-    if lib.glm_smem_bytes(code, d, tile_rows) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: d={d} does not fit one block's shared memory")
+    plan = launch_plan(n, d, x.element_size(), num_sms)
+    if lib.glm_smem_bytes(code, d, plan.tile_rows, plan.stages) != plan.smem_bytes:
+        raise RuntimeError(f"{name}: the plan's shared memory {plan.smem_bytes} is not "
+                           "the kernel's (launch_plan and csrc/fused_glm.cu disagree)")
     shift_t = [torch.as_tensor(s, dtype=x.dtype, device=dev).reshape(1) for s in shifts]
-    partials = torch.empty((blocks, width), dtype=x.dtype, device=dev)
+    partials = torch.empty((plan.blocks, width), dtype=x.dtype, device=dev)
     out = torch.empty(width, dtype=x.dtype, device=dev)
     P = ctypes.c_void_p
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, entry)(code, loss.code,
                                   *[P(t.data_ptr()) for t in (*tensors, *shift_t)],
-                                  n, d, rows_per_block, tile_rows, blocks,
+                                  n, d, plan.rows_per_block, plan.tile_rows,
+                                  plan.stages, plan.blocks,
                                   P(partials.data_ptr()), P(out.data_ptr()), P(stream))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (code {err}: CUDA error, "

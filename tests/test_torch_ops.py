@@ -152,12 +152,45 @@ def test_fused_value_and_grad_rejects_mixed_dtypes():
             weight=torch.from_numpy(wt)))
 
 
+def _covered_once(n, plan):
+    """Every row lies in exactly one block's contiguous range, each range a
+    whole number of tiles (the last one cut at n) and none empty."""
+    assert plan.rows_per_block % plan.tile_rows == 0
+    assert (plan.blocks - 1) * plan.rows_per_block < n <= plan.blocks * plan.rows_per_block
+    starts = np.arange(plan.blocks) * plan.rows_per_block
+    ends = np.minimum(starts + plan.rows_per_block, n)
+    assert starts[0] == 0 and ends[-1] == n and (starts[1:] == ends[:-1]).all()
+    assert (ends > starts).all()
+
+
+def _fits(d, item, plan):
+    """The plan's shared memory is the kernel's formula (csrc/fused_glm.cu
+    smem_bytes: the ring of stages, each the tile's rows of X behind up to
+    16 bytes of pad plus its rows' y, offset and weight in whole 16-byte
+    pieces; the [d] accumulator, the tile's row coefficients and 16 scalar
+    sums, then from the next 8-byte boundary an 8-byte mbarrier per stage),
+    fits one block's 227 KB with two or more stages, and leaves room for the
+    blocks per SM that the grid assumes."""
+    vw = 16 // item
+    rows = plan.tile_rows
+    x_region = -(-(rows * d + vw - 1) // vw) * vw
+    stage = -(-(x_region + 3 * rows) // vw) * vw
+    body = item * (plan.stages * stage + d + rows + 16)
+    assert plan.smem_bytes == -(-body // 8) * 8 + 8 * plan.stages
+    assert 2 <= plan.stages <= 8 and plan.smem_bytes <= 227 << 10
+    per_sm = -(-plan.blocks // 132)
+    assert per_sm * (plan.smem_bytes + 1024) <= 228 << 10
+    # the tile's span fits the stage's X region at every misalignment of its start
+    for pad in range(vw):
+        assert pad + rows * d <= x_region
+
+
 def test_launch_shape_covers_rows_once():
     for n, d, item in [(8_388_608, 512, 4), (1001, 1, 4), (77, 8192, 8), (5, 100, 4)]:
-        tile, rpb, blocks = tfused.launch_shape(n, d, item, num_sms=132)
-        assert rpb % tile == 0 and blocks * rpb >= n > (blocks - 1) * rpb
-        assert tile * d * item <= 32 << 10 or tile == 1
-        assert blocks <= 132 * 4
+        plan = tfused.launch_plan(n, d, item, num_sms=132)
+        _covered_once(n, plan)
+        assert plan.tile_rows * (d + 3) * item <= 40 << 10 or plan.tile_rows == 1
+        assert plan.blocks <= 132 * 2
 
 
 @pytest.mark.parametrize("d", [1, 3, 100, 256, 512, 8192])
@@ -165,17 +198,41 @@ def test_launch_shape_covers_rows_once():
 def test_launch_shape_tiles_every_row_once_and_fits_shared_memory(d, item):
     """The fused kernels' plan at n below one tile, ragged n and glmix2's n:
     the blocks' contiguous tile ranges cover every row exactly once, and a
-    block's shared memory (csrc/fused_glm.cu smem_bytes: the row tile, the
-    [d] accumulator, the tile's row coefficients and 16 scalar sums) fits
-    the H100's 227 KB."""
+    block's ring fits the H100's 227 KB with at least two stages."""
     for n in (3, 1_000_003, 524_288):
-        tile, rpb, blocks = tfused.launch_shape(n, d, item, num_sms=132)
-        covered = np.zeros(n, np.int8)
-        for b in range(blocks):
-            for r0 in range(b * rpb, min(n, (b + 1) * rpb), tile):
-                covered[r0:min(r0 + tile, (b + 1) * rpb, n)] += 1
-        assert (covered == 1).all()
-        assert item * (tile * d + d + tile + 16) <= 227 << 10
+        plan = tfused.launch_plan(n, d, item, num_sms=132)
+        _covered_once(n, plan)
+        _fits(d, item, plan)
+
+
+@pytest.mark.parametrize("d", [*range(1, 18), 127, 128, 129, 255, 256, 257, 258, 512,
+                               4096, 8192])
+@pytest.mark.parametrize("item", [4, 8])
+def test_launch_plan_fits_every_row_width(d, item):
+    """Every width the kernels take, not only multiples of the 16-byte
+    vector: two or more stages fit, a tile is a whole number of waves where
+    a wave fits (the rows 8 warps take at once: a row per group of lanes,
+    the fewest of 8, 16 or 32 that hold d columns in registers, 24 a lane in
+    f32 and 8 in f64, else a whole warp), and the blocks cover n rows once,
+    for n below one tile, at one tile + 1 and at a ragged large n."""
+    lanes = tfused.row_lanes(d, item)
+    per_lane = 24 if item == 4 else 8
+    assert lanes == next((g for g in (8, 16) if d <= g * per_lane), 32)
+    wave = 8 * (32 // lanes)
+    tile = tfused.launch_plan(10**6, d, item, num_sms=132).tile_rows
+    assert tile % wave == 0 or tile < wave
+    for n in (1, max(1, tile - 1), tile + 1, 1_000_003):
+        plan = tfused.launch_plan(n, d, item, num_sms=132)
+        _covered_once(n, plan)
+        _fits(d, item, plan)
+
+
+def test_launch_plan_refuses_rows_that_cannot_fit():
+    # one float64 row of 16,384 features is 128 KB: two stages of it do not
+    # fit beside its accumulator
+    with pytest.raises(ValueError, match="does not fit"):
+        tfused.launch_plan(100, 16_384, 8, num_sms=132)
+    assert tfused.launch_plan(100, 16_384, 4, num_sms=132).stages == 2
 
 
 def _soa_inputs(d, num_l, cap, seed):
