@@ -89,7 +89,30 @@ Phases, each printing its result and wall time on its own line:
     glmix_sparse at full width with SIMPLE variances on the compact per-user
     coordinate (``to_compact`` must refuse the model; scores through the
     dense model);
-14. printed last, after phases 15 and 16: one JSON line describing each
+17. glmix_sparse-norm-en at full width: glmix_sparse with an intercept
+    column in the per-user shard, which is standardized from its sparse
+    stats (per-lane factor and shift rows on the compact lanes) and solved
+    under elastic net (the lane OWLQN, L1 chosen by CPU fits at scale 8):
+    fit, ``to_compact`` and ``GameModel.score`` through ``match_dot``
+    (launches > 0), the objective with its L1 term below the fixed effect's
+    alone, the share of zero coefficients, the float64 pseudo-gradient
+    recomputed from the raw rows, the fold's size, the compact scores
+    against the dense model's and ``match_dot`` against its plain version
+    on this model's inputs, and the same fit on the CPU (objective;
+    coefficients within a multiple of the CPU fit's own spread under
+    one-ulp nudges of the data; zero-set disagreements); (b) the per-lane
+    fold where the shifts are large: glmix2's per-user shard shifted, with
+    an intercept and unobserved columns per user, under INDEX_MAP and
+    STANDARDIZATION at scale 8, card against CPU, where a publish without
+    the fold must fail the comparison by more than its tolerance;
+18. glmix2-en-box at full width: glmix2-norm-var's data and contexts, the
+    fixed effect under elastic net (OWLQN as one lane over
+    ``fused_value_and_grad`` with shifts, launches > 0; L1 chosen by CPU
+    fits at scale 8), the per-user coefficients of features 0-7 bounded to
+    [0, inf) (the box-constrained lane L-BFGS): AUC against the Bayes AUC,
+    the bounds held and binding, the float64 pseudo- and projected-gradient
+    norms, and the same configuration at scale 8 on the card and the CPU;
+14. printed last, after phases 15-18: one JSON line describing each
     kernel, with its launches on each path and its device time alone
     (``device_ms``) beside the event time (``ms``).
 
@@ -102,9 +125,10 @@ CUDA device or without the package beside this script.
 runs only phases 1-2 against the package in directory TREE, then times
 both fused kernels at the four main-path shapes (after one parity check
 each against the plain version) and fits glmix_chip, glmix2-TRON, glmix3
-and glmix2-norm-var at full width, printing one JSON line of device times
-and fit times last.  To compare two trees on one card, unpack both into
-git-ignored directories and run one process per tree in the order A B B A.
+and glmix2-norm-var at full width, printing one JSON line of device times,
+fit times and the fixed effects' update times last.  To compare two trees
+on one card, unpack both into git-ignored directories and run one process
+per tree in the order A B B A.
 """
 
 from __future__ import annotations
@@ -153,6 +177,18 @@ COMPACT_F32_RTOL = 1e-5  # match_dot vs plain, float32, relative to the
 COMPACT_VS_DENSE_RTOL = 1e-5  # glmix_sparse per-user scores, compact model
 # vs its dense twin (score_samples_sparse): the same 24 products per sample,
 # summed in another order
+F32_SPREAD_SEEDS = (8, 9, 10)  # glmix_sparse-norm-en: one-ulp nudges of the
+F32_SPREAD_MULTIPLE = 3.0  # per-user values, one CPU fit each; the card's float32
+# coefficients lie within F32_PATH_RTOL or this multiple of their largest
+# card-free spread, whichever is larger.  Standardized lanes (factors up to
+# ~200) under elastic net, stopped at the float32 plateau or 30 iterations,
+# leave the published coefficients determined only to a few percent, more
+# than two CPU fits of the same rows reproduce at 5e-3; the card's rounding
+# is another such perturbation
+F64_COORD_RTOL = 1e-6  # glmix_sparse-norm-en's per-user coordinate in float64,
+# card vs CPU on the same offsets: the two differ in the rounding of their
+# sums (~1e-16), which 30 OWLQN iterations on lanes standardized by factors
+# up to ~200 amplify by orders of magnitude; phase 17 logs what it reads
 SPARSE1M_OBJ_RTOL = 1e-5  # sparse1m objective, card vs CPU: both stop at
 # TRON's 1e-5 gradient tolerance from the same start; Xᵀr adds each column's
 # terms in row order on both devices, and only exp and log round differently
@@ -167,6 +203,19 @@ NORM_VAR_II = GLMIX2_D  # glmix2-norm-var: the intercept column appended to glmi
 FULL_VARIANCE_ENTITIES, FULL_VARIANCE_SEED = 16, 6  # per-user FULL variance check
 NORM_VAR_SCALE_SEED = 7  # glmix2-norm-var: the per-column scales and shifts
 GLMIX3_D = 128
+GSN_II = 50_000  # glmix_sparse-norm-en: the per-user shard's intercept column
+L1_CHOICE_SCALE = 8  # the L1 weights are chosen from CPU fits at this scale
+GSN_L1_CHOICES = (1.0, 10.0, 100.0)  # glmix_sparse-norm-en per-user L1, smallest first
+EN_BOX_L1_CHOICES = (10.0, 100.0, 1000.0)  # glmix2-en-box fixed-effect L1
+ZERO_SHARE_RANGE = (0.10, 0.90)  # the chosen L1 zeroes this share of the coefficients
+STATIONARY_RATIO = 1e-2  # a fit's float64 pseudo- (or projected-) gradient norm,
+# recomputed from the raw data, over its norm at w = 0: both solvers stop on a
+# 1e-7 relative change of the objective or 30 iterations, which leaves the
+# first-order residual ~1e-3 of its start on these problems (scale 8 on the CPU)
+EN_BOX_FEATURES = 8  # glmix2-en-box: per-user features 0-7 bounded to [0, inf)
+BOX_BIND_SHARE = 0.01  # at least this share of the bounded coefficients at 0
+BOX_NEG_SLACK = 1e-6  # a bounded published coefficient w = f·w' >= -1e-6·f
+FOLD_SEED = 8  # 17(b): the per-user shifts and each user's unobserved columns
 FUSED_CASES = [(MAIN_N, MAIN_D, "float32"), (GLMIX2_N, GLMIX2_D, "float32"),
                (GLMIX2_N, NORM_VAR_II + 1, "float32"),  # glmix2-norm-var: odd rows
                (GLMIX3_N, GLMIX3_D, "float32"),  # glmix3's fixed effect
@@ -904,6 +953,7 @@ def _compare_fits(label, data_gpu, data_cpu, config, coords, norms=(None, None),
     if not ok:
         raise AssertionError(f"{label}: card and CPU fits disagree beyond the float32 "
                              "tolerance")
+    return rg, rc
 
 
 def phase_glmix2_card_vs_cpu():
@@ -1168,6 +1218,29 @@ def _glmix_sparse_data(host):
                     id_tags={"userId": host["uids"]})
 
 
+def _check_compact(label, data, dense_re, compact, user):
+    """A compact per-user model's scores against its dense twin's
+    (score_samples_sparse) within COMPACT_VS_DENSE_RTOL, and match_dot
+    against its plain version on the compact model's own inputs (``user``:
+    the shard's host indices and values).  Returns (tag, match_dot's
+    arguments, its largest absolute difference from plain)."""
+    import torch
+
+    e = rel_err(compact.score(data, device="cuda"), dense_re.score(data, device="cuda"))
+    ok = e <= COMPACT_VS_DENSE_RTOL
+    log(f"{label} per-user scores, compact vs dense model: rel diff {e:.2e} (tol "
+        f"{COMPACT_VS_DENSE_RTOL:g}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{label} compact and dense scores disagree")
+    on_card = lambda a: torch.as_tensor(a, device="cuda")
+    args = (on_card(compact.indices), on_card(compact.values),
+            on_card(compact.slots_for(data)), on_card(user["indices"]),
+            on_card(user["values"]))
+    tag = (f"{label} shape E={args[0].shape[0]} k_model={args[0].shape[1]} "
+           f"k_feat={args[3].shape[1]} n={data.num_samples} float32")
+    return tag, args, _check_match_dot(tag, args)
+
+
 def phase_glmix_sparse(stats: dict):
     import torch
 
@@ -1250,26 +1323,9 @@ def phase_glmix_sparse(stats: dict):
     log(f"glmix_sparse: host bucket_by_entity_sparse of {buckets.num_entities} users "
         f"{t_bucket:.3f} s (compact widths {[b.x.shape[2] for b in buckets.buckets]})")
 
-    # compact scores against the dense twin's (score_samples_sparse)
-    s_dense = dense_re.score(data, device="cuda")
-    s_compact = compact.score(data, device="cuda")
-    e = rel_err(s_compact, s_dense)
-    ok = e <= COMPACT_VS_DENSE_RTOL
-    log(f"glmix_sparse per-user scores, compact vs dense model: rel diff {e:.2e} (tol "
-        f"{COMPACT_VS_DENSE_RTOL:g}) {'ok' if ok else 'MISMATCH'}")
-    if not ok:
-        raise AssertionError("glmix_sparse compact and dense scores disagree")
-
-    # match_dot at this path's shape: against its plain version, and timed
-    w_idx = torch.as_tensor(compact.indices, device="cuda")
-    w_val = torch.as_tensor(compact.values, device="cuda")
-    slots = torch.as_tensor(compact.slots_for(data), device="cuda")
-    f_idx = torch.as_tensor(host["user"]["indices"], device="cuda")
-    f_val = torch.as_tensor(host["user"]["values"], device="cuda")
-    args = (w_idx, w_val, slots, f_idx, f_val)
-    tag = (f"glmix_sparse shape E={w_idx.shape[0]} k_model={w_idx.shape[1]} "
-           f"k_feat={f_idx.shape[1]} n={n} float32")
-    err = _check_match_dot(tag, args)
+    # compact scores against the dense twin's, and match_dot at this path's
+    # shape against its plain version; then timed
+    tag, args, err = _check_compact("glmix_sparse", data, dense_re, compact, host["user"])
     stats.setdefault("match_dot", {}).update(_time_match_dot(tag, args, 50),
                                              max_abs_err=err)
     for name, v in launches.items():
@@ -1686,6 +1742,549 @@ def phase_norm_var_card_vs_cpu(stats: dict, glmix_chip_reduced):
     stats["card_vs_cpu_d_s"] = time.perf_counter() - t0
 
 
+def _choose_l1(label, choices, zero_share):
+    """The smallest L1 weight of ``choices`` whose scale-L1_CHOICE_SCALE CPU
+    fit zeroes a share of the coefficients inside ZERO_SHARE_RANGE
+    (``zero_share(l1)`` fits and returns that share)."""
+    lo, hi = ZERO_SHARE_RANGE
+    shares = {}
+    t0 = time.perf_counter()
+    for l1 in choices:
+        shares[l1] = zero_share(l1)
+        if lo <= shares[l1] <= hi:
+            log(f"{label}: L1 {l1:g} chosen from {choices} by CPU fits at scale "
+                f"{L1_CHOICE_SCALE} (zero shares " + ", ".join(
+                    f"{k:g}: {v:.4f}" for k, v in shares.items())
+                + f"; {time.perf_counter() - t0:.2f} s)")
+            return l1, shares
+    raise AssertionError(f"{label}: no L1 weight of {choices} zeroes {lo:.0%}-{hi:.0%} of "
+                         f"the coefficients at scale {L1_CHOICE_SCALE} ({shares})")
+
+
+def _gsn_config(l1, num_iters=2):
+    """glmix_sparse-norm-en: ``_glmix_sparse_config``'s fixed effect (TRON)
+    and the per-user coordinate under L-BFGS with elastic net (L2 1.0, L1
+    ``l1``: OWLQN on the compact lanes), its intercept column GSN_II."""
+    from photon_ml_tpu_torch.core.regularization import Regularization
+    from photon_ml_tpu_torch.game import FixedEffectConfig, GameConfig, RandomEffectConfig
+    from photon_ml_tpu_torch.opt.types import SolverConfig
+    from photon_ml_tpu_torch.types import OptimizerType, TaskType
+
+    return GameConfig(task=TaskType.LOGISTIC_REGRESSION, num_outer_iterations=num_iters,
+                      coordinates={
+                          "fixed": FixedEffectConfig(
+                              feature_shard="g", optimizer=OptimizerType.TRON,
+                              solver=SolverConfig.tron_default(),
+                              reg=Regularization(l2=1.0)),
+                          "per-user": RandomEffectConfig(
+                              random_effect_type="userId", feature_shard="u",
+                              solver=SolverConfig(max_iters=30, tolerance=1e-7),
+                              reg=Regularization(l1=l1, l2=1.0), intercept_index=GSN_II)})
+
+
+def _gsn_context(host):
+    """STANDARDIZATION of the per-user shard from its sparse feature stats
+    (the intercept keeps factor 1 and shift 0)."""
+    from photon_ml_tpu_torch.core.normalization import (build_normalization,
+                                                        compute_feature_stats_sparse)
+    from photon_ml_tpu_torch.types import NormalizationType
+
+    u = host["user"]
+    return build_normalization(NormalizationType.STANDARDIZATION, compute_feature_stats_sparse(
+        u["indices"], u["values"], u["dim"], intercept_index=GSN_II))
+
+
+class _ObservedPairs:
+    """The (entity, column) pairs of the per-user shard's nonzero values, in
+    a model's slots: ``ps`` / ``pc`` [P] the pairs' slots and columns,
+    ``pair`` [n, k] each value's pair (0 where ``nz`` is False), ``slots``
+    [n] each row's slot."""
+
+    def __init__(self, host, slot_of):
+        import numpy as np
+
+        from photon_ml_tpu_torch.parallel.bucketing import slots_from
+
+        u = host["user"]
+        dim = u["dim"]
+        self.slots = slots_from(slot_of, host["uids"]).astype(np.int64)
+        self.nz = u["values"] != 0
+        keys = self.slots[:, None] * dim + u["indices"]
+        uniq = np.unique(keys[self.nz])
+        self.pair = np.where(self.nz, np.searchsorted(uniq, keys), 0)
+        self.ps, self.pc = uniq // dim, uniq % dim
+        self.num_entities = len(slot_of)
+        self.values = u["values"].astype(np.float64)
+        self.intercept = self.pc == GSN_II
+
+    def transformed(self, w_stack, ctx):
+        """(w', fold): the per-user coefficients at the pairs mapped back to
+        the solve space in float64 (w'_j = w_j / f_j, and each intercept
+        w'_ii = w_ii + Σ_j w_j·s_j over its entity's observed columns), and
+        each entity's fold Σ_j w_j·s_j."""
+        import numpy as np
+
+        f, sh = (ctx.factors.double().cpu().numpy(), ctx.shifts.double().cpu().numpy())
+        w = np.asarray(w_stack, np.float64)[self.ps, self.pc]
+        fold = np.bincount(self.ps, weights=w * sh[self.pc], minlength=self.num_entities)
+        wt = w / f[self.pc]
+        wt[self.intercept] += fold[self.ps[self.intercept]]
+        return wt, fold
+
+    def pseudo_gradient(self, wt, ctx, y, offsets, l1, l2):
+        """The float64 pseudo-gradient at the pairs of the per-user objective
+        Σ logloss(Σ_j w'_j f_j (x_j - s_j) + offset) + l2/2·||w'||² + l1·||w'||₁,
+        recomputed from the raw rows."""
+        import numpy as np
+        import torch
+
+        from photon_ml_tpu_torch.opt.lbfgs import pseudo_gradient
+
+        f = ctx.factors.double().cpu().numpy()[self.pc]
+        sh = ctx.shifts.double().cpu().numpy()[self.pc]
+        eff = wt * f
+        margin_shift = np.bincount(self.ps, weights=eff * sh, minlength=self.num_entities)
+        z = (offsets + np.where(self.nz, eff[self.pair] * self.values, 0.0).sum(axis=1)
+             - margin_shift[self.slots])
+        r = torch.sigmoid(torch.from_numpy(z)).numpy() - np.asarray(y, np.float64)
+        gx = np.bincount(self.pair[self.nz], weights=(r[:, None] * self.values)[self.nz],
+                         minlength=len(wt))
+        rsum = np.bincount(self.slots, weights=r, minlength=self.num_entities)
+        g = f * (gx - sh * rsum[self.ps]) + l2 * wt
+        return pseudo_gradient(torch.from_numpy(wt), torch.from_numpy(g), l1).numpy()
+
+
+def _sparse_scores_f64(w, shard):
+    """A fixed model's float64 scores over a sparse shard, on the host."""
+    import numpy as np
+
+    return (np.asarray(shard["values"], np.float64)
+            * np.asarray(w, np.float64)[shard["indices"]]).sum(axis=1)
+
+
+def phase_glmix_sparse_norm_en(stats: dict):
+    """glmix_sparse-norm-en at full width: per-lane STANDARDIZATION contexts
+    on compact lanes under elastic net (the lane OWLQN), ``to_compact`` and
+    scoring through ``match_dot``; then (b) per-lane contexts whose shifts
+    are large, on the card and the CPU."""
+    import numpy as np
+    import torch
+
+    from photon_ml_tpu_torch.data.synthetic import synth_glmix_sparse_norm
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.game.coordinate import build_coordinate
+    from photon_ml_tpu_torch.models.game import GameModel
+
+    t0 = time.perf_counter()
+    host = synth_glmix_sparse_norm(1)
+    data = _glmix_sparse_data(host)
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctx = _gsn_context(host)
+    t_stats = time.perf_counter() - t0
+    observed = ctx.factors[:GSN_II] != 1.0
+    log(f"glmix_sparse-norm-en data: {data.num_samples} rows, per-user shard "
+        f"{host['user']['indices'].shape[1]} of {host['user']['dim']} columns (intercept "
+        f"{GSN_II}); generated on the host in {t_data:.2f} s; sparse feature stats "
+        f"{t_stats:.2f} s; STANDARDIZATION factors of the observed columns in "
+        f"[{float(ctx.factors[:GSN_II][observed].min()):.2f}, "
+        f"{float(ctx.factors[:GSN_II][observed].max()):.2f}], max |shift| "
+        f"{float(ctx.shifts.abs().max()):.2e}")
+
+    small = synth_glmix_sparse_norm(L1_CHOICE_SCALE)
+    small_data, small_ctx = _glmix_sparse_data(small), _gsn_context(small)
+
+    def zero_share(l1):
+        res = GameEstimator(device="cpu", normalization={"u": small_ctx}).fit(
+            small_data, [_gsn_config(l1)])[0]
+        pairs = _ObservedPairs(small, res.model["per-user"].slot_of)
+        wt, _ = pairs.transformed(res.model["per-user"].w_stack, small_ctx)
+        return float((wt[~pairs.intercept] == 0).mean())
+
+    l1, shares = _choose_l1("glmix_sparse-norm-en per-user", GSN_L1_CHOICES, zero_share)
+    cfg = _gsn_config(l1)
+    l2 = 1.0
+
+    kernels = _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = GameEstimator(device="cuda", normalization={"u": ctx}).fit(data, [cfg])[0]
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    dense_re = res.model["per-user"]
+    t0 = time.perf_counter()
+    compact = dense_re.to_compact()
+    t_compact = time.perf_counter() - t0
+    scores = GameModel(models={"fixed": res.model["fixed"], "per-user": compact}).score(
+        data, device="cuda")
+    launches = _record_launches("glmix_sparse_norm_en", kernels, stats, ("match_dot",))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    upd = ", ".join(f"it{st['iteration']} {st['coordinate']} {st['seconds']:.3f} s "
+                    f"({st['solver_iterations']} iterations)" for st in res.history.steps)
+    t_upd = sum(st["seconds"] for st in res.history.steps)
+    log(f"glmix_sparse-norm-en: fit {t_fit:.2f} s (coordinates built, bucketing and the "
+        f"per-lane contexts included, in {t_fit - t_upd:.2f} s; updates {upd}), "
+        f"to_compact {t_compact:.2f} s (k_model {compact.indices.shape[1]}), launches "
+        f"{launches}, peak device memory {peak:.2f} GB")
+    if not bool(torch.isfinite(scores).all()) or scores.shape != (data.num_samples,):
+        raise AssertionError("glmix_sparse-norm-en scores are not finite of shape [n]")
+    _, _, err = _check_compact("glmix_sparse-norm-en", data, dense_re, compact,
+                               host["user"])
+    stats["match_dot"]["max_abs_err"] = max(stats["match_dot"]["max_abs_err"], err)
+
+    pairs = _ObservedPairs(host, dense_re.slot_of)
+    wt, fold = pairs.transformed(dense_re.w_stack, ctx)
+    share = float((wt[~pairs.intercept] == 0).mean())
+    w_fixed = res.model["fixed"].coefficients.means
+    penalty = float(0.5 * l2 * (wt * wt).sum() + l1 * np.abs(wt).sum())
+    f_full = _logistic_objective(scores, data, [(l2, w_fixed)]) + penalty
+    f_fixed = _logistic_objective(res.model["fixed"].score(data, device="cuda"), data,
+                                  [(l2, w_fixed)])
+    offsets = _sparse_scores_f64(w_fixed, host["fixed"])
+    pg = pairs.pseudo_gradient(wt, ctx, host["y"], offsets, l1, l2)
+    pg0 = pairs.pseudo_gradient(np.zeros_like(wt), ctx, host["y"], offsets, l1, l2)
+    ratio = float(np.linalg.norm(pg) / np.linalg.norm(pg0))
+    lane = lambda v: np.sqrt(np.bincount(pairs.ps, weights=v * v,
+                                         minlength=pairs.num_entities))
+    lanes0 = lane(pg0)
+    worst = float((lane(pg) / np.where(lanes0 > 0, lanes0, 1.0)).max())
+    w_max = float(np.abs(dense_re.w_stack).max())
+    lo, hi = ZERO_SHARE_RANGE
+    ok = lo <= share <= hi and f_full < f_fixed and ratio <= STATIONARY_RATIO
+    log(f"glmix_sparse-norm-en gates: zero share of the {int((~pairs.intercept).sum())} "
+        f"observed per-user coefficients {share:.4f} (in [{lo}, {hi}]); objective with the "
+        f"L1 term {f_full:.6f} through match_dot < fixed effect alone {f_fixed:.6f}; "
+        f"float64 pseudo-gradient norm at the fit / at w = 0 {ratio:.3e} (tol "
+        f"{STATIONARY_RATIO:g}; worst lane {worst:.3e}); the intercept fold "
+        f"max |Σ w_j·s_j| {float(np.abs(fold).max()):.3e}, {float(np.abs(fold).max()) / w_max:.2e} "
+        f"of the largest coefficient {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("glmix_sparse-norm-en: a gate failed")
+
+    # the same fit on the CPU, in float32 and, where the coefficients are
+    # determined, in float64 on both devices
+    on_card = lambda a: torch.as_tensor(a, device="cuda")
+    per_column = np.bincount(pairs.pc, minlength=GSN_II + 1)[:GSN_II]
+    rows = np.bincount(host["user"]["indices"][pairs.nz], minlength=GSN_II + 1)[:GSN_II]
+    density = float(np.median(rows[per_column > 0])) / data.num_samples
+
+    def fit(device, dtype, d=data):
+        t0 = time.perf_counter()
+        r = GameEstimator(device=device, dtype=dtype, normalization={"u": ctx}).fit(
+            d, [cfg])[0]
+        return r, time.perf_counter() - t0
+
+    def objective(r):
+        wt_r, _ = pairs.transformed(r.model["per-user"].w_stack, ctx)
+        w_f = r.model["fixed"].coefficients.means
+        return (_logistic_objective(r.model.score(data, device="cuda"), data, [(l2, w_f)])
+                + float(0.5 * l2 * (wt_r * wt_r).sum() + l1 * np.abs(wt_r).sum())), wt_r
+
+    def compare(a, b):
+        if a.model["per-user"].slot_of != b.model["per-user"].slot_of:
+            raise AssertionError("glmix_sparse-norm-en: the fits have different entities")
+        (fa, wta), (fb, wtb) = objective(a), objective(b)
+        errs = {"fixed": rel_err(a.model["fixed"].coefficients.means,
+                                 b.model["fixed"].coefficients.means),
+                "per-user": rel_err(on_card(a.model["per-user"].w_stack),
+                                    on_card(b.model["per-user"].w_stack))}
+        return errs, abs(fa - fb) / abs(fb), int(((wta == 0) != (wtb == 0)).sum()), fa, fb
+
+    rc, t_cpu = fit("cpu", torch.float32)
+    errs32, o_err, zero_diff, f_card, f_cpu = compare(res, rc)
+    # the float32 coefficients' own spread: CPU fits of the same rows with
+    # every per-user value moved by about one float32 ulp, one per seed
+    spreads = []
+    for seed in F32_SPREAD_SEEDS:
+        values = host["user"]["values"]
+        values = values * (1 + np.float32(2 ** -23) * np.random.default_rng(seed).choice(
+            np.float32([-1, 1]), values.shape))
+        nudged = dict(host, user=dict(host["user"], values=values))
+        spreads.append(compare(fit("cpu", torch.float32, _glmix_sparse_data(nudged))[0],
+                               rc)[0])
+    # each quantity within F32_PATH_RTOL, or F32_SPREAD_MULTIPLE x its
+    # largest nudged spread where larger
+    tol32 = {k: max(F32_PATH_RTOL, F32_SPREAD_MULTIPLE * max(sp[k] for sp in spreads))
+             for k in errs32}
+    # the per-user coordinate alone in float64, card against CPU: one update
+    # from zero and one warm-started from the card's model, both with the
+    # card fit's final fixed-effect scores as offsets
+    coord64 = {}
+    for where, device in (("card", "cuda"), ("host", "cpu")):
+        t0 = time.perf_counter()
+        c = build_coordinate("per-user", data, cfg.coordinates["per-user"], cfg.task,
+                             dtype=torch.float64, device=device, norm=ctx)
+        off = torch.as_tensor(offsets, device=device)
+        cold, _ = c.update(off)
+        warm, _ = c.update(-off, init=dense_re)
+        coord64[where] = (cold, warm, time.perf_counter() - t0)
+    errs64 = {}
+    for k, name in enumerate(("cold", "warm")):
+        a, b = coord64["card"][k], coord64["host"][k]
+        errs64[name] = rel_err(on_card(a.w_stack), on_card(b.w_stack))
+        za, zb = (pairs.transformed(m.w_stack, ctx)[0] == 0 for m in (a, b))
+        errs64[name + " zero-set flips"] = int((za != zb).sum())
+    # a publish without the per-lane fold: each intercept keeps w'_ii
+    unfolded = np.array(dense_re.w_stack, np.float64)
+    unfolded[:, GSN_II] += fold
+    e_unfolded = rel_err(on_card(unfolded), on_card(rc.model["per-user"].w_stack))
+    fmt = lambda e: ", ".join(f"{k} {v:.2e}" for k, v in e.items())
+    ok = (o_err <= F32_OBJECTIVE_RTOL and errs64["cold"] <= F64_COORD_RTOL
+          and errs64["warm"] <= F64_COORD_RTOL
+          and all(errs32[k] <= tol32[k] for k in errs32))
+    log(f"card vs CPU, glmix_sparse-norm-en at full width: float32 CPU fit {t_cpu:.2f} s; "
+        f"objective {f_card:.6f} vs {f_cpu:.6f}, rel diff {o_err:.2e} (tol "
+        f"{F32_OBJECTIVE_RTOL:g}); coefficients max rel diff {fmt(errs32)} (tol "
+        f"{fmt(tol32)}: "
+        f"{F32_SPREAD_MULTIPLE:g} x the largest of the float32 CPU fit's own spreads under "
+        f"one-ulp nudges of the per-user values, seeds {F32_SPREAD_SEEDS}: "
+        + "; ".join(fmt(sp) for sp in spreads)
+        + f". Standardizing columns nonzero in a median {density:.2e} of the rows gives "
+        f"factors up to {float(ctx.factors.max()):.0f}, so rounding moves the published "
+        f"coefficients by percents while the objective holds); zero sets differ at "
+        f"{zero_diff} of {len(wt)}. The per-user coordinate "
+        f"alone in float64, same offsets (card {coord64['card'][2]:.2f} s, CPU "
+        f"{coord64['host'][2]:.2f} s): max rel diff "
+        + ", ".join(f"{k} {v:.2e}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in errs64.items())
+        + f" (tol {F64_COORD_RTOL:g}). A publish without the fold would read "
+        f"{e_unfolded:.2e} against the float32 CPU fit (the fold is "
+        f"{float(np.abs(fold).max()) / w_max:.2e} of the largest coefficient: the shifts "
+        f"are column means over all rows; phase 17(b) shows the fold where they are "
+        f"large) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("glmix_sparse-norm-en: card and CPU disagree beyond the "
+                             "tolerance")
+    stats["glmix_sparse_norm_en"] = dict(
+        fit_s=t_fit, build_s=t_fit - t_upd, to_compact_s=t_compact, cpu_fit_s=t_cpu,
+        stats_s=t_stats, l1=l1, l1_zero_shares=shares, zero_share=share,
+        objective=f_full, objective_fixed_only=f_fixed, pseudo_grad_ratio=ratio,
+        fold_rel=float(np.abs(fold).max()) / w_max, card_vs_cpu_f32=errs32,
+        f32_spreads=spreads, objective_rel=o_err, zero_set_diff=zero_diff,
+        coordinate_f64=errs64, unfolded_rel=e_unfolded, peak_gb=peak)
+    del data, res, rc, compact, scores, coord64
+    torch.cuda.empty_cache()
+    phase_fold_card_vs_cpu(stats)
+
+
+def _fold_host(scale: int) -> dict:
+    """glmix2's data with a per-user shard whose contexts are far from the
+    identity: column j becomes xu_j·b_j + c_j (b log-uniform in [1/2, 2], c
+    uniform in [1, 3], seed FOLD_SEED), each user leaves ~15% of its columns
+    unobserved (zero in all its rows), and a column of ones is appended as
+    the intercept (index 16)."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.data.synthetic import synth_glmix
+
+    host = synth_glmix(scale, three=False)
+    rng = np.random.default_rng(FOLD_SEED)
+    d_u = host["xu"].shape[1]
+    b = np.exp(rng.uniform(-np.log(2.0), np.log(2.0), d_u)).astype(np.float32)
+    c = rng.uniform(1.0, 3.0, d_u).astype(np.float32)
+    dropped = rng.random((int(host["uids"].max()) + 1, d_u)) < 0.15
+    xu = (host["xu"] * b + c) * ~dropped[host["uids"]]
+    xu = np.concatenate([xu, np.ones((len(xu), 1), np.float32)], axis=1)
+    return dict(host, xu=xu.astype(np.float32))
+
+
+def phase_fold_card_vs_cpu(stats: dict):
+    """17(b): per-lane STANDARDIZATION contexts under INDEX_MAP on a dense
+    per-user shard whose shifts are large (``_fold_host`` at scale
+    REDUCED_GLMIX2_SCALE), elastic net, card against CPU; a publish without
+    the per-lane intercept fold must fail that comparison by more than its
+    tolerance."""
+    import numpy as np
+    import torch
+
+    from photon_ml_tpu_torch.core.normalization import (build_normalization,
+                                                        compute_feature_stats)
+    from photon_ml_tpu_torch.core.regularization import Regularization
+    from photon_ml_tpu_torch.game import FixedEffectConfig, GameConfig, RandomEffectConfig
+    from photon_ml_tpu_torch.opt.types import SolverConfig
+    from photon_ml_tpu_torch.types import NormalizationType, ProjectorType, TaskType
+
+    host = _fold_host(REDUCED_GLMIX2_SCALE)
+    ii = host["xu"].shape[1] - 1
+    s = SolverConfig(max_iters=30, tolerance=1e-7)
+    cfg = GameConfig(task=TaskType.LOGISTIC_REGRESSION, num_outer_iterations=2, coordinates={
+        "fixed": FixedEffectConfig(feature_shard="g", solver=s, reg=Regularization(l2=1.0)),
+        "per-user": RandomEffectConfig(
+            random_effect_type="userId", feature_shard="u", solver=s,
+            reg=Regularization(l1=1.0, l2=1.0), projector=ProjectorType.INDEX_MAP,
+            intercept_index=ii)})
+    norms = []
+    for device in ("cuda", "cpu"):
+        xu = torch.as_tensor(host["xu"], device=device)
+        norms.append({"u": build_normalization(NormalizationType.STANDARDIZATION,
+                                               compute_feature_stats(xu, intercept_index=ii))})
+    data = _baseline_data(host)
+    label = (f"fold check, glmix2 per-user shard shifted, INDEX_MAP, STANDARDIZATION, "
+             f"elastic net, at scale {REDUCED_GLMIX2_SCALE} ({data.num_samples} rows)")
+    rg, rc = _compare_fits(label, data, data, cfg, ["per-user"], norms=tuple(norms),
+                           path="fold_reduced", stats=stats,
+                           required=("fused_value_and_grad",))
+    shifts = norms[1]["u"].shifts.double().numpy()
+    w = np.asarray(rg.model["per-user"].w_stack, np.float64)
+    unfolded = w.copy()
+    unfolded[:, ii] += w @ shifts  # unobserved columns publish 0
+    e_unfolded = rel_err(unfolded, rc.model["per-user"].w_stack)
+    ok = e_unfolded > F32_PATH_RTOL
+    log(f"fold check: max |shift| {float(np.abs(shifts).max()):.3f}; a publish without the "
+        f"per-lane intercept fold reads rel diff {e_unfolded:.2e} against the CPU fit, "
+        f"{e_unfolded / F32_PATH_RTOL:.0f}x the tolerance {F32_PATH_RTOL:g} (must exceed "
+        f"it) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("fold check: the card-vs-CPU comparison cannot see the fold")
+    stats["fold_reduced"] = dict(unfolded_rel=e_unfolded)
+
+
+def _en_box_config(l1, num_iters=2):
+    """glmix2-en-box: glmix2-norm-var's coordinates under L-BFGS with
+    variances NONE; the fixed effect with elastic net (L2 1.0, L1 ``l1``:
+    OWLQN as one lane over the fused kernel), the per-user coefficients of
+    features 0..EN_BOX_FEATURES-1 bounded to [0, inf)."""
+    from photon_ml_tpu_torch.core.regularization import Regularization
+    from photon_ml_tpu_torch.game import FixedEffectConfig, GameConfig, RandomEffectConfig
+    from photon_ml_tpu_torch.opt.types import SolverConfig
+    from photon_ml_tpu_torch.types import TaskType
+
+    s = SolverConfig(max_iters=30, tolerance=1e-7)
+    box = tuple((j, 0.0, float("inf")) for j in range(EN_BOX_FEATURES))
+    return GameConfig(task=TaskType.LOGISTIC_REGRESSION, num_outer_iterations=num_iters,
+                      coordinates={
+                          "fixed": FixedEffectConfig(
+                              feature_shard="g", solver=s,
+                              reg=Regularization(l1=l1, l2=1.0), intercept_index=NORM_VAR_II),
+                          "per-user": RandomEffectConfig(
+                              random_effect_type="userId", feature_shard="u", solver=s,
+                              reg=Regularization(l2=1.0), constraints=box)})
+
+
+def _fixed_pseudo_gradient_ratio(w_pub, xg, ctx, offsets, y, l1: float, l2: float) -> float:
+    """The fixed effect's float64 pseudo-gradient norm at its transformed
+    optimum (``model_to_transformed_space`` of the published means) over its
+    norm at w' = 0, recomputed on the card from the raw design."""
+    import torch
+
+    from photon_ml_tpu_torch.opt.lbfgs import pseudo_gradient
+
+    x = xg.double()
+    f, s = ctx.factors.double(), ctx.shifts.double()
+    wt = type(ctx)(factors=f, shifts=s).model_to_transformed_space(
+        torch.as_tensor(w_pub, device="cuda").double(), NORM_VAR_II)
+
+    def norm(w):
+        eff = w * f
+        z = x @ eff - (eff * s).sum() + offsets
+        r = torch.sigmoid(z) - y
+        g = f * (x.T @ r - r.sum() * s) + l2 * w
+        return torch.linalg.vector_norm(pseudo_gradient(w, g, l1))
+
+    return float(norm(wt) / norm(torch.zeros_like(wt)))
+
+
+def _user_projected_gradient_ratio(w_stack, xu, uids, ctx, offsets, y, l2: float) -> float:
+    """The per-user lanes' float64 projected-gradient norm ||w' - clip(w' -
+    g, lo, hi)|| at their transformed optimum (w' = w / f) over its norm at
+    w' = 0, recomputed on the card from the raw rows; lo = 0 on the bounded
+    features (0 / f), -inf elsewhere."""
+    import torch
+
+    x = xu.double()
+    f = ctx.factors.double()
+    slot = torch.as_tensor(uids, device="cuda").long()
+    wt = torch.as_tensor(w_stack, device="cuda").double() / f
+    lo = torch.full_like(f, -float("inf"))
+    lo[:EN_BOX_FEATURES] = 0.0
+
+    def residual(w):
+        z = (x * (w * f)[slot]).sum(dim=1) + offsets
+        r = torch.sigmoid(z) - y
+        g = f * torch.zeros_like(w).index_add_(0, slot, r[:, None] * x) + l2 * w
+        return torch.linalg.vector_norm(w - torch.clamp(w - g, min=lo))
+
+    return float(residual(wt) / residual(torch.zeros_like(wt)))
+
+
+def phase_glmix2_en_box(stats: dict):
+    """glmix2-en-box at full width: OWLQN on the fixed effect through the
+    fused kernel with shifts, the box-constrained lane L-BFGS on the
+    per-user coordinate; then scale REDUCED_GLMIX2_SCALE on card and CPU."""
+    import torch
+
+    from photon_ml_tpu_torch.data.synthetic import synth_glmix
+    from photon_ml_tpu_torch.game import GameEstimator
+
+    t0 = time.perf_counter()
+    host = _with_intercept(synth_glmix(1, three=False))
+    data, xg, xu = _norm_var_data(host, "cuda")
+    norms, _ = _norm_var_contexts(xg, xu)
+    log(f"glmix2-en-box data: glmix2-norm-var's rows and contexts, generated in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    small = _with_intercept(synth_glmix(L1_CHOICE_SCALE, three=False))
+    small_data, sxg, sxu = _norm_var_data(small, "cpu")
+    small_norms, _ = _norm_var_contexts(sxg, sxu)
+
+    def zero_share(l1):
+        res = GameEstimator(device="cpu", normalization=small_norms).fit(
+            small_data, [_en_box_config(l1)])[0]
+        return float((res.model["fixed"].coefficients.means[:NORM_VAR_II] == 0).mean())
+
+    l1, shares = _choose_l1("glmix2-en-box fixed effect", EN_BOX_L1_CHOICES, zero_share)
+    cfg = _en_box_config(l1)
+    l2 = 1.0
+    res, scores, auc = _drive("glmix2_en_box", data, cfg, stats,
+                              required=("fused_value_and_grad",), normalization=norms)
+    bayes = _bayes_auc(host)
+    _check_bayes("glmix2_en_box", auc, bayes)
+
+    w_fixed = res.model["fixed"].coefficients.means
+    w_user = res.model["per-user"].w_stack
+    f_u = norms["u"].factors.cpu().numpy()
+    bounded = w_user[:, :EN_BOX_FEATURES]
+    worst = float((bounded / f_u[:EN_BOX_FEATURES]).min())
+    at_bound = float((bounded == 0).mean())
+    fixed_zero = float((w_fixed[:NORM_VAR_II] == 0).mean())
+    # the offsets of each coordinate's last update: the fixed effect's come
+    # from the per-user model of sweep 1, the per-user's from the final fixed
+    one = GameEstimator(device="cuda", normalization=norms).fit(
+        data, [_en_box_config(l1, num_iters=1)])[0]
+    y = torch.as_tensor(host["y"], device="cuda").double()
+    off_fixed = one.model["per-user"].score(data, device="cuda").double()
+    off_user = res.model["fixed"].score(data, device="cuda").double()
+    r_fixed = _fixed_pseudo_gradient_ratio(w_fixed, xg, norms["g"], off_fixed, y, l1, l2)
+    r_user = _user_projected_gradient_ratio(w_user, xu, host["uids"], norms["u"], off_user,
+                                            y, l2)
+    ok = (worst >= -BOX_NEG_SLACK and at_bound >= BOX_BIND_SHARE
+          and r_fixed <= STATIONARY_RATIO and r_user <= STATIONARY_RATIO)
+    log(f"glmix2-en-box gates: bounded per-user coefficients {bounded.shape}, least "
+        f"w / f {worst:.3e} (>= -{BOX_NEG_SLACK:g}), {at_bound:.4f} at the bound 0 (>= "
+        f"{BOX_BIND_SHARE}); fixed zero share {fixed_zero:.4f}; float64 norm at the fit / "
+        f"at w = 0: fixed pseudo-gradient {r_fixed:.3e}, per-user projected gradient "
+        f"{r_user:.3e} (tol {STATIONARY_RATIO:g}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("glmix2-en-box: a gate failed")
+    stats["glmix2_en_box"].update(l1=l1, l1_zero_shares=shares, bayes_auc=bayes,
+                                  at_bound=at_bound, fixed_zero_share=fixed_zero,
+                                  fixed_pseudo_grad_ratio=r_fixed,
+                                  user_projected_grad_ratio=r_user)
+    del data, xg, xu, res, one, scores
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    host = _with_intercept(synth_glmix(REDUCED_GLMIX2_SCALE, three=False))
+    gpu, xg, xu = _norm_var_data(host, "cuda")
+    cpu, xg_c, xu_c = _norm_var_data(host, "cpu")
+    _compare_fits(f"glmix2-en-box at scale {REDUCED_GLMIX2_SCALE} ({gpu.num_samples} rows)",
+                  gpu, cpu, cfg, ["per-user"],
+                  norms=(_norm_var_contexts(xg, xu)[0], _norm_var_contexts(xg_c, xu_c)[0]),
+                  path="glmix2_en_box_reduced", stats=stats,
+                  required=("fused_value_and_grad",))
+    stats["glmix2_en_box"]["card_vs_cpu_s"] = time.perf_counter() - t0
+
+
 KERNELS = {
     "fused_value_and_grad": dict(
         source="photon_ml_tpu_torch/csrc/fused_glm.cu",
@@ -1747,28 +2346,35 @@ def run_ab(tree: Path) -> int:
             _time_fused(stats, n, d, w, v, b, shift, v_shift, gen)
             del w, v, b
             torch.cuda.empty_cache()
-    fits = {}
+    fits, fixed = {}, {}
+
+    def ab_fit(key, *args):
+        res, _, _, fits[key], _ = _fit_and_score(*args)
+        # the fixed effect's updates: (seconds, solver iterations) per sweep
+        fixed[key] = [(st["seconds"], st["solver_iterations"]) for st in res.history.steps
+                      if st["coordinate"] == "fixed"]
+
     with Phase("ab fits"):
         host = synth_glmix_chip()
         xg = chip_design(host["n"], "cuda")
         data = GameData(y=host["y"], features={"g": xg, "u": host["xu"]},
                         id_tags={"userId": host["uids"]})
-        fits["glmix_chip"] = _fit_and_score(data, "cuda", _glmix_config())[3]
+        ab_fit("glmix_chip", data, "cuda", _glmix_config())
         del data, xg, host
         torch.cuda.empty_cache()
         glmix2 = synth_glmix(1, three=False)
-        fits["glmix2_tron"] = _fit_and_score(_baseline_data(glmix2), "cuda",
-                                             _baseline_config(False, OptimizerType.TRON))[3]
-        fits["glmix3"] = _fit_and_score(_baseline_data(synth_glmix(1, three=True)), "cuda",
-                                        _baseline_config(True, OptimizerType.LBFGS))[3]
+        ab_fit("glmix2_tron", _baseline_data(glmix2), "cuda",
+               _baseline_config(False, OptimizerType.TRON))
+        ab_fit("glmix3", _baseline_data(synth_glmix(1, three=True)), "cuda",
+               _baseline_config(True, OptimizerType.LBFGS))
         host = _with_intercept(glmix2)
         data, xg, xu = _norm_var_data(host, "cuda")
         norms, _ = _norm_var_contexts(xg, xu)
-        fits["glmix2_norm_var"] = _fit_and_score(data, "cuda", _norm_var_config(),
-                                                 norms)[3]
+        ab_fit("glmix2_norm_var", data, "cuda", _norm_var_config(), norms)
         log("fit seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in fits.items()))
     kernels = {k: stats[k]["by_shape"] for k in ("fused_value_and_grad", "fused_hvp")}
-    log(json.dumps({"ab": str(tree), "card": smi, "kernels": kernels, "fit_s": fits}))
+    log(json.dumps({"ab": str(tree), "card": smi, "kernels": kernels, "fit_s": fits,
+                    "fixed_updates": fixed}))
     return 0
 
 
@@ -1834,6 +2440,10 @@ def main() -> int:
     with Phase("16 card vs CPU, normalization and variances"):
         phase_norm_var_card_vs_cpu(stats, glmix_chip_reduced)
     del glmix_chip_reduced
+    with Phase("17 glmix_sparse-norm-en full width, card and CPU"):
+        phase_glmix_sparse_norm_en(stats)
+    with Phase("18 glmix2-en-box full width"):
+        phase_glmix2_en_box(stats)
     with Phase("14 kernels"):
         kernels = []
         for kname, meta in KERNELS.items():

@@ -12,6 +12,11 @@ Coefficient-space maps, margin-invariant (the intercept absorbs the shift):
 
 ``build_normalization`` makes a context from ``FeatureStats`` for each
 ``NormalizationType``; the intercept column keeps factor 1 and shift 0.
+
+A context may also hold per-lane rows ([L, d] factors and shifts): the
+shard's context projected into each random-effect entity's compact space.
+Its coefficient maps then take each lane's own intercept position, an [L]
+index tensor.
 """
 
 from __future__ import annotations
@@ -104,19 +109,24 @@ def compute_feature_stats_sparse(indices, values, dim: int, weight=None,
                         intercept_index=intercept_index)
 
 
-def _require_intercept(intercept_index: Optional[int]) -> int:
+def _intercept(w: Tensor, intercept_index: "Optional[int] | Tensor"):
+    """The index of ``w``'s intercept entries: column ``intercept_index`` of
+    every vector, or lane l's column intercept_index[l] of a stack [L, d]."""
     if intercept_index is None:
         raise ValueError("shift normalization requires an intercept")
-    return intercept_index
+    if isinstance(intercept_index, Tensor):
+        return torch.arange(w.shape[0], device=w.device), intercept_index
+    return (..., intercept_index)
 
 
 @dataclasses.dataclass(frozen=True)
 class NormalizationContext:
     """Affine feature normalization; ``factors``/``shifts`` None = identity.
-    Every map takes a coefficient vector [d] or a stack of them [..., d]."""
+    Every map takes a coefficient vector [d] or a stack of them [..., d];
+    per-lane rows [L, d] take a stack [L, d]."""
 
-    factors: Optional[Tensor]  # [d] or None
-    shifts: Optional[Tensor]  # [d] or None
+    factors: Optional[Tensor]  # [d], [L, d] or None
+    shifts: Optional[Tensor]  # [d], [L, d] or None
 
     @property
     def is_identity(self) -> bool:
@@ -146,24 +156,24 @@ class NormalizationContext:
             return torch.zeros(w.shape[:-1], dtype=w.dtype, device=w.device)
         return -(self.effective_coefficients(w) * self.shifts).sum(-1)
 
-    def model_to_original_space(self, w: Tensor, intercept_index: Optional[int]) -> Tensor:
+    def model_to_original_space(self, w: Tensor,
+                                intercept_index: "Optional[int] | Tensor") -> Tensor:
         """Transformed-space coefficients to original space, the shift folded
-        into the intercept."""
+        into the intercept: column ``intercept_index``, or with per-lane rows
+        each lane's own column (an [L] index tensor)."""
         out = self.effective_coefficients(w)
         if self.shifts is not None:
-            ii = _require_intercept(intercept_index)
             out = out.clone()
-            out[..., ii] -= (out * self.shifts).sum(-1)
+            out[_intercept(out, intercept_index)] -= (out * self.shifts).sum(-1)
         return out
 
     def model_to_transformed_space(self, w: Tensor,
-                                   intercept_index: Optional[int]) -> Tensor:
+                                   intercept_index: "Optional[int] | Tensor") -> Tensor:
         """The inverse of ``model_to_original_space``."""
         out = w
         if self.shifts is not None:
-            ii = _require_intercept(intercept_index)
             out = out.clone()
-            out[..., ii] += (w * self.shifts).sum(-1)
+            out[_intercept(out, intercept_index)] += (w * self.shifts).sum(-1)
         if self.factors is not None:
             out = out / self.factors
         return out

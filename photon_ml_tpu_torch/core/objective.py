@@ -21,9 +21,10 @@ shards are compared within the float32 path tolerance of chip_smoke.py
 (5e-3 relative), not bitwise: exp and log round differently.
 
 ``LaneObjective`` is the same objective over a random-effect bucket held
-lanes-first (x [L, cap, d], one GLM per lane, a per-lane L2 [L], one
-normalization context shared by every lane): what the JAX package computes
-as a ``jax.vmap`` of the plain XLA path, written out as batched products.
+lanes-first (x [L, cap, d], one GLM per lane, a per-lane L2 [L], and a
+normalization context shared by every lane or per-lane factor and shift
+rows [L, d]): what the JAX package computes as a ``jax.vmap`` of the plain
+XLA path, written out as batched products.
 
 ``hessian_diag`` and ``hessian`` (coefficient variances) are plain PyTorch
 on either device, as the JAX package computes them in plain XLA outside any
@@ -218,8 +219,10 @@ def lane_norm(a: Tensor) -> Tensor:
 class LaneObjective:
     """One GLM per lane over a bucket held lanes-first: ``batch.x`` is
     [L, cap, d] and ``batch.y``/``offset``/``weight`` are [L, cap]; ``l2`` is
-    the per-lane L2 weight [L]; ``norm`` is one context shared by every lane,
-    with ``GLMObjective``'s margin algebra and chain rule.  Values are [L],
+    the per-lane L2 weight [L]; ``norm`` is one context shared by every lane
+    ([d] vectors) or per-lane rows ([L, d]: each entity's compact context;
+    values, gradients and Hessian-vector products only), with
+    ``GLMObjective``'s margin algebra and chain rule.  Values are [L],
     gradients and Hessian-vector products [L, d]."""
 
     loss: PointwiseLoss

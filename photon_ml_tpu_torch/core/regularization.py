@@ -1,8 +1,9 @@
 """Regularization weights.
 
 Port of photon_ml_tpu/core/regularization.py.  ``l2`` adds (l2/2)·‖w‖² to
-the objective; ``l1`` belongs to OWLQN, which this slice does not carry
-(coordinates refuse l1 > 0).
+the objective; ``l1`` adds l1·‖w‖₁, which the solver factories hand to
+OWLQN (``opt.lbfgs.minimize_owlqn_lanes``) rather than to the smooth
+objective.
 """
 
 from __future__ import annotations

@@ -13,6 +13,11 @@ bag, about 20% of them zero-valued (padded slots).  Logistic labels from
 fixed plus per-user logits scaled to unit standard deviation; the logits
 are returned for the task's Bayes AUC.
 
+``synth_glmix_sparse_norm(scale)`` is glmix_sparse with an intercept column
+in the per-user shard (index 50,000, value 1.0 in every row; dim 50,001,
+25 slots a row), the data of glmix_sparse-norm-en, whose per-user shard is
+standardized and needs a column to absorb the shifts.
+
 ``synth_glmix(scale, three)`` is a numpy copy of the repository's
 ``bench.synth_glmix`` (the BASELINE #3 / #4 data, glmix2 and glmix3): 2048
 users x 256 rows with 256 fixed and 16 per-user features (glmix2), or 2048
@@ -199,3 +204,15 @@ def synth_glmix_sparse(scale: int = 1) -> dict:
                       "dim": fixed["dim"]},
             "user": {"indices": u_idx, "values": u_val, "dim": GS_VOCAB},
             "uids": uids, "y": y, "logits": logits}
+
+
+def synth_glmix_sparse_norm(scale: int = 1) -> dict:
+    """glmix_sparse-norm-en data: ``synth_glmix_sparse(scale)`` with the
+    per-user shard's intercept column GS_VOCAB (value 1.0) appended to every
+    row, so the shard has dim GS_VOCAB + 1 and GS_K + 1 slots a row."""
+    data = synth_glmix_sparse(scale)
+    u = data["user"]
+    n = len(data["y"])
+    u_idx = np.concatenate([u["indices"], np.full((n, 1), GS_VOCAB, np.int32)], axis=1)
+    u_val = np.concatenate([u["values"], np.ones((n, 1), np.float32)], axis=1)
+    return dict(data, user={"indices": u_idx, "values": u_val, "dim": GS_VOCAB + 1})

@@ -1,14 +1,13 @@
 """Per-coordinate configuration.
 
 Port of photon_ml_tpu/game/config.py, holding the fields the port trains
-with (variances among them, and each coordinate's ``intercept_index``, the
-column that absorbs a shift normalization and that the INDEX_MAP filter
-keeps), plus the reference's box-constraint and projector fields, whose
-non-default values the coordinates refuse (NotImplementedError naming the
-ROADMAP item that brings them; the RANDOM projector is one of them).
-The rest of the reference's fields (``projected_dim`` of the RANDOM
-projector, down-sampling, storage dtypes, feature sharding) arrive with the
-slices that carry them.
+with: variances, each coordinate's ``intercept_index`` (the column that
+absorbs a shift normalization and that the INDEX_MAP filter keeps), box
+constraints with their ``constraint_space``, and the projector field, whose
+RANDOM value the random-effect coordinate refuses (NotImplementedError
+naming the ROADMAP item that brings it).  The rest of the reference's
+fields (``projected_dim`` of the RANDOM projector, down-sampling, storage
+dtypes, feature sharding) arrive with the slices that carry them.
 """
 
 from __future__ import annotations
@@ -34,8 +33,14 @@ class FixedEffectConfig:
     solver: Optional[SolverConfig] = None
     reg: Regularization = Regularization()
     variance: VarianceComputationType = VarianceComputationType.NONE
-    constraints: Optional[ConstraintMap] = None
+    constraints: Optional[ConstraintMap] = None  # L-BFGS only
+    # which coefficients the bounds constrain: "original" (published) or
+    # "transformed" (solver space; see _canonicalize_constraints)
+    constraint_space: str = "original"
     intercept_index: Optional[int] = None  # column that absorbs a shift normalization
+
+    def __post_init__(self):
+        _canonicalize_constraints(self)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +65,9 @@ class RandomEffectConfig:
     # L2 weight, keyed by entity id (default 1).  Accepts a dict or pairs;
     # stored canonically as a sorted tuple of (int id, float factor).
     per_entity_l2_multipliers: Optional[Tuple[Tuple[int, float], ...]] = None
+    # bounds on every entity's coefficients (L-BFGS only), and their space
     constraints: Optional[ConstraintMap] = None
+    constraint_space: str = "original"
 
     def __post_init__(self):
         m = self.per_entity_l2_multipliers
@@ -68,6 +75,43 @@ class RandomEffectConfig:
             pairs = m.items() if isinstance(m, dict) else m
             object.__setattr__(self, "per_entity_l2_multipliers",
                                tuple(sorted((int(k), float(v)) for k, v in pairs)))
+        _canonicalize_constraints(self)
+
+
+def _canonicalize_constraints(cfg) -> None:
+    """Accept a dict {index: (lo, hi)} or triples (index, lo, hi); store a
+    sorted tuple; refuse a duplicate index, lo >= hi and a pair of infinite
+    bounds.
+
+    ``constraint_space``: "original" (default) bounds the published
+    original-space coefficients, so under scaling normalization the solver's
+    box is [lo/f, hi/f] and shift normalization is refused; "transformed"
+    applies the bounds as written to the solver-space coefficients, as the
+    reference's own optimizers do, and the published coefficients may then
+    lie outside them."""
+    if cfg.constraint_space not in ("original", "transformed"):
+        raise ValueError(f"constraint_space must be 'original' or 'transformed' "
+                         f"(got {cfg.constraint_space!r})")
+    c = cfg.constraints
+    if c is None:
+        return
+    if isinstance(c, dict):
+        c = tuple((int(j), *map(float, bounds)) for j, bounds in c.items())
+    else:
+        c = tuple((int(j), float(lo), float(hi)) for j, lo, hi in c)
+    seen = set()
+    for j, lo, hi in c:
+        if j in seen:
+            raise ValueError(f"duplicate constraint for feature index {j} (later entries "
+                             "would silently overwrite earlier bounds)")
+        seen.add(j)
+        if not lo < hi:
+            raise ValueError(f"constraint on feature {j}: lower bound {lo} must be < "
+                             f"upper bound {hi}")
+        if lo == float("-inf") and hi == float("inf"):
+            raise ValueError(f"constraint on feature {j}: both bounds infinite "
+                             "(not a constraint)")
+    object.__setattr__(cfg, "constraints", tuple(sorted(c)))
 
 
 CoordinateConfig = Union[FixedEffectConfig, RandomEffectConfig]

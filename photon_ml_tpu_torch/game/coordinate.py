@@ -2,8 +2,10 @@
 
 Port of photon_ml_tpu/game/coordinate.py:
 
-- ``FixedEffectCoordinate``: a dense or sparse shard, no mesh, L-BFGS or
-  TRON.  The design is laid out on the device once; each update re-solves
+- ``FixedEffectCoordinate``: a dense or sparse shard, no mesh, L-BFGS,
+  OWLQN (L1 / elastic net, as one lane of the lane solver) or TRON, with
+  optional box constraints under L-BFGS.  The design is laid out on the
+  device once; each update re-solves
   with new residual offsets through ``GLMObjective``, in the transformed
   space of the shard's normalization context (warm starts mapped in, the
   model published in original space).  On a dense shard its
@@ -28,9 +30,15 @@ Port of photon_ml_tpu/game/coordinate.py:
   (``publish_stack``).  Scoring covers every sample, including the rows the
   active cap left out of training; on a sparse shard it never builds
   [n, d_full].  A dense IDENTITY coordinate may carry one normalization
-  context shared by every entity; it then solves on the lanes (the SoA gate
-  excludes normalization, as in the reference).  Normalization under
-  compaction (per-lane contexts) is not ported yet.
+  context shared by every entity.  Under compaction the shard's context is
+  projected into each entity's compact space, as the reference does: factor
+  and shift rows gathered through each lane's column map (padded slots get
+  factor 1 and shift 0), and each lane's own compact intercept position,
+  into which the coefficient maps fold the shift.  L1 runs the lane OWLQN;
+  box constraints run the lane L-BFGS with full-width bounds, or on compact
+  lanes with per-lane bounds gathered the same way (padded slots pinned to
+  [0, 0]), and unobserved features publish clip(0, lo, hi).  The SoA gate
+  excludes normalization, box constraints and L1, as in the reference.
 
 Coefficient variances (SIMPLE: 1 / diag(H); FULL: diag(H⁻¹)) are computed at
 the transformed-space optimum of each solve, with the update's offsets, and
@@ -40,8 +48,8 @@ negative).  On compact lanes they are expanded to full width with the
 prior-only 1/λ2 of each lane's L2 at unobserved features, which is exact:
 the full-space Hessian is block-diagonal there.
 
-Anything outside the port raises NotImplementedError naming the ROADMAP item
-that brings it.
+The RANDOM projector, which the port does not carry yet, raises
+NotImplementedError naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -64,17 +72,19 @@ from photon_ml_tpu_torch.models.game import (DatumScoringModel, FixedEffectModel
                                              RandomEffectModel, cached_device_copies,
                                              dense_random_effect, seed_device_copies)
 from photon_ml_tpu_torch.models.glm import Coefficients
+from photon_ml_tpu_torch.opt.constraints import box_arrays
 from photon_ml_tpu_torch.opt.newton_soa import soa_eligible, solve_newton_soa
-from photon_ml_tpu_torch.opt.solve import (check_supported, compute_soa_variances,
-                                           compute_variances, default_config,
-                                           make_lane_solver, make_solver)
+from photon_ml_tpu_torch.opt.solve import (check_box_support, check_supported,
+                                           compute_soa_variances, compute_variances,
+                                           default_config, make_lane_solver, make_solver)
 from photon_ml_tpu_torch.opt.types import SolverResult
 from photon_ml_tpu_torch.parallel.bucketing import (bucket_by_entity,
                                                     bucket_by_entity_sparse, publish_stack,
                                                     score_samples, score_samples_sparse,
                                                     slots_from)
 from photon_ml_tpu_torch.parallel.projection import RANDOM_REFUSAL, project_buckets
-from photon_ml_tpu_torch.types import ProjectorType, TaskType, VarianceComputationType
+from photon_ml_tpu_torch.types import (OptimizerType, ProjectorType, TaskType,
+                                       VarianceComputationType)
 
 Tensor = torch.Tensor
 
@@ -83,28 +93,50 @@ Tensor = torch.Tensor
 SOA_MAX_CAP_D2 = 2 * 1280
 
 
-NORM_COMPACT_REFUSAL = (
-    "normalization under compaction (INDEX_MAP or a sparse shard: per-lane "
-    "contexts) is not ported yet: ROADMAP.md 'Modules still to port', item 2, "
-    "per-lane normalization under compaction")
-
-
 def _refuse_unported(coordinate_id: str, config: CoordinateConfig) -> None:
-    """Raise NotImplementedError for the configuration fields the port does
-    not carry yet, naming the ROADMAP item; then the optimizer check.
-    Variances under the RANDOM projector are a ValueError, as in the
-    reference: the projection mixes features."""
+    """Refuse the RANDOM projector, which the port does not carry yet
+    (NotImplementedError naming its ROADMAP item), after the reference's own
+    ValueErrors for it: variances and box constraints have no meaning in a
+    space whose projection mixes features.  Then the optimizer check."""
     where = f"coordinate {coordinate_id!r}: "
-    if config.constraints:
-        raise NotImplementedError(
-            where + "box constraints are not ported yet: ROADMAP.md 'Modules "
-            "still to port', item 3, opt/constraints.py and the projected L-BFGS")
     if getattr(config, "projector", None) == ProjectorType.RANDOM:
         if config.variance != VarianceComputationType.NONE:
             raise ValueError(where + "per-entity variances are not defined under a "
                              "RANDOM projection (the Gaussian matrix mixes features)")
+        if config.constraints:
+            raise ValueError(where + "box constraints have no meaning in a "
+                             "RANDOM-projected solve space (the Gaussian matrix mixes "
+                             "features); use IDENTITY or INDEX_MAP")
         raise NotImplementedError(where + RANDOM_REFUSAL)
     check_supported(config.optimizer, config.reg.l1)
+
+
+def _box_from_constraints(constraints, dim: int, dtype: torch.dtype, device: torch.device,
+                          norm: Optional[NormalizationContext] = None,
+                          space: str = "original") -> Optional[Tuple[Tensor, Tensor]]:
+    """(lower, upper) [dim] bounds in the solve space.  With
+    ``space="original"`` they bound the published coefficients: under scaling
+    (w = f·w') the solver's box is [lo/f, hi/f], and a shift is refused (the
+    intercept fold makes per-feature bounds non-separable).  With
+    ``space="transformed"`` the bounds apply as written to the solver's
+    coefficients whatever the context."""
+    if not constraints:
+        return None
+    if space == "transformed":
+        norm = None
+    lo, hi = (_as_device(a, dtype, device) for a in box_arrays(
+        {j: (low, high) for j, low, high in constraints}, dim, _numpy_dtype(dtype)))
+    if norm is not None:
+        if norm.shifts is not None:
+            raise ValueError(
+                "box constraints with shift normalization are not supported "
+                "(original-space bounds are non-separable under shifts); use a "
+                "scaling-only normalization type, or constraint_space='transformed' "
+                "for raw bounds on the transformed iterate")
+        if norm.factors is not None:
+            f = norm.factors.to(dtype=dtype, device=device)
+            lo, hi = lo / f, hi / f
+    return lo, hi
 
 
 def _coordinate_norm(coordinate_id: str, norm: Optional[NormalizationContext],
@@ -187,7 +219,9 @@ class FixedEffectCoordinate(Coordinate):
             self._batch = DenseBatch(x=_as_device(shard, dtype, device), **rows)
         self._objective = GLMObjective(loss=loss_for_task(task), reg=config.reg,
                                        norm=self._norm)
-        self._solve = make_solver(self._objective, config.optimizer, config.solver)
+        box = _box_from_constraints(config.constraints, self.dim, dtype, device, self._norm,
+                                    config.constraint_space)
+        self._solve = make_solver(self._objective, config.optimizer, config.solver, box=box)
 
     def update(self, total_offsets: Tensor, seed: int = 0,
                init: Optional[FixedEffectModel] = None
@@ -233,9 +267,14 @@ class RandomEffectCoordinate(Coordinate):
         self.norm_source = norm
         self._norm = _coordinate_norm(coordinate_id, norm, config.intercept_index, dtype,
                                       device)
-        if not self._norm.is_identity and compact:
-            raise NotImplementedError(f"coordinate {coordinate_id!r}: "
-                                      + NORM_COMPACT_REFUSAL)
+        # per-lane contexts: the shard's context projected into each entity's
+        # compact space (the reference keeps no variances for them)
+        per_lane = compact and not self._norm.is_identity
+        if per_lane and config.variance != VarianceComputationType.NONE:
+            raise NotImplementedError(
+                "coefficient variances under compaction do not support per-entity "
+                "normalization contexts; drop the normalization or use an "
+                f"uncompacted (IDENTITY, dense) layout (coordinate {coordinate_id!r})")
         self.coordinate_id = coordinate_id
         self.config = config
         self.task = task
@@ -279,24 +318,31 @@ class RandomEffectCoordinate(Coordinate):
                                        config.intercept_index)
                 solve_buckets, self._projections = proj.buckets, proj.projections
 
+        # compact lanes' column ids on the device: they gather the per-lane
+        # contexts and bounds and expand the variances
+        self._proj_idx = (None if self._projections is None else
+                          [_as_device(p.indices, torch.int64, device)
+                           for p in self._projections])
+        self._lane_norms = None
+        if per_lane:
+            self._lane_norms = [self._lane_context(idx, b.entity_lanes)
+                                for idx, b in zip(self._proj_idx, self.buckets.buckets)]
+        self._box, self._box_lanes, self._box_fill = self._bind_box(compact)
+
         # the SoA Newton gate (reference game/coordinate.py:1179-1198) on the
-        # solve-space shapes; with no box or L1 in the port, what remains is
-        # the solve width, the cap*d^2 traffic guard, a smooth loss and no
-        # normalization.  The optimizer does not enter: a TRON coordinate
-        # inside the gate runs SoA Newton.
+        # solve-space shapes: the solve width, the cap*d^2 traffic guard, a
+        # smooth loss, no normalization, no box and no L1, under L-BFGS or
+        # TRON (a TRON coordinate inside the gate runs SoA Newton).
         worst = max((b.capacity * b.x.shape[2] ** 2 for b in solve_buckets), default=0)
         max_dim = max((b.x.shape[2] for b in solve_buckets), default=0)
         self.use_soa = (soa_eligible(max_dim, self._loss.name) and worst <= SOA_MAX_CAP_D2
-                        and self._norm.is_identity)
+                        and self._norm.is_identity and not config.constraints
+                        and config.reg.l1 == 0.0
+                        and config.optimizer in (OptimizerType.LBFGS, OptimizerType.TRON))
         self._solver_config = config.solver or default_config(config.optimizer)
         if not self.use_soa:
             self._solve_lanes = make_lane_solver(self._loss, config.optimizer,
-                                                 self._solver_config, self._norm)
-        # compact lanes' column ids on the device, to expand their variances
-        self._proj_idx = None
-        if self._projections is not None and config.variance != VarianceComputationType.NONE:
-            self._proj_idx = [_as_device(p.indices, torch.int64, device)
-                              for p in self._projections]
+                                                 self._solver_config, l1=config.reg.l1)
 
         # stacked-model slot order = sorted entity id
         self._slot_of = {eid: i for i, eid in enumerate(sorted(self.buckets.lane_of))}
@@ -327,6 +373,83 @@ class RandomEffectCoordinate(Coordinate):
             dev["l2"] = config.reg.l2 * torch.as_tensor(m, device=device)
             self._dev.append(dev)
 
+    def _lane_context(self, idx: Tensor, entity_lanes: np.ndarray
+                      ) -> Tuple[NormalizationContext, Optional[Tensor]]:
+        """The shard's context in a compact bucket's lanes: factor and shift
+        rows [L, d_compact] gathered through the column ids ``idx`` (padded
+        slots: factor 1, shift 0), and under shifts each lane's compact
+        intercept position [L], which every entity must observe."""
+        obs = idx >= 0
+        safe = torch.where(obs, idx, 0)
+        f = self._norm.factors
+        factors = (torch.where(obs, f[safe], 1.0) if f is not None
+                   else torch.ones(idx.shape, dtype=self._dtype, device=idx.device))
+        if self._norm.shifts is None:
+            return NormalizationContext(factors=factors, shifts=None), None
+        shifts = torch.where(obs, self._norm.shifts[safe], 0.0)
+        hit = idx == self.config.intercept_index
+        valid = torch.as_tensor(np.asarray(entity_lanes) >= 0, device=idx.device)
+        if not bool(hit.any(dim=1)[valid].all()):
+            raise ValueError(
+                f"coordinate {self.coordinate_id!r}: shift normalization under "
+                "compaction requires the intercept column (feature "
+                f"{self.config.intercept_index}) observed in every entity's active "
+                "samples, but some entity never observes it")
+        return (NormalizationContext(factors=factors, shifts=shifts),
+                hit.to(torch.int8).argmax(dim=1))
+
+    def _bind_box(self, compact: bool):
+        """(box, box_lanes, fill): on a dense IDENTITY shard the full-width
+        bounds in the solve space; on compact lanes each bucket's per-lane
+        bounds in the compact space of each lane's columns (padded slots
+        pinned to [0, 0], scaled by the lane's factors) and clip(0, lo, hi),
+        the published value of an unobserved feature."""
+        cfg = self.config
+        if not cfg.constraints:
+            return None, None, None
+        check_box_support(cfg.optimizer, cfg.reg.l1 > 0.0)
+        if not compact:
+            return _box_from_constraints(cfg.constraints, self.dim, self._dtype,
+                                         self._device, self._norm,
+                                         cfg.constraint_space), None, None
+        where = f"coordinate {self.coordinate_id!r}: "
+        if self._norm.shifts is not None:
+            raise ValueError(where + "box constraints with shift normalization are not "
+                             "supported under compaction (original-space bounds are "
+                             "non-separable under shifts; constraint_space='transformed' "
+                             "covers non-compact coordinates only)")
+        if cfg.constraint_space == "transformed" and not self._norm.is_identity:
+            raise ValueError(where + "constraint_space='transformed' is not supported for "
+                             "compact (sparse/INDEX_MAP) solves under normalization; use "
+                             "the IDENTITY projector for raw bounds on the transformed "
+                             "iterate")
+        lo, hi = _box_from_constraints(cfg.constraints, self.dim, self._dtype,
+                                       self._device)
+        box_lanes = []
+        for bi, idx in enumerate(self._proj_idx):
+            obs = idx >= 0
+            safe = torch.where(obs, idx, 0)
+            lo_c, hi_c = torch.where(obs, lo[safe], 0.0), torch.where(obs, hi[safe], 0.0)
+            if self._lane_norms is not None:  # original-space bounds -> solve space
+                f = self._lane_norms[bi][0].factors
+                lo_c, hi_c = lo_c / f, hi_c / f
+            box_lanes.append((lo_c, hi_c))
+        return None, box_lanes, torch.clamp(torch.zeros_like(lo), lo, hi)
+
+    def _bucket_norm(self, bucket_index: int):
+        """(context, intercept position) of a bucket's solves: the shared
+        context and the coordinate's intercept column, or the bucket's
+        per-lane rows and positions."""
+        if self._lane_norms is None:
+            return self._norm, self.config.intercept_index
+        return self._lane_norms[bucket_index]
+
+    def _solve_extras(self, bucket_index: int) -> dict:
+        """A bucket's context and box, for its lane solve."""
+        return dict(norm=self._bucket_norm(bucket_index)[0],
+                    box=self._box if self._box_lanes is None
+                    else self._box_lanes[bucket_index])
+
     def _warm_start(self, bucket_index: int, init: RandomEffectModel) -> Tensor:
         """[L, d_solve] start from a prior model's rows, gathered at each
         lane's compact columns where the bucket is compact (zeros for unknown
@@ -342,13 +465,18 @@ class RandomEffectCoordinate(Coordinate):
             idx = self._projections[bucket_index].indices
             w0 = np.where(known[:, None] & (idx >= 0),
                           w_stack[rows[:, None], np.where(idx >= 0, idx, 0)], 0.0)
-        # models are original-space, solves transformed
-        return self._norm.model_to_transformed_space(
-            _as_device(w0, self._dtype, self._device), self.config.intercept_index)
+        # models are original-space, solves transformed; under per-lane
+        # contexts the shift dot is the compact one (observed columns only),
+        # the exact inverse of the publish fold: the compact objective has no
+        # data term at the unobserved columns to cancel a full-width dot
+        norm, ii = self._bucket_norm(bucket_index)
+        return norm.model_to_transformed_space(_as_device(w0, self._dtype, self._device),
+                                               ii)
 
-    def _lanes_to_original(self, lanes: Tensor) -> Tensor:
+    def _lanes_to_original(self, lanes: Tensor, bucket_index: int) -> Tensor:
         """A bucket's transformed-space lane vectors [L, d] in original space."""
-        return self._norm.model_to_original_space(lanes, self.config.intercept_index)
+        norm, ii = self._bucket_norm(bucket_index)
+        return norm.model_to_original_space(lanes, ii)
 
     def _expand_compact_variances(self, v: Tensor, bucket_index: int,
                                   l2: Tensor) -> Tensor:
@@ -387,22 +515,23 @@ class RandomEffectCoordinate(Coordinate):
                                           dev["wt"], dev["l2"], kind)
             else:
                 batch = DenseBatch(x=dev["x"], y=dev["y"], offset=off, weight=dev["wt"])
-                res = self._solve_lanes(w0, batch, dev["l2"])
+                res = self._solve_lanes(w0, batch, dev["l2"], **self._solve_extras(bi))
                 w_lanes = res.w
                 v = compute_variances(LaneObjective(self._loss, dev["l2"], self._norm),
                                       res.w, batch, kind)
-            coeffs.append(self._lanes_to_original(w_lanes))
+            coeffs.append(self._lanes_to_original(w_lanes, bi))
             if v is not None:
                 if self._proj_idx is not None:
                     v = self._expand_compact_variances(v, bi, dev["l2"])
-                variances.append(self._lanes_to_original(v))
+                variances.append(self._lanes_to_original(v, bi))
             results.append(res)
-        # publish: lanes (back-projected where compact) scattered into the
-        # [E, d] stack on the device; the host copy is the model's, and the
-        # device stack becomes its scoring copy.  Variances are full width.
+        # publish: lanes (back-projected where compact, unobserved features
+        # at the box fill) scattered into the [E, d] stack on the device; the
+        # host copy is the model's, and the device stack becomes its scoring
+        # copy.  Variances are full width.
         num_e = len(self._slot_of)
         w_dev = publish_stack(coeffs, self._lane_slots, num_e, self.dim,
-                              self._projections)
+                              self._projections, fill=self._box_fill)
         w_stack = w_dev.cpu().numpy()
         var_stack = (publish_stack(variances, self._lane_slots, num_e, self.dim)
                      .cpu().numpy() if variances else None)

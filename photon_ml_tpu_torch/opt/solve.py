@@ -1,14 +1,16 @@
 """Solver factories: a GLMObjective and an optimizer bound into
 ``solve(w0, batch) -> SolverResult``.
 
-Port of ``make_solver`` in photon_ml_tpu/opt/solve.py for L-BFGS and TRON,
-with the default configuration chosen by optimizer.  TRON refuses L1 (a
-ValueError, as in the reference); the L1 regime (OWLQN) is a later slice and
-raises NotImplementedError naming its ROADMAP item.
+Port of ``make_solver`` in photon_ml_tpu/opt/solve.py, with the default
+configuration chosen by optimizer.  As in the reference, OWLQN runs for
+``OptimizerType.OWLQN`` and for L-BFGS with an L1 weight; TRON refuses L1,
+and TRON and the L1 regime refuse box constraints (ValueErrors).  OWLQN is
+written once, in the lane form: a single solve runs it as one lane.
 
 ``make_lane_solver`` is the random-effect form: the JAX package ``vmap``s the
 same solve over a bucket's lanes; here the lane-batched solvers take the
-bucket lanes-first with a per-lane L2 and a shared normalization context.
+bucket lanes-first with a per-lane L2 and, per call, a normalization context
+(shared, or per-lane factor and shift rows) and optionally a box.
 
 ``compute_variances`` is the reference's coefficient variances: SIMPLE is
 1 / diag(H) (a zero diagonal gives 0), not the inverse-Hessian diagonal;
@@ -28,7 +30,8 @@ from photon_ml_tpu_torch.core.losses import PointwiseLoss
 from photon_ml_tpu_torch.core.normalization import NormalizationContext, no_normalization
 from photon_ml_tpu_torch.core.objective import (GLMObjective, LaneObjective,
                                                 soa_hessian, soa_hessian_diag)
-from photon_ml_tpu_torch.opt.lbfgs import minimize_lbfgs, minimize_lbfgs_lanes
+from photon_ml_tpu_torch.opt.lbfgs import (Box, minimize_lbfgs, minimize_lbfgs_lanes,
+                                           minimize_owlqn_lanes)
 from photon_ml_tpu_torch.opt.tron import minimize_tron
 from photon_ml_tpu_torch.opt.types import SolverConfig, SolverResult
 from photon_ml_tpu_torch.types import OptimizerType, VarianceComputationType
@@ -38,16 +41,26 @@ Tensor = torch.Tensor
 
 
 def check_supported(optimizer: OptimizerType, l1: float) -> None:
-    """Refuse what the port does not carry: TRON with L1 is not an optimizer
-    (ValueError); OWLQN is not ported yet (NotImplementedError)."""
+    """The reference's refusals: TRON with L1, and an unknown optimizer."""
     if optimizer == OptimizerType.TRON and l1 > 0.0:
         raise ValueError("TRON does not support L1 regularization (reference parity)")
-    if optimizer == OptimizerType.OWLQN or l1 > 0.0:
-        raise NotImplementedError(
-            "L1 regularization / OWLQN is not ported yet: ROADMAP.md "
-            "'Modules still to port', item 3, opt/lbfgs.py OWLQN")
-    if optimizer not in (OptimizerType.LBFGS, OptimizerType.TRON):
+    if optimizer not in (OptimizerType.LBFGS, OptimizerType.TRON, OptimizerType.OWLQN):
         raise ValueError(f"unknown optimizer {optimizer!r}")
+
+
+def check_box_support(optimizer: OptimizerType, has_l1: bool) -> None:
+    """Box constraints are a projected-gradient L-BFGS feature; TRON and the
+    L1 / OWLQN regime refuse them."""
+    if optimizer == OptimizerType.TRON:
+        raise ValueError("TRON does not support box constraints")
+    if optimizer == OptimizerType.OWLQN or has_l1:
+        raise ValueError("OWLQN does not support box constraints")
+
+
+def _uses_owlqn(optimizer: OptimizerType, l1: float) -> bool:
+    """OWLQN is the solver for OWLQN, and for L-BFGS with an L1 weight."""
+    return optimizer == OptimizerType.OWLQN or (optimizer == OptimizerType.LBFGS
+                                                and l1 > 0.0)
 
 
 def default_config(optimizer: OptimizerType) -> SolverConfig:
@@ -55,54 +68,81 @@ def default_config(optimizer: OptimizerType) -> SolverConfig:
             else SolverConfig.lbfgs_default())
 
 
+def _one_lane(res: SolverResult) -> SolverResult:
+    """A one-lane solve's result as a single solve's."""
+    return SolverResult(w=res.w[0], value=res.value[0].item(),
+                        grad_norm=res.grad_norm[0].item(),
+                        iterations=int(res.iterations[0]), reason=int(res.reason[0]))
+
+
 def make_solver(objective: GLMObjective, optimizer: OptimizerType = OptimizerType.LBFGS,
-                config: Optional[SolverConfig] = None
-                ) -> Callable[[Tensor, DenseBatch], SolverResult]:
-    """Build solve(w0, batch) for one GLM coordinate."""
-    check_supported(optimizer, objective.reg.l1)
+                config: Optional[SolverConfig] = None, box: Box = None
+                ) -> Callable[[Tensor, Batch], SolverResult]:
+    """Build solve(w0, batch) for one GLM coordinate; ``box`` = (lower[d],
+    upper[d]) constrains an L-BFGS solve."""
+    l1 = objective.reg.l1
+    check_supported(optimizer, l1)
+    if box is not None:
+        check_box_support(optimizer, l1 > 0.0)
     config = config or default_config(optimizer)
 
-    if optimizer == OptimizerType.LBFGS:
-
-        def solve_lbfgs(w0: Tensor, batch: DenseBatch) -> SolverResult:
-            return minimize_lbfgs(lambda w: objective.value_and_grad(w, batch), w0,
-                                  config)
-
-        return solve_lbfgs
-
-    def solve_tron(w0: Tensor, batch: DenseBatch) -> SolverResult:
-        # TRON over one lane; the Hessian-vector products are the fused kernel's
+    # one lane over the objective as it is (a dense batch keeps its kernel)
+    def one_lane(batch: Batch):
         def value_and_grad(w):
             f, g = objective.value_and_grad(w[0], batch)
             return f.reshape(1), g[None]
 
-        res = minimize_tron(value_and_grad,
+        return value_and_grad
+
+    if _uses_owlqn(optimizer, l1):
+
+        def solve_owlqn(w0: Tensor, batch: Batch) -> SolverResult:
+            return _one_lane(minimize_owlqn_lanes(one_lane(batch), w0[None], l1, config))
+
+        return solve_owlqn
+
+    if optimizer == OptimizerType.LBFGS:
+
+        def solve_lbfgs(w0: Tensor, batch: Batch) -> SolverResult:
+            return minimize_lbfgs(lambda w: objective.value_and_grad(w, batch), w0,
+                                  config, box=box)
+
+        return solve_lbfgs
+
+    def solve_tron(w0: Tensor, batch: Batch) -> SolverResult:
+        # TRON over one lane; the Hessian-vector products are the fused kernel's
+        res = minimize_tron(one_lane(batch),
                             lambda w, v: objective.hvp(w[0], batch, v[0])[None],
                             w0[None], config)
-        return SolverResult(w=res.w[0], value=res.value[0].item(),
-                            grad_norm=res.grad_norm[0].item(),
-                            iterations=int(res.iterations[0]), reason=int(res.reason[0]))
+        return _one_lane(res)
 
     return solve_tron
 
 
 def make_lane_solver(loss: PointwiseLoss, optimizer: OptimizerType,
-                     config: Optional[SolverConfig] = None,
-                     norm: Optional[NormalizationContext] = None
-                     ) -> Callable[[Tensor, DenseBatch, Tensor], SolverResult]:
-    """Build solve(w0 [L, d], lanes-first batch, l2 [L]) for a bucket of
-    random-effect lanes, one GLM per lane, in the transformed space of
-    ``norm`` (shared by every lane)."""
-    check_supported(optimizer, 0.0)
+                     config: Optional[SolverConfig] = None, l1: float = 0.0
+                     ) -> Callable[..., SolverResult]:
+    """Build solve(w0 [L, d], lanes-first batch, l2 [L], norm=, box=) for a
+    bucket of random-effect lanes, one GLM per lane with L1 weight ``l1``, in
+    the transformed space of ``norm``: one context shared by every lane, or
+    per-lane factor and shift rows [L, d] (None: the identity).  ``box``
+    bounds every lane ([d]) or each lane ([L, d])."""
+    check_supported(optimizer, l1)
     config = config or default_config(optimizer)
-    norm = norm or no_normalization()
+    owlqn = _uses_owlqn(optimizer, l1)
 
-    def solve_lanes(w0: Tensor, batch: DenseBatch, l2: Tensor) -> SolverResult:
-        obj = LaneObjective(loss, l2, norm)
+    def solve_lanes(w0: Tensor, batch: DenseBatch, l2: Tensor,
+                    norm: Optional[NormalizationContext] = None,
+                    box: Box = None) -> SolverResult:
+        if box is not None:
+            check_box_support(optimizer, l1 > 0.0)
+        obj = LaneObjective(loss, l2, norm or no_normalization())
         vg = lambda w: obj.value_and_grad(w, batch)
+        if owlqn:
+            return minimize_owlqn_lanes(vg, w0, l1, config)
         if optimizer == OptimizerType.TRON:
             return minimize_tron(vg, lambda w, v: obj.hvp(w, batch, v), w0, config)
-        return minimize_lbfgs_lanes(vg, w0, config)
+        return minimize_lbfgs_lanes(vg, w0, config, box=box)
 
     return solve_lanes
 

@@ -188,13 +188,16 @@ def slots_from(slot_of: Dict[int, int], entity_ids: np.ndarray) -> np.ndarray:
 
 def publish_stack(coeffs: Sequence[Tensor], lane_slots: Sequence[Tensor],
                   num_entities: int, dim: int,
-                  projections: Optional[Sequence] = None) -> Tensor:
+                  projections: Optional[Sequence] = None,
+                  fill: Optional[Tensor] = None) -> Tensor:
     """The [num_entities, dim] coefficient stack, built on the coefficients'
     device: lane l of bucket b goes to row ``lane_slots[b][l]``; a padding
     lane (slot -1) is dropped.  With
     ``projections`` (one ``BucketProjection`` per bucket), each lane's
     compact coefficients scatter to their full-width columns and every other
-    column stays 0."""
+    column takes ``fill`` ([dim]; 0 without it), except in a lane that
+    observes no column, which stays 0.  Padded compact slots are dropped, so
+    they never overwrite an observed column."""
     dev = coeffs[0].device if coeffs else torch.device("cpu")
     dt = coeffs[0].dtype if coeffs else torch.float32
     out = torch.zeros((num_entities + 1, dim), dtype=dt, device=dev)  # last: sink
@@ -206,6 +209,9 @@ def publish_stack(coeffs: Sequence[Tensor], lane_slots: Sequence[Tensor],
             continue
         idx = torch.as_tensor(projections[b].indices, device=dev).long()
         keep = idx >= 0
+        if fill is not None:
+            observes = keep.any(dim=1)
+            out[rows[observes]] = fill.to(dt)
         out[rows[:, None].expand_as(idx)[keep], idx[keep]] = c[keep]
     return out[:num_entities]
 

@@ -88,17 +88,38 @@ def test_lbfgs_stationary_start_and_max_iters():
 
 
 def test_make_solver_refuses_out_of_slice():
-    """OWLQN (explicit, or implied by L1 under L-BFGS) is not ported yet;
-    TRON with L1 is no optimizer at all (ValueError, as in the reference)."""
+    """The reference's dispatch and its errors: L1 under L-BFGS, and OWLQN,
+    solve with OWLQN (held against the JAX ``make_solver``, coefficients rtol
+    1e-8 and the same iterations and reason); TRON with L1, and TRON or the
+    L1 regime with a box, are ValueErrors."""
+    from photon_ml_tpu.opt.solve import make_solver as j_make_solver
+    from photon_ml_tpu.types import OptimizerType as JOptimizerType
+
+    x, y, off, wt = _glm(300, 12, seed=5, loss="logistic")
+    jb, tb = j_dense_batch(x, y, off, wt), t_dense_batch(x, y, off, wt)
+    cfg = dict(max_iters=40, tolerance=1e-9)
+    for opt, reg in ((OptimizerType.LBFGS, dict(l1=3.0, l2=0.1)),
+                     (OptimizerType.OWLQN, dict(l1=3.0)),
+                     (OptimizerType.OWLQN, dict(l2=0.5))):
+        jres = jax.jit(lambda w: j_make_solver(
+            JObjective(loss=jl.logistic_loss, reg=JReg(**reg)), JOptimizerType(opt.value),
+            jtypes.SolverConfig(**cfg))(w, jb))(jnp.zeros(12))
+        tres = make_solver(TObjective(loss=tl.logistic_loss, reg=TReg(**reg)), opt,
+                           ttypes.SolverConfig(**cfg))(torch.zeros(12, dtype=torch.float64),
+                                                       tb)
+        assert _rel(tres.w, jres.w) <= 1e-8, (opt, reg)
+        assert (tres.iterations, tres.reason) == (int(jres.iterations), int(jres.reason))
+        np.testing.assert_array_equal(tres.w.numpy() == 0, np.asarray(jres.w) == 0)
     l1 = TObjective(loss=tl.logistic_loss, reg=TReg(l1=0.1))
-    with pytest.raises(NotImplementedError, match="OWLQN"):
-        make_solver(l1)
-    with pytest.raises(NotImplementedError, match="OWLQN"):
-        make_solver(TObjective(loss=tl.logistic_loss), OptimizerType.OWLQN)
+    box = (torch.zeros(12, dtype=torch.float64), torch.ones(12, dtype=torch.float64))
     with pytest.raises(ValueError, match="TRON does not support L1"):
         make_solver(l1, OptimizerType.TRON)
-
-
+    with pytest.raises(ValueError, match="TRON does not support box"):
+        make_solver(TObjective(loss=tl.logistic_loss), OptimizerType.TRON, box=box)
+    for opt, obj in ((OptimizerType.LBFGS, l1),
+                     (OptimizerType.OWLQN, TObjective(loss=tl.logistic_loss))):
+        with pytest.raises(ValueError, match="OWLQN does not support box"):
+            make_solver(obj, opt, box=box)
 @pytest.mark.parametrize("d,loss", [(1, "logistic"), (4, "logistic"), (4, "poisson"),
                                     (7, "squared")])
 def test_solve_newton_soa_matches_jax(d, loss):

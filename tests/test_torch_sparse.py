@@ -263,19 +263,19 @@ def test_sparse_fixed_effect_fit_matches_jax(optimizer):
     assert tres.history.steps[0]["solver_iterations"] > 1
 
 
-def _re_pair(shard_j, shard_t, uids, y, **cfg):
+def _re_pair(shard_j, shard_t, uids, y, jnorm=None, tnorm=None, **cfg):
     s = dict(max_iters=25)
     jc = j_build_coordinate(
         "u", JData(y=y, features={"u": shard_j}, id_tags={"userId": uids}),
         JRandom(random_effect_type="userId", feature_shard="u", solver=JSolver(**s),
                 reg=JReg(l2=1.0), **{k: (JProj(v.value) if k == "projector" else v)
                                      for k, v in cfg.items()}),
-        JTask.LOGISTIC_REGRESSION, dtype=np.float64)
+        JTask.LOGISTIC_REGRESSION, dtype=np.float64, norm=jnorm)
     tc = build_coordinate(
         "u", GameData(y=y, features={"u": shard_t}, id_tags={"userId": uids}),
         RandomEffectConfig(random_effect_type="userId", feature_shard="u",
                            solver=SolverConfig(**s), reg=TReg(l2=1.0), **cfg),
-        TaskType.LOGISTIC_REGRESSION, dtype=torch.float64, device="cpu")
+        TaskType.LOGISTIC_REGRESSION, dtype=torch.float64, device="cpu", norm=tnorm)
     return jc, tc
 
 
@@ -331,8 +331,10 @@ def test_index_map_dense_random_effect_fit_matches_jax():
 
 
 def test_sparse_random_effect_refusals():
-    """RANDOM, normalization and box constraints on a sparse shard raise
-    NotImplementedError naming their ROADMAP items."""
+    """RANDOM on a sparse shard raises NotImplementedError naming its
+    ROADMAP item; a scaling context (per-lane rows on the compact lanes) and
+    box constraints now fit, held against the JAX coordinate within
+    FIT_RTOL."""
     idx, vals, uids, y = _re_data(2, n=256, dim=64, k=4, n_users=8)
     data = GameData(y=y, features={"u": SparseShard(indices=idx, values=vals, dim=64)},
                     id_tags={"userId": uids})
@@ -343,12 +345,17 @@ def test_sparse_random_effect_refusals():
 
     with pytest.raises(NotImplementedError, match=r"random-effect projectors \(RANDOM\)"):
         build(projector=ProjectorType.RANDOM)
-    with pytest.raises(NotImplementedError, match="normalization under compaction"):
-        build_coordinate("c", data, RandomEffectConfig("userId", "u"),
-                         TaskType.LOGISTIC_REGRESSION, device="cpu",
-                         norm=TNorm(factors=torch.full((64,), 0.5), shifts=None))
-    with pytest.raises(NotImplementedError, match="box constraints"):
-        build(constraints=((1, -1.0, 1.0),))
+    half = np.full(64, 0.5)
+    for cfg, jnorm, tnorm in (
+            (dict(), JNorm(factors=jnp.asarray(half), shifts=None),
+             TNorm(factors=torch.from_numpy(half), shifts=None)),
+            (dict(constraints=((1, -0.1, 0.1), (2, 0.05, 1.0))), None, None)):
+        jc, tc = _re_pair(JShard(indices=idx, values=vals, dim=64),
+                          SparseShard(indices=idx, values=vals, dim=64), uids, y,
+                          jnorm=jnorm, tnorm=tnorm, **cfg)
+        jm, _ = jc.update(np.zeros(len(y)))
+        tm, _ = tc.update(torch.zeros(len(y), dtype=torch.float64))
+        assert _rel(tm.w_stack, jm.w_stack) <= FIT_RTOL
     assert build().buckets.num_entities == 8  # the plain sparse coordinate builds
 
 

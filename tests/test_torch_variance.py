@@ -553,38 +553,47 @@ def _assert_names_roadmap_item(err: BaseException) -> None:
 
 
 def test_remaining_refusals_name_an_existing_roadmap_item():
-    """L1 / OWLQN, box constraints, the RANDOM projector and normalization
-    under compaction still raise NotImplementedError, each naming an item
-    of ROADMAP.md's 'Modules still to port' that exists."""
+    """The port's own refusal, the RANDOM projector, raises
+    NotImplementedError naming an item of ROADMAP.md's 'Modules still to
+    port' that exists.  L1 / OWLQN, box constraints and normalization under
+    compaction now build, as in the reference, and so do their variances
+    except the reference's own NotImplementedError: variances under
+    compaction with a per-entity context."""
     g = _glmix_data(29, d_u=6)
     data = GameData(y=g["y"], features={"g": g["xg"], "u": g["u"]},
                     id_tags={"userId": g["uids"]})
     task = TaskType.LOGISTIC_REGRESSION
     ctx = tn.NormalizationContext(factors=torch.full((6,), 0.5), shifts=None)
-    cases = [
-        ("f", FixedEffectConfig("g", optimizer=OptimizerType.OWLQN), None, "OWLQN"),
-        ("f", FixedEffectConfig("g", reg=TReg(l1=0.1)), None, "OWLQN"),
-        ("u", RandomEffectConfig("userId", "u", reg=TReg(l1=0.1)), None, "OWLQN"),
-        ("f", FixedEffectConfig("g", constraints=((1, -1.0, 1.0),)), None,
-         "box constraints"),
-        ("u", RandomEffectConfig("userId", "u", constraints=((1, -1.0, 1.0),)), None,
-         "box constraints"),
-        ("u", RandomEffectConfig("userId", "u", projector=ProjectorType.RANDOM), None,
-         "RANDOM"),
-        ("u", RandomEffectConfig("userId", "u", projector=ProjectorType.INDEX_MAP), ctx,
-         "normalization under compaction"),
+    with pytest.raises(NotImplementedError, match="RANDOM") as err:
+        build_coordinate("u", data, RandomEffectConfig("userId", "u",
+                                                       projector=ProjectorType.RANDOM),
+                         task, device="cpu")
+    _assert_names_roadmap_item(err.value)
+    simple = VarianceComputationType.SIMPLE
+    builds = [
+        ("f", FixedEffectConfig("g", optimizer=OptimizerType.OWLQN, variance=simple), None),
+        ("f", FixedEffectConfig("g", reg=TReg(l1=0.1), variance=simple), None),
+        ("u", RandomEffectConfig("userId", "u", reg=TReg(l1=0.1), variance=simple), None),
+        ("f", FixedEffectConfig("g", constraints=((1, -1.0, 1.0),), variance=simple), None),
+        ("u", RandomEffectConfig("userId", "u", constraints=((1, -1.0, 1.0),),
+                                 variance=simple), None),
+        ("u", RandomEffectConfig("userId", "u", projector=ProjectorType.INDEX_MAP), ctx),
     ]
-    for cid, cfg, norm, what in cases:
-        with pytest.raises(NotImplementedError, match=what) as err:
-            build_coordinate(cid, data, cfg, task, device="cpu", norm=norm)
-        _assert_names_roadmap_item(err.value)
+    for cid, cfg, norm in builds:
+        coord = build_coordinate(cid, data, cfg, task, device="cpu", norm=norm)
+        model, _ = coord.update(torch.zeros(len(g["y"])))
+        var = (model.coefficients.variances if cid == "f" else model.variances)
+        assert (var is None) == (cfg.variance == VarianceComputationType.NONE)
     sparse = GameData(y=g["y"], features={"s": SparseShard(
         indices=np.zeros((len(g["y"]), 1), np.int32), values=np.ones((len(g["y"]), 1)),
         dim=6)}, id_tags={"userId": g["uids"]})
-    with pytest.raises(NotImplementedError, match="normalization under compaction") as err:
-        build_coordinate("s", sparse, RandomEffectConfig("userId", "s"), task, device="cpu",
-                         norm=ctx)
-    _assert_names_roadmap_item(err.value)
+    build_coordinate("s", sparse, RandomEffectConfig("userId", "s"), task, device="cpu",
+                     norm=ctx)
+    for d, cfg in ((data, RandomEffectConfig("userId", "u", projector=ProjectorType.INDEX_MAP,
+                                             variance=simple)),
+                   (sparse, RandomEffectConfig("userId", "s", variance=simple))):
+        with pytest.raises(NotImplementedError, match="variances under compaction"):
+            build_coordinate("c", d, cfg, task, device="cpu", norm=ctx)
 
 
 def test_variance_and_normalization_value_errors():
