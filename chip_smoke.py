@@ -35,7 +35,27 @@ Phases, each printing its result and wall time on its own line:
    AUC, with both kernels' launch counts (reset just before, read just
    after; each must be > 0) and AUC >= 0.75;
 6. the same path at a reduced size on the card and on the CPU (the CPU run
-   uses the plain versions), compared within a stated float32 tolerance;
+   uses the plain versions), compared within a stated float32 tolerance, and
+   the last three points of phase 19's grid (rebound coordinates, the fixed
+   effect down-sampled from the same host draws) likewise;
+19. (run after phase 6, on phase 5's data) glmix_chip-grid at full width:
+    one ``GameEstimator.fit`` over five configurations, fixed and per-user
+    L2 in descending order and then the fixed effect down-sampled at 0.5,
+    on the first 56 rows of every user; the last 8 of every user (1,048,576
+    rows, gathered on the card) are the validation data (auc,
+    logistic_loss), so they read both coordinates; each
+    coordinate built once for the whole grid (a wrapper around the
+    estimator's ``build_coordinate`` counts), later points rebound; per
+    point its construction and fit time, solver iterations, kernels 1 and 3
+    launches (> 0), training AUC against the Bayes AUC and held-out metrics;
+    ``GameEstimator.best`` at the argmax of the held-out AUCs; the last point
+    refit from the same warm start on freshly built coordinates, bitwise
+    equal to the rebound fit;
+20. glmix_chip-reg-path at full width: ``train_glm_reg_path`` over phase
+    19's training rows of the fixed design on the card at four L2 weights, per
+    weight its time, iterations and kernel-1 launches (> 0) and its float64
+    gradient norm at the solution against the norm at w = 0;
+    ``select_best_glm`` on the held-out rows at the argmax of their AUCs;
 7. glmix2 at full width under TRON on both coordinates (2048 users x 256
    rows, 256 fixed / 16 per-user features; the per-user lanes are outside
    the SoA gate and run the lane-batched TRON): fit, score, AUC against the
@@ -216,6 +236,15 @@ EN_BOX_FEATURES = 8  # glmix2-en-box: per-user features 0-7 bounded to [0, inf)
 BOX_BIND_SHARE = 0.01  # at least this share of the bounded coefficients at 0
 BOX_NEG_SLACK = 1e-6  # a bounded published coefficient w = f·w' >= -1e-6·f
 FOLD_SEED = 8  # 17(b): the per-user shifts and each user's unobserved columns
+GRID_HELD_OUT_PER_USER = 8  # glmix_chip-grid: the last rows of every user (of 64)
+# are the validation data (1,048,576 rows); the rest train
+# (fixed, per-user) L2 of the grid's points.  The fixed effect's data
+# curvature is ~1e6 a coefficient (7.3M rows), so its weights reach that
+# scale for its solution to move
+GRID_L2 = ((1e5, 2.0), (1e4, 1.0), (1e3, 0.5), (1e2, 0.25))
+GRID_DOWN_SAMPLING = 0.5  # the grid's last point: the fourth, fixed effect down-sampled
+REG_PATH_WEIGHTS = (1e6, 1e5, 1e4, 1e3)  # glmix_chip-reg-path's L2 weights
+GRADIENT_CHUNK_ROWS = 1 << 18  # float64 gradients over the design, a chunk at a time
 FUSED_CASES = [(MAIN_N, MAIN_D, "float32"), (GLMIX2_N, GLMIX2_D, "float32"),
                (GLMIX2_N, NORM_VAR_II + 1, "float32"),  # glmix2-norm-var: odd rows
                (GLMIX3_N, GLMIX3_D, "float32"),  # glmix3's fixed effect
@@ -300,33 +329,43 @@ def settle(fn, seconds: float = 0.3) -> None:
         torch.cuda.synchronize()
 
 
+PROFILE_ATTEMPTS = 3  # traces of one measurement before it fails: a trace can
+# come back without the device records of a kernel the calls did launch
+# (seen once for the 2 us partials' reduction)
+
+
 def profiled(fn, reps: int, kernels) -> dict:
     """``fn``'s device time alone, from a ``torch.profiler`` trace of
     ``reps`` calls after a warm-up call: the summed CUDA time of every kernel
     whose name contains one of ``kernels``, over ``reps`` (ms).  Also the
     host calls per ``fn`` call that would hold the card back inside a
-    wrapper: stream synchronizations and host-to-device copies."""
+    wrapper: stream synchronizations and host-to-device copies.  A trace
+    that shows no device time for ``kernels`` is taken again, up to
+    PROFILE_ATTEMPTS traces in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev_us, syncs, htod = 0.0, 0, 0
-    for e in prof.key_averages():
-        if any(k in e.key for k in kernels):
-            dev_us += getattr(e, "self_device_time_total", 0) or e.self_cuda_time_total
-        if e.key == "cudaStreamSynchronize":
-            syncs += e.count
-        if "HtoD" in e.key:
-            htod += e.count
-    if dev_us <= 0:
-        raise AssertionError(f"the profiler trace shows no device time for {kernels}")
-    return dict(device_ms=dev_us / 1e3 / reps, syncs_per_call=syncs / reps,
-                htod_per_call=htod / reps)
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev_us, syncs, htod = 0.0, 0, 0
+        for e in prof.key_averages():
+            if any(k in e.key for k in kernels):
+                dev_us += getattr(e, "self_device_time_total", 0) or e.self_cuda_time_total
+            if e.key == "cudaStreamSynchronize":
+                syncs += e.count
+            if "HtoD" in e.key:
+                htod += e.count
+        if dev_us > 0:
+            return dict(device_ms=dev_us / 1e3 / reps, syncs_per_call=syncs / reps,
+                        htod_per_call=htod / reps)
+        log(f"profiler trace {attempt} of {PROFILE_ATTEMPTS} shows no device time for "
+            f"{kernels}")
+    raise AssertionError(f"the profiler trace shows no device time for {kernels}")
 
 
 class Phase:
@@ -766,11 +805,7 @@ def _record_launches(path: str, kernels: dict, stats: dict, required) -> dict:
     """Each kernel's launches since ``_zero_launches``, recorded under
     ``path``; each kernel in ``required`` must have launched."""
     launches = {name: k.launches for name, k in kernels.items()}
-    for name in required:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the {path} path")
-    for name, v in launches.items():
-        stats.setdefault(name, {}).setdefault("launches_by_path", {})[path] = v
+    _record_path_launches(path, launches, stats, required)
     return launches
 
 
@@ -927,23 +962,7 @@ def _compare_fits(label, data_gpu, data_cpu, config, coords, norms=(None, None),
     if check_card is not None:
         check_card(rg)
     rc, sc, auc_c, tc, _ = _fit_and_score(data_cpu, "cpu", config, norms[1])
-    fg, fc = rg.model["fixed"].coefficients, rc.model["fixed"].coefficients
-    errs = {"fixed": rel_err(fg.means, fc.means)}
-    if (fg.variances is None) != (fc.variances is None):
-        raise AssertionError(f"{label}: only one of the fits has fixed-effect variances")
-    if fc.variances is not None:
-        errs["fixed variances"] = rel_err(fg.variances, fc.variances)
-    for cid in coords:
-        mg, mc = rg.model[cid], rc.model[cid]
-        if mg.slot_of != mc.slot_of:
-            raise AssertionError(f"{label}: card and CPU {cid} models have different "
-                                 "entities")
-        on_card = lambda a: torch.as_tensor(a, device="cuda")
-        errs[cid] = rel_err(on_card(mg.w_stack), on_card(mc.w_stack))
-        if (mg.variances is None) != (mc.variances is None):
-            raise AssertionError(f"{label}: only one of the fits has {cid} variances")
-        if mc.variances is not None:
-            errs[f"{cid} variances"] = rel_err(on_card(mg.variances), on_card(mc.variances))
+    errs = _model_errors(label, rg.model, rc.model, coords)
     errs["scores"] = rel_err(sg.cpu(), sc)
     ok = max(errs.values()) <= F32_PATH_RTOL and abs(auc_g - auc_c) <= 1e-3
     log(f"card vs CPU, {label}: fit {tg:.2f} s vs {tc:.2f} s; max rel diff "
@@ -956,6 +975,32 @@ def _compare_fits(label, data_gpu, data_cpu, config, coords, norms=(None, None),
     return rg, rc
 
 
+def _model_errors(label, mg, mc, coords) -> dict:
+    """Relative differences of a card model from a CPU model: fixed means,
+    each random-effect stack in ``coords`` (compared on the card), and their
+    variances where the models have them."""
+    import torch
+
+    fg, fc = mg["fixed"].coefficients, mc["fixed"].coefficients
+    errs = {"fixed": rel_err(fg.means, fc.means)}
+    if (fg.variances is None) != (fc.variances is None):
+        raise AssertionError(f"{label}: only one of the fits has fixed-effect variances")
+    if fc.variances is not None:
+        errs["fixed variances"] = rel_err(fg.variances, fc.variances)
+    on_card = lambda a: torch.as_tensor(a, device="cuda")
+    for cid in coords:
+        g, c = mg[cid], mc[cid]
+        if g.slot_of != c.slot_of:
+            raise AssertionError(f"{label}: card and CPU {cid} models have different "
+                                 "entities")
+        errs[cid] = rel_err(on_card(g.w_stack), on_card(c.w_stack))
+        if (g.variances is None) != (c.variances is None):
+            raise AssertionError(f"{label}: only one of the fits has {cid} variances")
+        if c.variances is not None:
+            errs[f"{cid} variances"] = rel_err(on_card(g.variances), on_card(c.variances))
+    return errs
+
+
 def phase_glmix2_card_vs_cpu():
     from photon_ml_tpu_torch.data.synthetic import synth_glmix
     from photon_ml_tpu_torch.types import OptimizerType
@@ -963,6 +1008,55 @@ def phase_glmix2_card_vs_cpu():
     data = _baseline_data(synth_glmix(REDUCED_GLMIX2_SCALE, three=False))
     _compare_fits(f"glmix2-TRON at scale {REDUCED_GLMIX2_SCALE} ({data.num_samples} rows)",
                   data, data, _baseline_config(False, OptimizerType.TRON), ["per-user"])
+
+
+def _grid_configs():
+    """glmix_chip-grid: ``_glmix_config`` at each (fixed, per-user) L2 of
+    GRID_L2, in descending order, then the last again with the fixed effect
+    down-sampled at GRID_DOWN_SAMPLING."""
+    import dataclasses
+
+    from photon_ml_tpu_torch.core.regularization import Regularization
+
+    base = _glmix_config()
+
+    def point(fixed_l2, user_l2, rate=1.0):
+        c = base.coordinates
+        return dataclasses.replace(base, coordinates={
+            "fixed": dataclasses.replace(c["fixed"], reg=Regularization(l2=fixed_l2),
+                                         down_sampling_rate=rate),
+            "per-user": dataclasses.replace(c["per-user"], reg=Regularization(l2=user_l2))})
+
+    return [point(f, u) for f, u in GRID_L2] + [point(*GRID_L2[-1], GRID_DOWN_SAMPLING)]
+
+
+def _compare_grids(label, data_gpu, data_cpu, configs, coords):
+    """One ``GameEstimator.fit`` over ``configs`` on the card and one on the
+    CPU: every grid point's models and scores within F32_PATH_RTOL."""
+    import torch
+
+    from photon_ml_tpu_torch.game import GameEstimator
+
+    t0 = time.perf_counter()
+    rg = GameEstimator(device="cuda").fit(data_gpu, configs)
+    torch.cuda.synchronize()
+    tg, t0 = time.perf_counter() - t0, time.perf_counter()
+    rc = GameEstimator(device="cpu").fit(data_cpu, configs)
+    tc = time.perf_counter() - t0
+    worst = []
+    for i, (a, b) in enumerate(zip(rg, rc)):
+        errs = _model_errors(f"{label}, point {i}", a.model, b.model, coords)
+        errs["scores"] = rel_err(a.model.score(data_gpu, device="cuda").cpu(),
+                                 b.model.score(data_cpu, device="cpu"))
+        worst.append(max(errs.values()))
+    ok = max(worst) <= F32_PATH_RTOL
+    log(f"card vs CPU, {label}: grid of {len(configs)} in {tg:.2f} s vs {tc:.2f} s; max "
+        f"rel diff per point (coefficients and scores) "
+        + ", ".join(f"{w:.2e}" for w in worst)
+        + f" (tol {F32_PATH_RTOL:g}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{label}: card and CPU grids disagree beyond the float32 "
+                             "tolerance")
 
 
 def phase_card_vs_cpu(host, xg):
@@ -977,6 +1071,9 @@ def phase_card_vs_cpu(host, xg):
     cpu = GameData(features={"g": xg[:m].cpu(), "u": host["xu"][:m]}, **parts)
     label = f"glmix_chip at {REDUCED_USERS} users x {host['per_user']} rows ({m} rows)"
     _compare_fits(label, gpu, cpu, _glmix_config(), ["per-user"])
+    # the grid's last three points: rebinds, and the down-sampled fixed effect
+    # (the same host draws on both devices)
+    _compare_grids(label, gpu, cpu, _grid_configs()[-3:], ["per-user"])
     # phase 16 (c) fits these rows again: a copy of its own, since the slice
     # above is a view that would keep the whole 17 GB design on the card
     gpu = GameData(features={"g": xg[:m].clone(), "u": host["xu"][:m]}, **parts)
@@ -2285,6 +2382,252 @@ def phase_glmix2_en_box(stats: dict):
     stats["glmix2_en_box"]["card_vs_cpu_s"] = time.perf_counter() - t0
 
 
+def _launches_since(kernels: dict, before: dict) -> dict:
+    return {name: k.launches - before[name] for name, k in kernels.items()}
+
+
+def _record_path_launches(path: str, launches: dict, stats: dict, required) -> None:
+    """``launches`` of one part of a main path, recorded under ``path``;
+    each kernel in ``required`` must have launched."""
+    for name in required:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the {path} path")
+    for name, v in launches.items():
+        stats.setdefault(name, {}).setdefault("launches_by_path", {})[path] = v
+
+
+def _per_user_split(host, xg):
+    """glmix_chip-grid's data: the last GRID_HELD_OUT_PER_USER rows of every
+    user (a user's rows are contiguous) validate and the rest train, as two
+    dicts of y, uids, xu, logits (host) and xg (gathered on the card)."""
+    users, per = host["users"], host["per_user"]
+    k = per - GRID_HELD_OUT_PER_USER
+    parts = ({}, {})
+    for key in ("y", "uids", "xu", "logits", "xg"):
+        a = xg if key == "xg" else host[key]
+        by_user = a.reshape(users, per, *a.shape[1:])
+        for part, rows in zip(parts, (by_user[:, :k], by_user[:, k:])):
+            part[key] = rows.reshape(-1, *a.shape[1:])  # a contiguous copy
+    return parts
+
+
+def phase_glmix_chip_grid(stats: dict, train: dict, val: dict):
+    """glmix_chip-grid at full width: one ``GameEstimator.fit`` over the grid
+    of ``_grid_configs`` on ``train`` (``_per_user_split``), with validation
+    on ``val`` (auc, logistic_loss); then ``best``.  Gates: one
+    build per coordinate for the whole grid (a wrapper around the
+    estimator's ``build_coordinate``), kernels 1 and 3 launched at every
+    point, every point's training AUC against the Bayes AUC, ``best`` at the
+    argmax of the held-out AUCs, and the last point refit from the same warm
+    start on freshly built coordinates bitwise equal to the rebound fit."""
+    import numpy as np
+    import torch
+
+    import photon_ml_tpu_torch.game.estimator as est_mod
+    from photon_ml_tpu_torch.evaluation.evaluator import EvaluationSuite
+    from photon_ml_tpu_torch.evaluation.metrics import auc_roc
+    from photon_ml_tpu_torch.game import GameData, GameEstimator
+    from photon_ml_tpu_torch.game.coordinate import build_coordinate
+    from photon_ml_tpu_torch.game.descent import CoordinateDescent
+
+    def game_data(part):
+        return GameData(y=part["y"], features={"g": part["xg"], "u": part["xu"]},
+                        id_tags={"userId": part["uids"]})
+
+    m, n_val = len(train["y"]), len(val["y"])
+    bayes = _bayes_auc(train)
+    train, val = game_data(train), game_data(val)
+    suite = EvaluationSuite.from_specs(["auc", "logistic_loss"])
+    configs = _grid_configs()
+    built, points = [], []
+    real_build, real_run = est_mod.build_coordinate, CoordinateDescent.run
+    kernels = _zero_launches()
+
+    def counting_build(cid, *args, **kw):
+        built.append(cid)
+        return real_build(cid, *args, **kw)
+
+    def timed_run(self, *args, **kw):
+        # one grid point's descent: its wall time and kernel launches
+        torch.cuda.synchronize()
+        before = {name: k.launches for name, k in kernels.items()}
+        t0 = time.perf_counter()
+        out = real_run(self, *args, **kw)
+        torch.cuda.synchronize()
+        points.append(dict(start=t0, end=time.perf_counter(),
+                           launches=_launches_since(kernels, before)))
+        return out
+
+    est_mod.build_coordinate, CoordinateDescent.run = counting_build, timed_run
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t_start = time.perf_counter()
+        est = GameEstimator(device="cuda", validation_suite=suite)
+        results = est.fit(train, configs, validation_data=val)
+        torch.cuda.synchronize()
+        t_grid = time.perf_counter() - t_start
+    finally:
+        est_mod.build_coordinate, CoordinateDescent.run = real_build, real_run
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if built != ["fixed", "per-user"]:
+        raise AssertionError(f"glmix_chip-grid built {built}, not one of each coordinate")
+
+    y = torch.as_tensor(train.y, device="cuda").double()
+    rows, prev_end = [], t_start
+    for i, (r, p) in enumerate(zip(results, points)):
+        _record_path_launches(f"glmix_chip_grid_{i}", p["launches"], stats,
+                              ("fused_value_and_grad", "newton_step"))
+        scores = r.model.score(train, device="cuda")
+        if not bool(torch.isfinite(scores).all()) or scores.shape != (m,):
+            raise AssertionError(f"glmix_chip-grid point {i}: scores not finite of shape [n]")
+        auc = float(auc_roc(scores, y, torch.ones_like(y)))
+        _check_bayes(f"glmix_chip-grid point {i}", auc, bayes)
+        fixed = r.config.coordinates["fixed"]
+        rows.append(dict(
+            fixed_l2=fixed.reg.l2, user_l2=r.config.coordinates["per-user"].reg.l2,
+            down_sampling_rate=fixed.down_sampling_rate, build_s=p["start"] - prev_end,
+            fit_s=p["end"] - p["start"], train_auc=auc, held_out=r.evaluation.values,
+            solver_iterations=[st["solver_iterations"] for st in r.history.steps],
+            launches={k: v for k, v in p["launches"].items() if v}))
+        prev_end = p["end"]
+        log(f"glmix_chip-grid point {i}: L2 fixed {rows[-1]['fixed_l2']:g} / per-user "
+            f"{rows[-1]['user_l2']:g}, fixed down-sampling {fixed.down_sampling_rate:g}: "
+            f"construction {rows[-1]['build_s']:.3f} s, fit {rows[-1]['fit_s']:.3f} s, "
+            f"solver iterations {rows[-1]['solver_iterations']}, launches "
+            f"{rows[-1]['launches']}, training AUC {auc:.4f}, held-out "
+            + ", ".join(f"{k} {v:.6f}" for k, v in r.evaluation.values.items()))
+    held = [r.evaluation.values["auc"] for r in results]
+    pick = results.index(est.best(results))
+    ok = pick == int(np.argmax(held))
+    log(f"glmix_chip-grid: {len(configs)} points over {m} training rows ({n_val} "
+        f"held out) in {t_grid:.2f} s, coordinates built {built}; best point {pick}, "
+        f"argmax of the held-out AUCs {int(np.argmax(held))} {'ok' if ok else 'FAILED'}; "
+        f"peak device memory {peak:.2f} GB")
+    if not ok:
+        raise AssertionError("glmix_chip-grid: best is not the argmax of the held-out AUCs")
+
+    # the last point again, from the same warm start, on fresh coordinates
+    last = configs[-1]
+    t0 = time.perf_counter()
+    coords = {cid: build_coordinate(cid, train, c, last.task, device="cuda")
+              for cid, c in last.coordinates.items()}
+    fresh, _, _ = CoordinateDescent(coords, order=list(last.coordinates),
+                                    num_iterations=last.num_outer_iterations,
+                                    validation=(val, suite)).run(
+        torch.device("cuda"), initial=results[-2].model, seed=0)
+    torch.cuda.synchronize()
+    t_fresh = time.perf_counter() - t0
+    del coords
+    rebound = results[-1].model
+    same = (np.array_equal(fresh["fixed"].coefficients.means,
+                           rebound["fixed"].coefficients.means)
+            and fresh["per-user"].slot_of == rebound["per-user"].slot_of
+            and np.array_equal(fresh["per-user"].w_stack, rebound["per-user"].w_stack))
+    log(f"glmix_chip-grid: the last point on freshly built coordinates in {t_fresh:.2f} s, "
+        f"{'bitwise equal to' if same else 'DIFFERENT FROM'} the rebound fit")
+    if not same:
+        raise AssertionError("glmix_chip-grid: the rebound fit differs from a fresh build")
+    stats["glmix_chip_grid"] = dict(grid_s=t_grid, builds=len(built), points=rows,
+                                    best=pick, bayes_auc=bayes, fresh_last_point_s=t_fresh,
+                                    peak_gb=peak)
+
+
+def _logistic_gradient_f64(x, y, w, l2: float):
+    """Σ (σ(x·w) - y)·x + l2·w in float64, over row chunks of ``x``."""
+    import torch
+
+    g = l2 * w
+    for lo in range(0, x.shape[0], GRADIENT_CHUNK_ROWS):
+        xc = x[lo:lo + GRADIENT_CHUNK_ROWS].double()
+        g = g + xc.T @ (torch.sigmoid(xc @ w) - y[lo:lo + GRADIENT_CHUNK_ROWS])
+    return g
+
+
+def phase_glmix_chip_reg_path(stats: dict, train: dict, val: dict):
+    """glmix_chip-reg-path at full width: ``train_glm_reg_path`` over
+    glmix_chip's fixed design on the card (phase 19's training rows) at
+    REG_PATH_WEIGHTS, then ``select_best_glm`` on its held-out rows.  Gates:
+    kernel 1 launched at every weight, each weight's float64 gradient norm
+    at its solution within STATIONARY_RATIO of the norm at w = 0, and the
+    selection at the argmax of the held-out AUCs."""
+    import numpy as np
+    import torch
+
+    import photon_ml_tpu_torch.models.training as training
+    from photon_ml_tpu_torch.evaluation.metrics import auc_roc
+    from photon_ml_tpu_torch.opt.types import SolverConfig
+    from photon_ml_tpu_torch.types import TaskType
+
+    x = train["xg"]
+    solves = []
+    real_make = training.make_solver
+    kernels = _zero_launches()
+
+    def timed_make(*args, **kw):
+        solve = real_make(*args, **kw)
+
+        def timed(w0, batch):
+            # one weight's solve: its wall time and kernel launches
+            torch.cuda.synchronize()
+            before = {name: k.launches for name, k in kernels.items()}
+            t0 = time.perf_counter()
+            res = solve(w0, batch)
+            torch.cuda.synchronize()
+            solves.append(dict(fit_s=time.perf_counter() - t0,
+                               launches=_launches_since(kernels, before)))
+            return res
+
+        return timed
+
+    training.make_solver = timed_make
+    try:
+        t0 = time.perf_counter()
+        path, trackers = training.train_glm_reg_path(
+            x, train["y"], TaskType.LOGISTIC_REGRESSION, REG_PATH_WEIGHTS,
+            solver=SolverConfig(max_iters=30, tolerance=1e-7), device="cuda")
+        torch.cuda.synchronize()
+        t_path = time.perf_counter() - t0
+    finally:
+        training.make_solver = real_make
+    if [lam for lam, _ in path] != sorted(REG_PATH_WEIGHTS, reverse=True):
+        raise AssertionError("glmix_chip-reg-path: not trained in descending order")
+
+    y = torch.as_tensor(train["y"], device="cuda", dtype=torch.float64)
+    zero = torch.zeros(x.shape[1], dtype=torch.float64, device="cuda")
+    g0 = float(torch.linalg.vector_norm(_logistic_gradient_f64(x, y, zero, 0.0)))
+    y_val = torch.as_tensor(val["y"], device="cuda", dtype=torch.float64)
+    rows = []
+    for (lam, model), s in zip(path, solves):
+        _record_path_launches(f"glmix_chip_reg_path_{lam:g}", s["launches"], stats,
+                              ("fused_value_and_grad",))
+        w = torch.as_tensor(model.coefficients.means, device="cuda", dtype=torch.float64)
+        ratio = float(torch.linalg.vector_norm(_logistic_gradient_f64(x, y, w, lam))) / g0
+        auc = float(auc_roc(model.score(val["xg"]).double(), y_val, torch.ones_like(y_val)))
+        res = trackers[lam]
+        rows.append(dict(l2=lam, fit_s=s["fit_s"], iterations=res.iterations,
+                         reason=res.reason, gradient_ratio=ratio, held_out_auc=auc,
+                         launches={k: v for k, v in s["launches"].items() if v}))
+        ok = ratio <= STATIONARY_RATIO
+        log(f"glmix_chip-reg-path L2 {lam:g}: fit {s['fit_s']:.3f} s, {res.iterations} "
+            f"iterations (reason {res.reason}), launches {rows[-1]['launches']}, float64 "
+            f"gradient norm {ratio:.2e} of its norm at w = 0 (gate {STATIONARY_RATIO:g}), "
+            f"held-out AUC {auc:.6f} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"glmix_chip-reg-path L2 {lam:g}: not stationary")
+    t0 = time.perf_counter()
+    lam_best, _ = training.select_best_glm(path, val["xg"], val["y"], device="cuda")
+    t_select = time.perf_counter() - t0
+    want = rows[int(np.argmax([r["held_out_auc"] for r in rows]))]["l2"]
+    ok = lam_best == want
+    log(f"glmix_chip-reg-path: {len(path)} weights over {x.shape[0]} rows x {x.shape[1]} in "
+        f"{t_path:.2f} s; select_best_glm {lam_best:g} in {t_select:.3f} s, argmax of the "
+        f"held-out AUCs {want:g} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("glmix_chip-reg-path: select_best_glm is not the argmax")
+    stats["glmix_chip_reg_path"] = dict(path_s=t_path, select_s=t_select, weights=rows,
+                                        best=lam_best)
+
+
 KERNELS = {
     "fused_value_and_grad": dict(
         source="photon_ml_tpu_torch/csrc/fused_glm.cu",
@@ -2419,7 +2762,13 @@ def main() -> int:
         host, xg = phase_main_path(stats)
     with Phase("6 card vs CPU reduced glmix_chip"):
         glmix_chip_reduced = phase_card_vs_cpu(host, xg)
-    del xg, host
+    with Phase("19 glmix_chip-grid full width"):
+        train, val = _per_user_split(host, xg)
+        del xg, host
+        phase_glmix_chip_grid(stats, train, val)
+    with Phase("20 glmix_chip-reg-path full width"):
+        phase_glmix_chip_reg_path(stats, train, val)
+    del train, val
     with Phase("7 main path glmix2 TRON full width"):
         phase_glmix2_tron(stats)
     with Phase("8 main path glmix3 L-BFGS full width"):

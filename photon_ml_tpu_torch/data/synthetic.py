@@ -88,7 +88,8 @@ def chip_signal_cols(i: torch.Tensor) -> torch.Tensor:
 
 def synth_glmix_chip(scale: int = 1) -> dict:
     """Host half: labels, per-user features and user ids (everything but the
-    fixed design).  Returns y, uids, xu, n, users, per_user."""
+    fixed design).  Returns y, uids, xu, n, users, per_user and the
+    generative logits (for the task's Bayes AUC)."""
     users, per_user = chip_sizes(scale)
     n = users * per_user
     rng = np.random.default_rng(1234)
@@ -107,7 +108,7 @@ def synth_glmix_chip(scale: int = 1) -> dict:
             wu[uids[lo:hi]].astype(np.float64))
     y = (rng.random(n) < 1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
     return {"y": y, "uids": uids, "xu": xu, "n": n, "users": users,
-            "per_user": per_user}
+            "per_user": per_user, "logits": logits}
 
 
 def chip_design(n: int, device: "torch.device | str", seed: int = CHIP_SEED,

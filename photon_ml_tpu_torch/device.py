@@ -1,4 +1,4 @@
-"""Device selection for the port's entry points.
+"""Device and compute-dtype selection for the port's entry points.
 
 Every entry point takes ``device=`` with default ``"cuda"``.  With no card
 present that default raises; the port never continues on the CPU unless the
@@ -7,6 +7,7 @@ caller asked for the CPU explicitly.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -22,3 +23,15 @@ def resolve_device(device: "str | torch.device | None" = DEFAULT_DEVICE) -> torc
             f"(device={str(dev)!r}) but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """torch.float32/float64 from a torch or numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        out = dtype
+    else:
+        out = {np.dtype(np.float32): torch.float32,
+               np.dtype(np.float64): torch.float64}.get(np.dtype(dtype))
+    if out not in (torch.float32, torch.float64):
+        raise ValueError(f"compute dtype must be float32 or float64, not {dtype!r}")
+    return out

@@ -3,11 +3,12 @@
 Port of photon_ml_tpu/game/config.py, holding the fields the port trains
 with: variances, each coordinate's ``intercept_index`` (the column that
 absorbs a shift normalization and that the INDEX_MAP filter keeps), box
-constraints with their ``constraint_space``, and the projector field, whose
-RANDOM value the random-effect coordinate refuses (NotImplementedError
-naming the ROADMAP item that brings it).  The rest of the reference's
-fields (``projected_dim`` of the RANDOM projector, down-sampling, storage
-dtypes, feature sharding) arrive with the slices that carry them.
+constraints with their ``constraint_space``, the fixed effect's
+``down_sampling_rate``, and the projector field, whose RANDOM value the
+random-effect coordinate refuses (NotImplementedError naming the ROADMAP
+item that brings it).  The rest of the reference's fields (``projected_dim``
+of the RANDOM projector, storage dtypes, feature sharding) arrive with the
+slices that carry them.
 """
 
 from __future__ import annotations
@@ -32,6 +33,11 @@ class FixedEffectConfig:
     optimizer: OptimizerType = OptimizerType.LBFGS
     solver: Optional[SolverConfig] = None
     reg: Regularization = Regularization()
+    # each update trains on a fresh draw: binary tasks keep every positive
+    # and each negative with this probability at weight / rate; linear and
+    # Poisson tasks keep each row with this probability, unweighted; >= 1
+    # keeps every row
+    down_sampling_rate: float = 1.0
     variance: VarianceComputationType = VarianceComputationType.NONE
     constraints: Optional[ConstraintMap] = None  # L-BFGS only
     # which coefficients the bounds constrain: "original" (published) or

@@ -48,12 +48,22 @@ negative).  On compact lanes they are expanded to full width with the
 prior-only 1/λ2 of each lane's L2 at unobserved features, which is exact:
 the full-space Hessian is block-diagonal there.
 
+Over a λ grid a coordinate's device data is built once: ``rebind(config)``
+returns a shallow copy that shares it and binds ``config``'s optimization
+settings anew (objective, solver, box, per-lane L2, the fixed effect's
+context maps; a random effect crossing the SoA gate permutes its buckets on
+the device), and raises ValueError where ``config`` needs other data.  The
+fixed effect's ``down_sampling_rate`` draws each update's rows on the host
+from ``numpy.random.default_rng(seed)``, as the reference's host-paced path
+does, and uploads the [n] weight multiplier.
+
 The RANDOM projector, which the port does not carry yet, raises
 NotImplementedError naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import List, Optional, Tuple
 
@@ -188,6 +198,15 @@ class Coordinate:
         """This coordinate's raw score for every training sample."""
         raise NotImplementedError
 
+    def rebind(self, config: CoordinateConfig) -> "Coordinate":
+        """This coordinate's device data under ``config``'s optimization
+        settings; ValueError where ``config`` needs other data."""
+        raise NotImplementedError
+
+
+# tasks whose down-sampling keeps every positive (DownSamplerHelper.scala)
+_BINARY_TASKS = (TaskType.LOGISTIC_REGRESSION, TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM)
+
 
 class FixedEffectCoordinate(Coordinate):
     """Global GLM coordinate over a dense or sparse shard."""
@@ -217,17 +236,72 @@ class FixedEffectCoordinate(Coordinate):
                                       dim=shard.dim, **rows)
         else:
             self._batch = DenseBatch(x=_as_device(shard, dtype, device), **rows)
-        self._objective = GLMObjective(loss=loss_for_task(task), reg=config.reg,
+        self._bind_solver()
+
+    def _bind_solver(self) -> None:
+        """The objective, box and solver of ``self.config`` over the kept
+        batch and context."""
+        config = self.config
+        self._objective = GLMObjective(loss=loss_for_task(self.task), reg=config.reg,
                                        norm=self._norm)
-        box = _box_from_constraints(config.constraints, self.dim, dtype, device, self._norm,
-                                    config.constraint_space)
+        box = _box_from_constraints(config.constraints, self.dim, self._dtype, self._device,
+                                    self._norm, config.constraint_space)
         self._solve = make_solver(self._objective, config.optimizer, config.solver, box=box)
+        # the binary down-sampling rule's positives, on the host; None where
+        # no rule needs them
+        self._positive = None
+        if config.down_sampling_rate < 1.0 and self.task in _BINARY_TASKS:
+            self._positive = (self._batch.y > 0.5).cpu().numpy()
+
+    def rebind(self, config: FixedEffectConfig) -> "FixedEffectCoordinate":
+        """A shallow copy over the same device batch under ``config``'s
+        optimization settings; its objective, box and solver are bound
+        anew, and so is the context when ``intercept_index`` changes.  A new
+        feature shard is a new design: ValueError."""
+        if (not isinstance(config, FixedEffectConfig)
+                or config.feature_shard != self.config.feature_shard):
+            raise ValueError("rebind cannot change the feature shard")
+        _refuse_unported(self.coordinate_id, config)
+        new = copy.copy(self)
+        new.config = config
+        if config.intercept_index != self.config.intercept_index:
+            new._norm = _coordinate_norm(self.coordinate_id, self.norm_source,
+                                         config.intercept_index, self._dtype, self._device)
+        new._bind_solver()
+        return new
+
+    def _down_sample_keep(self, seed: int) -> np.ndarray:
+        """[n] rows drawn by this update: the first n of the host stream
+        ``default_rng(seed).random`` below the rate (the reference draws its
+        padded row count from the same stream, of which these are a
+        prefix)."""
+        return np.random.default_rng(seed).random(self._n) < self.config.down_sampling_rate
+
+    def _down_sample_mult(self, keep: np.ndarray) -> np.ndarray:
+        """Per-row weight multipliers of a draw (reference
+        DownSamplerHelper.scala:33-40): binary tasks keep every positive and
+        reweight kept negatives by 1 / rate; linear and Poisson tasks keep
+        the drawn rows, unweighted."""
+        dtype = _numpy_dtype(self._dtype)
+        if self.task in _BINARY_TASKS:
+            mult = np.where(keep, 1.0 / self.config.down_sampling_rate, 0.0)
+            return np.where(self._positive, 1.0, mult).astype(dtype)
+        return keep.astype(dtype)
+
+    def _down_sample_weights(self, seed: int) -> Tensor:
+        """The update's row weights: the data's, times the multipliers of a
+        fresh draw when the rate is below 1."""
+        if self.config.down_sampling_rate >= 1.0:
+            return self._batch.weight
+        mult = self._down_sample_mult(self._down_sample_keep(seed))
+        return self._batch.weight * _as_device(mult, None, self._device)
 
     def update(self, total_offsets: Tensor, seed: int = 0,
                init: Optional[FixedEffectModel] = None
                ) -> Tuple[FixedEffectModel, SolverResult]:
         """Solve in transformed space from the (original-space) warm start
-        mapped in; publish means and variances in original space."""
+        mapped in, on this update's (down-sampled) weights; publish means and
+        variances in original space."""
         ii = self.config.intercept_index
         if init is not None:
             w0 = self._norm.model_to_transformed_space(
@@ -235,7 +309,7 @@ class FixedEffectCoordinate(Coordinate):
         else:
             w0 = torch.zeros(self.dim, dtype=self._dtype, device=self._device)
         offs = _as_device(total_offsets, self._dtype, self._device)
-        batch = self._batch.replace(offset=offs)
+        batch = self._batch.replace(offset=offs, weight=self._down_sample_weights(seed))
         res = self._solve(w0, batch)
         v = compute_variances(self._objective, res.w, batch, self.config.variance)
         variances = None if v is None else self._norm.model_to_original_space(v, ii)
@@ -250,6 +324,26 @@ class FixedEffectCoordinate(Coordinate):
     def score(self, model: FixedEffectModel) -> Tensor:
         w = _as_device(model.coefficients.means, self._dtype, self._device)
         return self._batch.margins(w)
+
+
+def _re_data_key(config: RandomEffectConfig) -> tuple:
+    """The fields that shape a random-effect coordinate's device data (the
+    buckets, the projection and the per-lane contexts); configs that differ
+    elsewhere share it through ``rebind``."""
+    return (config.random_effect_type, config.feature_shard, config.active_cap,
+            config.min_active_samples, config.projector,
+            config.features_to_samples_ratio, config.intercept_index)
+
+
+def _refuse_lane_context_variances(coordinate_id: str, config: RandomEffectConfig,
+                                   per_lane: bool) -> None:
+    """Variances with per-lane contexts under compaction: refused, as the
+    reference refuses them."""
+    if per_lane and config.variance != VarianceComputationType.NONE:
+        raise NotImplementedError(
+            "coefficient variances under compaction do not support per-entity "
+            "normalization contexts; drop the normalization or use an "
+            f"uncompacted (IDENTITY, dense) layout (coordinate {coordinate_id!r})")
 
 
 class RandomEffectCoordinate(Coordinate):
@@ -270,11 +364,8 @@ class RandomEffectCoordinate(Coordinate):
         # per-lane contexts: the shard's context projected into each entity's
         # compact space (the reference keeps no variances for them)
         per_lane = compact and not self._norm.is_identity
-        if per_lane and config.variance != VarianceComputationType.NONE:
-            raise NotImplementedError(
-                "coefficient variances under compaction do not support per-entity "
-                "normalization contexts; drop the normalization or use an "
-                f"uncompacted (IDENTITY, dense) layout (coordinate {coordinate_id!r})")
+        _refuse_lane_context_variances(coordinate_id, config, per_lane)
+        self._compact = compact
         self.coordinate_id = coordinate_id
         self.config = config
         self.task = task
@@ -327,22 +418,8 @@ class RandomEffectCoordinate(Coordinate):
         if per_lane:
             self._lane_norms = [self._lane_context(idx, b.entity_lanes)
                                 for idx, b in zip(self._proj_idx, self.buckets.buckets)]
-        self._box, self._box_lanes, self._box_fill = self._bind_box(compact)
-
-        # the SoA Newton gate (reference game/coordinate.py:1179-1198) on the
-        # solve-space shapes: the solve width, the cap*d^2 traffic guard, a
-        # smooth loss, no normalization, no box and no L1, under L-BFGS or
-        # TRON (a TRON coordinate inside the gate runs SoA Newton).
-        worst = max((b.capacity * b.x.shape[2] ** 2 for b in solve_buckets), default=0)
-        max_dim = max((b.x.shape[2] for b in solve_buckets), default=0)
-        self.use_soa = (soa_eligible(max_dim, self._loss.name) and worst <= SOA_MAX_CAP_D2
-                        and self._norm.is_identity and not config.constraints
-                        and config.reg.l1 == 0.0
-                        and config.optimizer in (OptimizerType.LBFGS, OptimizerType.TRON))
-        self._solver_config = config.solver or default_config(config.optimizer)
-        if not self.use_soa:
-            self._solve_lanes = make_lane_solver(self._loss, config.optimizer,
-                                                 self._solver_config, l1=config.reg.l1)
+        # (capacity, solve width) of every bucket: the SoA gate's shapes
+        self._solve_shapes = [(b.capacity, b.x.shape[2]) for b in solve_buckets]
 
         # stacked-model slot order = sorted entity id
         self._slot_of = {eid: i for i, eid in enumerate(sorted(self.buckets.lane_of))}
@@ -353,25 +430,70 @@ class RandomEffectCoordinate(Coordinate):
                                             device=device)
                             for b in self.buckets.buckets]
 
-        # buckets on the device once, lanes-last for SoA Newton (x [cap, d, L];
-        # y / wt / rows / valid [cap, L]), else lanes-first (x [L, cap, d];
-        # the rest [L, cap]); l2 [L] is the coordinate's weight times each
-        # lane's entity multiplier (1 for padding lanes)
+        # buckets on the device once, lanes-first (x [L, cap, d]; y / wt /
+        # rows / valid [L, cap]); ``_bind_solver`` lays them lanes-last
+        # (x [cap, d, L]; the rest [cap, L]) for SoA Newton
+        self._dev = [
+            {k: _as_device(v, dtype if k in ("x", "y", "wt") else None, device)
+             for k, v in dict(x=b.x, y=b.y, wt=b.weight,
+                              rows=np.where(b.rows < 0, 0, b.rows).astype(np.int64),
+                              valid=b.rows >= 0).items()}
+            for b in solve_buckets]
+        self.use_soa = False
+        self._bind_solver()
+
+    def _bind_solver(self) -> None:
+        """What ``self.config``'s optimization settings derive from the kept
+        buckets: the box, the SoA gate and the bucket layout it reads, the
+        lane solver and each bucket's per-lane L2."""
+        config = self.config
+        self._box, self._box_lanes, self._box_fill = self._bind_box()
+        # the SoA Newton gate (reference game/coordinate.py:1179-1198) on the
+        # solve-space shapes: the solve width, the cap*d^2 traffic guard, a
+        # smooth loss, no normalization, no box and no L1, under L-BFGS or
+        # TRON (a TRON coordinate inside the gate runs SoA Newton).
+        worst = max((cap * d ** 2 for cap, d in self._solve_shapes), default=0)
+        max_dim = max((d for _, d in self._solve_shapes), default=0)
+        use_soa = (soa_eligible(max_dim, self._loss.name) and worst <= SOA_MAX_CAP_D2
+                   and self._norm.is_identity and not config.constraints
+                   and config.reg.l1 == 0.0
+                   and config.optimizer in (OptimizerType.LBFGS, OptimizerType.TRON))
+        if use_soa != self.use_soa:
+            # one layout at a time, permuted on the device into a new list
+            # (a coordinate this one was rebound from keeps its own)
+            x_order = (1, 2, 0) if use_soa else (2, 0, 1)
+            self._dev = [{k: (v.permute(*x_order) if k == "x" else v.T).contiguous()
+                          for k, v in dev.items()} for dev in self._dev]
+            self.use_soa = use_soa
+        self._solver_config = config.solver or default_config(config.optimizer)
+        self._solve_lanes = (None if use_soa else
+                             make_lane_solver(self._loss, config.optimizer,
+                                              self._solver_config, l1=config.reg.l1))
+        # [L] per bucket: the coordinate's L2 weight times each lane's entity
+        # multiplier (1 for padding lanes)
         mult = dict(config.per_entity_l2_multipliers or ())
-        self._dev = []
-        for b in solve_buckets:
-            lane_major = dict(
-                x=b.x, y=b.y, wt=b.weight,
-                rows=np.where(b.rows < 0, 0, b.rows).astype(np.int64),
-                valid=b.rows >= 0)
-            if self.use_soa:
-                lane_major = {k: (v.permute(1, 2, 0) if k == "x" else v.T)
-                              for k, v in lane_major.items()}
-            dev = {k: _as_device(v, dtype if k in ("x", "y", "wt") else None, device)
-                   for k, v in lane_major.items()}
-            m = np.asarray([mult.get(int(e), 1.0) for e in b.entity_lanes], np_dtype)
-            dev["l2"] = config.reg.l2 * torch.as_tensor(m, device=device)
-            self._dev.append(dev)
+        np_dtype = _numpy_dtype(self._dtype)
+        self._l2 = [config.reg.l2 * torch.as_tensor(
+            np.asarray([mult.get(int(e), 1.0) for e in b.entity_lanes], np_dtype),
+            device=self._device) for b in self.buckets.buckets]
+
+    def rebind(self, config: RandomEffectConfig) -> "RandomEffectCoordinate":
+        """A shallow copy over the same device buckets under ``config``'s
+        optimization settings (regularization, per-entity multipliers,
+        optimizer and solver, variances, box): what they derive is bound
+        anew, and a change across the SoA gate permutes the buckets on the
+        device.  A change of the data configuration (the fields of
+        ``_re_data_key``) is a new layout: ValueError."""
+        if (not isinstance(config, RandomEffectConfig)
+                or _re_data_key(config) != _re_data_key(self.config)):
+            raise ValueError("rebind cannot change the data configuration")
+        _refuse_unported(self.coordinate_id, config)
+        _refuse_lane_context_variances(self.coordinate_id, config,
+                                       self._lane_norms is not None)
+        new = copy.copy(self)
+        new.config = config
+        new._bind_solver()
+        return new
 
     def _lane_context(self, idx: Tensor, entity_lanes: np.ndarray
                       ) -> Tuple[NormalizationContext, Optional[Tensor]]:
@@ -398,7 +520,7 @@ class RandomEffectCoordinate(Coordinate):
         return (NormalizationContext(factors=factors, shifts=shifts),
                 hit.to(torch.int8).argmax(dim=1))
 
-    def _bind_box(self, compact: bool):
+    def _bind_box(self):
         """(box, box_lanes, fill): on a dense IDENTITY shard the full-width
         bounds in the solve space; on compact lanes each bucket's per-lane
         bounds in the compact space of each lane's columns (padded slots
@@ -408,7 +530,7 @@ class RandomEffectCoordinate(Coordinate):
         if not cfg.constraints:
             return None, None, None
         check_box_support(cfg.optimizer, cfg.reg.l1 > 0.0)
-        if not compact:
+        if not self._compact:
             return _box_from_constraints(cfg.constraints, self.dim, self._dtype,
                                          self._device, self._norm,
                                          cfg.constraint_space), None, None
@@ -498,7 +620,7 @@ class RandomEffectCoordinate(Coordinate):
         offs = _as_device(total_offsets, self._dtype, self._device)
         kind = self.config.variance
         coeffs, variances, results = [], [], []
-        for bi, (b, dev) in enumerate(zip(self.buckets.buckets, self._dev)):
+        for bi, (b, dev, l2) in enumerate(zip(self.buckets.buckets, self._dev, self._l2)):
             if init is not None:
                 w0 = self._warm_start(bi, init)
             else:
@@ -509,20 +631,20 @@ class RandomEffectCoordinate(Coordinate):
             off = torch.where(dev["valid"], offs[dev["rows"]], 0.0)
             if self.use_soa:
                 res = solve_newton_soa(self._loss, w0.T.contiguous(), dev["x"], dev["y"],
-                                       off, dev["wt"], dev["l2"], self._solver_config)
+                                       off, dev["wt"], l2, self._solver_config)
                 w_lanes = res.w.T
                 v = compute_soa_variances(self._loss, res.w, dev["x"], dev["y"], off,
-                                          dev["wt"], dev["l2"], kind)
+                                          dev["wt"], l2, kind)
             else:
                 batch = DenseBatch(x=dev["x"], y=dev["y"], offset=off, weight=dev["wt"])
-                res = self._solve_lanes(w0, batch, dev["l2"], **self._solve_extras(bi))
+                res = self._solve_lanes(w0, batch, l2, **self._solve_extras(bi))
                 w_lanes = res.w
-                v = compute_variances(LaneObjective(self._loss, dev["l2"], self._norm),
+                v = compute_variances(LaneObjective(self._loss, l2, self._norm),
                                       res.w, batch, kind)
             coeffs.append(self._lanes_to_original(w_lanes, bi))
             if v is not None:
                 if self._proj_idx is not None:
-                    v = self._expand_compact_variances(v, bi, dev["l2"])
+                    v = self._expand_compact_variances(v, bi, l2)
                 variances.append(self._lanes_to_original(v, bi))
             results.append(res)
         # publish: lanes (back-projected where compact, unobserved features

@@ -3,10 +3,15 @@
 Port of photon_ml_tpu/game/estimator.py along its host-paced path
 (``GameEstimator(fused=False)``, the parity target): build the coordinates
 on the device once, run coordinate descent per configuration, and warm-start
-each configuration from the previous one's model.  ``normalization`` maps a
-feature shard to the context that every coordinate on that shard solves
-under (models come out in original space).  The whole-sweep fused program
-(``FusedSweep``), locked coordinates and checkpoints are later slices.
+each configuration from the previous one's model.  Over a grid of
+configurations each coordinate's device data is built once: a later
+configuration that changes only optimization settings rebinds the previous
+coordinate (``Coordinate.rebind``), and one that changes the data layout
+builds afresh.  ``best`` picks the grid point with the best primary metric
+on the validation data.  ``normalization`` maps a feature shard to the
+context that every coordinate on that shard solves under (models come out
+in original space).  The whole-sweep fused program (``FusedSweep``), locked
+coordinates and checkpoints are later slices.
 """
 
 from __future__ import annotations
@@ -14,29 +19,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Sequence
 
-import numpy as np
 import torch
 
 from photon_ml_tpu_torch.core.normalization import NormalizationContext
-from photon_ml_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from photon_ml_tpu_torch.device import DEFAULT_DEVICE, resolve_device, torch_dtype
 from photon_ml_tpu_torch.evaluation.evaluator import EvaluationResults, EvaluationSuite
 from photon_ml_tpu_torch.game.config import GameConfig
 from photon_ml_tpu_torch.game.coordinate import Coordinate, build_coordinate
 from photon_ml_tpu_torch.game.data import GameData
 from photon_ml_tpu_torch.game.descent import CoordinateDescent, DescentHistory
 from photon_ml_tpu_torch.models.game import GameModel
-
-
-def torch_dtype(dtype) -> torch.dtype:
-    """torch.float32/float64 from a torch or numpy dtype."""
-    if isinstance(dtype, torch.dtype):
-        out = dtype
-    else:
-        out = {np.dtype(np.float32): torch.float32,
-               np.dtype(np.float64): torch.float64}.get(np.dtype(dtype))
-    if out not in (torch.float32, torch.float64):
-        raise ValueError(f"compute dtype must be float32 or float64, not {dtype!r}")
-    return out
 
 
 @dataclasses.dataclass(eq=False)
@@ -79,13 +71,19 @@ class GameEstimator:
             for cid, ccfg in config.coordinates.items():
                 norm = self.normalization.get(ccfg.feature_shard)
                 old = prev.get(cid)
-                if (old is not None and old.config == ccfg and old.task == config.task
-                        and old.norm_source is norm):
-                    coordinates[cid] = old  # same data layout, solver and context: reuse
-                else:
-                    coordinates[cid] = build_coordinate(
-                        cid, data, ccfg, config.task, seed=seed, dtype=self.dtype,
-                        device=self.device, norm=norm)
+                coord = None
+                if old is not None and old.task == config.task and old.norm_source is norm:
+                    if old.config == ccfg:
+                        coord = old  # same data layout, solver and context: reuse
+                    else:
+                        try:
+                            coord = old.rebind(ccfg)  # same data, new settings
+                        except ValueError:
+                            pass  # another data layout: build afresh
+                if coord is None:
+                    coord = build_coordinate(cid, data, ccfg, config.task, seed=seed,
+                                             dtype=self.dtype, device=self.device, norm=norm)
+                coordinates[cid] = coord
             prev = coordinates
             validation = None
             if validation_data is not None and self.validation_suite is not None:
@@ -98,3 +96,18 @@ class GameEstimator:
                                          history=history))
             warm = model
         return results
+
+    def best(self, results: List[GameFitResult]) -> GameFitResult:
+        """The result with the best primary validation metric, the first
+        among equals (as photon_ml_tpu/game/estimator.py:246-258);
+        the last result when there is no suite or no evaluation."""
+        if self.validation_suite is None or all(r.evaluation is None for r in results):
+            return results[-1]
+        best = None
+        for r in results:
+            if r.evaluation is None:
+                continue
+            if best is None or self.validation_suite.primary.better_than(
+                    r.evaluation.primary, best.evaluation.primary):
+                best = r
+        return best

@@ -1,7 +1,8 @@
-"""GLM coefficients.
+"""GLM coefficients and models.
 
-Port of ``Coefficients`` in photon_ml_tpu/models/glm.py: host numpy means
-(and optional variances) with their raw dot-product score.
+Port of ``Coefficients`` and ``GLMModel`` in photon_ml_tpu/models/glm.py:
+host numpy means (and optional variances) with their raw dot-product score,
+and a trained GLM, the regularization path's model.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.core.batch import full_f32_matmul
+from photon_ml_tpu_torch.types import TaskType
 
 Tensor = torch.Tensor
 
@@ -34,3 +36,14 @@ class Coefficients:
         dt = torch.promote_types(x.dtype, w.dtype)
         full_f32_matmul()
         return torch.mv(x.to(dt), w.to(dt))
+
+
+@dataclasses.dataclass(frozen=True)
+class GLMModel:
+    """A trained GLM: coefficients and task."""
+
+    coefficients: Coefficients
+    task: TaskType = TaskType.LOGISTIC_REGRESSION
+
+    def score(self, x: Tensor) -> Tensor:
+        return self.coefficients.score(x)

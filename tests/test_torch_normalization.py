@@ -320,7 +320,9 @@ def test_random_effect_shared_context_fit_matches_jax(kind):
 
 def test_estimator_reuses_a_normalized_coordinate_across_configs(monkeypatch):
     """A coordinate is built once, with its shard's context, and reused by a
-    later configuration with the same config; a changed config rebuilds it."""
+    later configuration with the same config; a changed regularization
+    rebinds it over the same data, with the same context, and builds
+    nothing."""
     import photon_ml_tpu_torch.game.estimator as est_mod
 
     built = []
@@ -339,6 +341,6 @@ def test_estimator_reuses_a_normalized_coordinate_across_configs(monkeypatch):
         for l2 in (1.0, 1.0, 0.5)]
     est = GameEstimator(device="cpu", dtype=torch.float64, normalization={"g": ctx})
     a, b, _ = est.fit(GameData(y=y, features={"g": x}), cfgs)
-    assert len(built) == 2 and all(n is ctx for n in built)
+    assert len(built) == 1 and all(n is ctx for n in built)
     assert _rel(b.model["fixed"].coefficients.means,
                 a.model["fixed"].coefficients.means) <= FIT_RTOL
