@@ -43,11 +43,13 @@ Phases, each printing its result and wall time on its own line:
     L2 in descending order and then the fixed effect down-sampled at 0.5,
     on the first 56 rows of every user; the last 8 of every user (1,048,576
     rows, gathered on the card) are the validation data (auc,
-    logistic_loss), so they read both coordinates; each
+    logistic_loss and the per-user AUC ``auc:userId`` over 131,072 groups),
+    so they read both coordinates; each
     coordinate built once for the whole grid (a wrapper around the
     estimator's ``build_coordinate`` counts), later points rebound; per
     point its construction and fit time, solver iterations, kernels 1 and 3
-    launches (> 0), training AUC against the Bayes AUC and held-out metrics;
+    launches (> 0), training AUC against the Bayes AUC, held-out metrics and
+    what its grouped evaluations cost;
     ``GameEstimator.best`` at the argmax of the held-out AUCs; the last point
     refit from the same warm start on freshly built coordinates, bitwise
     equal to the rebound fit;
@@ -56,6 +58,15 @@ Phases, each printing its result and wall time on its own line:
     weight its time, iterations and kernel-1 launches (> 0) and its float64
     gradient norm at the solution against the norm at w = 0;
     ``select_best_glm`` on the held-out rows at the argmax of their AUCs;
+22. (after phase 20) every evaluator on the card: phase 19's ``best`` model
+    and held-out rows through ``GameTransformer.evaluate`` with auc, aupr,
+    rmse, the four losses, precision@1000 and the per-user auc, aupr and
+    precision@4: auc, logistic_loss and auc:userId bitwise equal to
+    ``best.evaluation``'s, ``score`` / ``predict`` equal to the model's,
+    every metric within 1e-9 of a float64 host recomputation by other means
+    (Mann-Whitney ranks, numpy sorts, closed-form losses, pairwise per-user
+    AUC), and each metric's time (CUDA events), the grouped ones with and
+    without the padded layout's build;
 7. glmix2 at full width under TRON on both coordinates (2048 users x 256
    rows, 256 fixed / 16 per-user features; the per-user lanes are outside
    the SoA gate and run the lane-batched TRON): fit, score, AUC against the
@@ -90,6 +101,13 @@ Phases, each printing its result and wall time on its own line:
 13. phase 12's fit against the same full-width fit on the CPU (the plain
     match-dot scores there): coefficients, compact-model scores and the
     GAME objective, within stated float32 tolerances;
+21. glmix_sparse held out: phase 12's rows split inside each user (the last
+    8 of its 32, in order of appearance, validate: 32,768 rows), fitted with
+    validation (auc, auc:userId, logistic_loss), compacted, and the held-out
+    rows evaluated through ``GameTransformer`` (``match_dot`` launches > 0):
+    the held-out AUC at least the fixed effect's alone + 0.01 and at most
+    the held-out Bayes AUC + 0.005, the compact model's within 1e-6 of its
+    dense twin's; training AUC, fit and scoring times logged;
 15. glmix2-norm-var at full width: glmix2's rows with an intercept column
     (257 fixed features), the fixed shard under STANDARDIZATION (nonzero
     margin shifts through both fused kernels) with SIMPLE variances, the
@@ -243,6 +261,23 @@ GRID_HELD_OUT_PER_USER = 8  # glmix_chip-grid: the last rows of every user (of 6
 # scale for its solution to move
 GRID_L2 = ((1e5, 2.0), (1e4, 1.0), (1e3, 0.5), (1e2, 0.25))
 GRID_DOWN_SAMPLING = 0.5  # the grid's last point: the fourth, fixed effect down-sampled
+GRID_SUITE = ["auc", "logistic_loss", "auc:userId"]  # glmix_chip-grid's validation
+GS_HELD_OUT_PER_USER = 8  # glmix_sparse held out: the last rows of every user (of 32),
+# in order of appearance, validate (32,768 rows); the rest train (98,304)
+GS_HELD_OUT_SUITE = ["auc", "auc:userId", "logistic_loss"]
+GS_PER_USER_GAIN = 0.01  # glmix_sparse's held-out AUC >= the fixed effect's alone +
+# this: a per-user coordinate that learned nothing, or compact scores that are
+# wrong, fall back to the fixed effect's (0.549 against 0.568 in a float32 CPU
+# fit at full width, a gap of 0.019; the gate sits at half of it)
+GS_BAYES_SLACK = 0.005  # ... and <= the held-out rows' Bayes AUC + this: above it
+# the model would read the labels' noise, which only leakage can do
+GS_COMPACT_AUC_TOL = 1e-6  # held-out AUC, compact model vs its dense twin
+SUITE_SPECS = ["auc", "aupr", "rmse", "logistic_loss", "squared_loss", "poisson_loss",
+               "smoothed_hinge_loss", "precision@1000", "auc:userId", "aupr:userId",
+               "precision@4:userId"]  # phase 22: every evaluator type, three grouped
+SUITE_HOST_RTOL = 1e-9  # phase 22: each metric on the card against a float64 host
+# recomputation by other means; both sum ~10^6 float64 terms in other orders
+SUITE_TIMING_REPS = 7  # phase 22: CUDA-event timings, the median of this many
 REG_PATH_WEIGHTS = (1e6, 1e5, 1e4, 1e3)  # glmix_chip-reg-path's L2 weights
 GRADIENT_CHUNK_ROWS = 1 << 18  # float64 gradients over the design, a chunk at a time
 FUSED_CASES = [(MAIN_N, MAIN_D, "float32"), (GLMIX2_N, GLMIX2_D, "float32"),
@@ -1431,7 +1466,7 @@ def phase_glmix_sparse(stats: dict):
                                  auc=auc, bayes_auc=bayes, peak_gb=peak,
                                  bucket_s=t_bucket, objective=f_full,
                                  objective_fixed_only=f_fixed)
-    return dict(data=data, res=res, scores=scores, auc=auc, objective=f_full)
+    return dict(host=host, data=data, res=res, scores=scores, auc=auc, objective=f_full)
 
 
 def phase_glmix_sparse_card_vs_cpu(card: dict):
@@ -2411,18 +2446,22 @@ def _per_user_split(host, xg):
     return parts
 
 
-def phase_glmix_chip_grid(stats: dict, train: dict, val: dict):
+def phase_glmix_chip_grid(stats: dict, train: dict, val: dict) -> dict:
     """glmix_chip-grid at full width: one ``GameEstimator.fit`` over the grid
     of ``_grid_configs`` on ``train`` (``_per_user_split``), with validation
-    on ``val`` (auc, logistic_loss); then ``best``.  Gates: one
-    build per coordinate for the whole grid (a wrapper around the
-    estimator's ``build_coordinate``), kernels 1 and 3 launched at every
-    point, every point's training AUC against the Bayes AUC, ``best`` at the
-    argmax of the held-out AUCs, and the last point refit from the same warm
-    start on freshly built coordinates bitwise equal to the rebound fit."""
+    on ``val`` (GRID_SUITE: auc, logistic_loss and the per-user AUC); then
+    ``best``.  Gates: one build per coordinate for the whole grid (a wrapper
+    around the estimator's ``build_coordinate``), kernels 1 and 3 launched
+    at every point, every point's training AUC against the Bayes AUC,
+    ``best`` at the argmax of the held-out AUCs, and the last point refit
+    from the same warm start on freshly built coordinates bitwise equal to
+    the rebound fit.  Each point also logs what its grouped evaluations cost
+    (a wrapper around ``grouped_evaluate``).  Returns ``best`` and the
+    held-out GameData."""
     import numpy as np
     import torch
 
+    import photon_ml_tpu_torch.evaluation.evaluator as ev_mod
     import photon_ml_tpu_torch.game.estimator as est_mod
     from photon_ml_tpu_torch.evaluation.evaluator import EvaluationSuite
     from photon_ml_tpu_torch.evaluation.metrics import auc_roc
@@ -2437,28 +2476,42 @@ def phase_glmix_chip_grid(stats: dict, train: dict, val: dict):
     m, n_val = len(train["y"]), len(val["y"])
     bayes = _bayes_auc(train)
     train, val = game_data(train), game_data(val)
-    suite = EvaluationSuite.from_specs(["auc", "logistic_loss"])
+    groups = len(np.unique(val.id_tags["userId"]))
+    suite = EvaluationSuite.from_specs(GRID_SUITE)
     configs = _grid_configs()
-    built, points = [], []
+    built, points, grouped = [], [], []
     real_build, real_run = est_mod.build_coordinate, CoordinateDescent.run
+    real_grouped = ev_mod.grouped_evaluate
     kernels = _zero_launches()
 
     def counting_build(cid, *args, **kw):
         built.append(cid)
         return real_build(cid, *args, **kw)
 
+    def timed_grouped(*args, **kw):
+        # one grouped evaluation's wall time (it ends in a read to the host)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_grouped(*args, **kw)
+        grouped.append(time.perf_counter() - t0)
+        return out
+
     def timed_run(self, *args, **kw):
-        # one grid point's descent: its wall time and kernel launches
+        # one grid point's descent: its wall time, kernel launches and
+        # grouped evaluations
         torch.cuda.synchronize()
         before = {name: k.launches for name, k in kernels.items()}
+        g0 = len(grouped)
         t0 = time.perf_counter()
         out = real_run(self, *args, **kw)
         torch.cuda.synchronize()
         points.append(dict(start=t0, end=time.perf_counter(),
-                           launches=_launches_since(kernels, before)))
+                           launches=_launches_since(kernels, before),
+                           grouped_s=sum(grouped[g0:]), grouped_evals=len(grouped) - g0))
         return out
 
     est_mod.build_coordinate, CoordinateDescent.run = counting_build, timed_run
+    ev_mod.grouped_evaluate = timed_grouped
     try:
         torch.cuda.reset_peak_memory_stats()
         t_start = time.perf_counter()
@@ -2468,6 +2521,7 @@ def phase_glmix_chip_grid(stats: dict, train: dict, val: dict):
         t_grid = time.perf_counter() - t_start
     finally:
         est_mod.build_coordinate, CoordinateDescent.run = real_build, real_run
+        ev_mod.grouped_evaluate = real_grouped
     peak = torch.cuda.max_memory_allocated() / 1e9
     if built != ["fixed", "per-user"]:
         raise AssertionError(f"glmix_chip-grid built {built}, not one of each coordinate")
@@ -2488,11 +2542,14 @@ def phase_glmix_chip_grid(stats: dict, train: dict, val: dict):
             down_sampling_rate=fixed.down_sampling_rate, build_s=p["start"] - prev_end,
             fit_s=p["end"] - p["start"], train_auc=auc, held_out=r.evaluation.values,
             solver_iterations=[st["solver_iterations"] for st in r.history.steps],
-            launches={k: v for k, v in p["launches"].items() if v}))
+            launches={k: v for k, v in p["launches"].items() if v},
+            grouped_eval_s=p["grouped_s"], grouped_evals=p["grouped_evals"]))
         prev_end = p["end"]
         log(f"glmix_chip-grid point {i}: L2 fixed {rows[-1]['fixed_l2']:g} / per-user "
             f"{rows[-1]['user_l2']:g}, fixed down-sampling {fixed.down_sampling_rate:g}: "
-            f"construction {rows[-1]['build_s']:.3f} s, fit {rows[-1]['fit_s']:.3f} s, "
+            f"construction {rows[-1]['build_s']:.3f} s, fit {rows[-1]['fit_s']:.3f} s (of "
+            f"it {p['grouped_evals']} auc:userId evaluations over {n_val} rows in "
+            f"{groups} groups, {p['grouped_s']:.4f} s), "
             f"solver iterations {rows[-1]['solver_iterations']}, launches "
             f"{rows[-1]['launches']}, training AUC {auc:.4f}, held-out "
             + ", ".join(f"{k} {v:.6f}" for k, v in r.evaluation.values.items()))
@@ -2530,6 +2587,7 @@ def phase_glmix_chip_grid(stats: dict, train: dict, val: dict):
     stats["glmix_chip_grid"] = dict(grid_s=t_grid, builds=len(built), points=rows,
                                     best=pick, bayes_auc=bayes, fresh_last_point_s=t_fresh,
                                     peak_gb=peak)
+    return dict(best=results[pick], val=val)
 
 
 def _logistic_gradient_f64(x, y, w, l2: float):
@@ -2626,6 +2684,267 @@ def phase_glmix_chip_reg_path(stats: dict, train: dict, val: dict):
         raise AssertionError("glmix_chip-reg-path: select_best_glm is not the argmax")
     stats["glmix_chip_reg_path"] = dict(path_s=t_path, select_s=t_select, weights=rows,
                                         best=lam_best)
+
+
+def phase_glmix_sparse_held_out(stats: dict, card: dict):
+    """glmix_sparse held out: phase 12's data split inside each user (the
+    last GS_HELD_OUT_PER_USER of its 32 rows, in order of appearance,
+    validate), fitted with phase 12's configuration and GS_HELD_OUT_SUITE
+    as the validation suite, compacted, and the held-out rows evaluated
+    through ``GameTransformer`` (``match_dot`` launches > 0).  Gates: the
+    held-out AUC at least the fixed effect's alone + GS_PER_USER_GAIN, at
+    most the held-out Bayes AUC + GS_BAYES_SLACK, and the compact model's
+    within GS_COMPACT_AUC_TOL of its dense twin's."""
+    import torch
+
+    from photon_ml_tpu_torch.data.synthetic import last_rows_per_entity
+    from photon_ml_tpu_torch.evaluation.evaluator import EvaluationSuite
+    from photon_ml_tpu_torch.evaluation.metrics import auc_roc
+    from photon_ml_tpu_torch.game import (GameData, GameEstimator, GameTransformer,
+                                          SparseShard)
+    from photon_ml_tpu_torch.models.game import GameModel
+    from photon_ml_tpu_torch.types import TaskType
+
+    host = card["host"]
+    held = last_rows_per_entity(host["uids"], GS_HELD_OUT_PER_USER)
+
+    def part(rows):
+        return GameData(y=host["y"][rows], features={
+            k: SparseShard(indices=host[s]["indices"][rows], values=host[s]["values"][rows],
+                           dim=host[s]["dim"]) for k, s in (("g", "fixed"), ("u", "user"))},
+            id_tags={"userId": host["uids"][rows]})
+
+    train, val = part(~held), part(held)
+    suite = EvaluationSuite.from_specs(GS_HELD_OUT_SUITE)
+    task = TaskType.LOGISTIC_REGRESSION
+    kernels = _zero_launches()
+    t0 = time.perf_counter()
+    res = GameEstimator(device="cuda", validation_suite=suite).fit(
+        train, [_glmix_sparse_config()], validation_data=val)[0]
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compact = res.model["per-user"].to_compact()
+    t_compact = time.perf_counter() - t0
+    model = GameModel(models={"fixed": res.model["fixed"], "per-user": compact})
+    t0 = time.perf_counter()
+    ev = GameTransformer(model, task, device="cuda").evaluate(val, suite).values
+    t_score = time.perf_counter() - t0
+    launches = _record_launches("glmix_sparse_held_out", kernels, stats, ("match_dot",))
+
+    dense = GameTransformer(res.model, task, device="cuda").evaluate(val, suite).values
+    fixed = GameTransformer(GameModel(models={"fixed": res.model["fixed"]}), task,
+                            device="cuda").evaluate(val, suite).values
+    train_auc = GameTransformer(model, task, device="cuda").evaluate(
+        train, EvaluationSuite.from_specs(["auc"])).values["auc"]
+    y = torch.as_tensor(val.y, device="cuda").double()
+    bayes = float(auc_roc(torch.as_tensor(host["logits"][held], device="cuda").double(), y,
+                          torch.ones_like(y)))
+    auc = ev["auc"]
+    gates = {"per-user gain": auc >= fixed["auc"] + GS_PER_USER_GAIN,
+             "Bayes bound": auc <= bayes + GS_BAYES_SLACK,
+             "compact vs dense": abs(auc - dense["auc"]) <= GS_COMPACT_AUC_TOL}
+    fmt = lambda v: ", ".join(f"{k} {x:.6f}" for k, x in v.items())
+    log(f"glmix_sparse held out: {train.num_samples} rows train, {val.num_samples} "
+        f"validate; fit {t_fit:.2f} s (descent's best: {fmt(res.evaluation.values)}), "
+        f"to_compact {t_compact:.2f} s, held-out evaluation through the compact model "
+        f"{t_score:.3f} s, launches {launches}; training AUC {train_auc:.4f}; held out: "
+        f"compact model {fmt(ev)}; dense twin {fmt(dense)}; fixed effect alone "
+        f"{fmt(fixed)}; Bayes AUC {bayes:.4f}")
+    log(f"glmix_sparse held-out gates: AUC {auc:.6f} >= fixed alone {fixed['auc']:.6f} + "
+        f"{GS_PER_USER_GAIN:g}; <= Bayes {bayes:.6f} + {GS_BAYES_SLACK:g}; compact vs "
+        f"dense |{auc - dense['auc']:.2e}| <= {GS_COMPACT_AUC_TOL:g}: "
+        + ", ".join(f"{k} {'ok' if v else 'FAILED'}" for k, v in gates.items()))
+    if not all(gates.values()):
+        raise AssertionError(f"glmix_sparse held out: {[k for k, v in gates.items() if not v]}")
+    stats["glmix_sparse_held_out"] = dict(
+        fit_s=t_fit, compact_s=t_compact, score_s=t_score, train_auc=train_auc,
+        held_out=ev, dense=dense, fixed_only=fixed, bayes_auc=bayes)
+
+
+def _host_aupr_rows(s, y):
+    """AUPR of each row of [R, m] float64 scores, unit weights: per tie
+    group, the recall step times the mean of the precisions at its end and
+    at the previous group's end (1 before the first); no positives give 0."""
+    import numpy as np
+
+    order = np.argsort(-s, axis=1, kind="stable")
+    ss = np.take_along_axis(s, order, 1)
+    pos = np.take_along_axis(y > 0.5, order, 1)
+    tp, fp = np.cumsum(pos, 1).astype(float), np.cumsum(~pos, 1).astype(float)
+    r, m = s.shape
+    is_end = np.ones((r, m), bool)
+    is_end[:, :-1] = ss[:, :-1] != ss[:, 1:]
+    ends = np.flatnonzero(is_end)
+    row = ends // m
+    tpe, fpe = tp.ravel()[ends], fp.ravel()[ends]
+    first = np.ones(len(ends), bool)
+    first[1:] = row[1:] != row[:-1]
+    tpp = np.where(first, 0.0, np.roll(tpe, 1))
+    fpp = np.where(first, 0.0, np.roll(fpe, 1))
+    p = tp[:, -1]
+    prec_prev = np.where(tpp + fpp > 0, tpp / np.maximum(tpp + fpp, 1.0), 1.0)
+    area = (tpe - tpp) / np.maximum(p[row], 1.0) * 0.5 * (tpe / (tpe + fpe) + prec_prev)
+    return np.where(p == 0, 0.0, np.bincount(row, weights=area, minlength=r))
+
+
+def _host_pairwise_auc_rows(s, y):
+    """AUC of each row of [R, m] scores by its definition: the share of
+    (positive, negative) pairs ordered right, a tie counting 0.5; a row
+    without positives or negatives reads 0.5."""
+    import numpy as np
+
+    pos = y > 0.5
+    beats = (s[:, :, None] > s[:, None, :]) + 0.5 * (s[:, :, None] == s[:, None, :])
+    num = (beats * (pos[:, :, None] & ~pos[:, None, :])).sum((1, 2))
+    p, n = pos.sum(1), (~pos).sum(1)
+    return np.where((p == 0) | (n == 0), 0.5, num / np.maximum(p * n, 1))
+
+
+def _host_precision_rows(k: int, s, y):
+    """Precision among each row's top k scores (a stable sort; unit weights)."""
+    import numpy as np
+
+    top = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    return (np.take_along_axis(y, top, 1) > 0.5).sum(1) / top.shape[1]
+
+
+def _host_suite_metrics(raw, y, per_group: int) -> dict:
+    """SUITE_SPECS' metrics of float64 ``raw`` scores and labels ``y`` with
+    unit weights, recomputed on the host by other means than the port's:
+    AUC by Mann-Whitney average ranks (``scipy.stats.rankdata``), AUPR and
+    precision by numpy sorts, the losses in closed form; the grouped metrics
+    over the [groups, per_group] reshape of rows laid out group by group."""
+    import numpy as np
+    from scipy.stats import rankdata
+
+    pos = y > 0.5
+    p, n = pos.sum(), (~pos).sum()
+    ranks = rankdata(raw)  # ascending, ties averaged
+    t = np.where(pos, 1.0, -1.0) * raw
+    gs, gy = raw.reshape(-1, per_group), y.reshape(-1, per_group)
+    return {
+        "auc": float((ranks[pos].sum() - p * (p + 1) / 2) / (p * n)),
+        "aupr": float(_host_aupr_rows(raw[None], y[None])[0]),
+        "rmse": float(np.sqrt(np.mean((raw - y) ** 2))),
+        "logistic_loss": float(np.sum(np.logaddexp(0.0, raw) - y * raw)),
+        "squared_loss": float(np.sum(0.5 * (raw - y) ** 2)),
+        "poisson_loss": float(np.sum(np.exp(raw) - y * raw)),
+        "smoothed_hinge_loss": float(np.sum(np.where(
+            t >= 1.0, 0.0, np.where(t <= 0.0, 0.5 - t, 0.5 * (1.0 - t) ** 2)))),
+        "precision_at_k@1000": float(_host_precision_rows(1000, raw[None], y[None])[0]),
+        "auc:userId": float(np.mean(_host_pairwise_auc_rows(gs, gy))),
+        "aupr:userId": float(np.mean(_host_aupr_rows(gs, gy))),
+        "precision_at_k@4:userId": float(np.mean(_host_precision_rows(4, gs, gy))),
+    }
+
+
+def _median_event_ms(fn, reps: int = SUITE_TIMING_REPS) -> float:
+    """The median over ``reps`` calls of ``fn``'s CUDA-event time, each call
+    timed alone after a warm-up call."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_evaluation_suite(stats: dict, grid: dict):
+    """Every evaluator on the card: glmix_chip-grid's ``best`` model
+    (phase 19) and held-out rows through ``GameTransformer`` with
+    SUITE_SPECS.  Gates: the transformer's auc, logistic_loss and
+    auc:userId bitwise equal to ``best.evaluation``'s; ``score`` equal to
+    ``GameModel.score`` and ``predict`` to the sigmoid of score + offset;
+    every metric within SUITE_HOST_RTOL of ``_host_suite_metrics``.  Then
+    each metric's time on the card (CUDA events, median of repeats), the
+    grouped ones with and without the padded layout's build."""
+    import numpy as np
+    import torch
+
+    from photon_ml_tpu_torch.evaluation.evaluator import (EvaluationSuite, grouped_mean,
+                                                          pad_groups)
+    from photon_ml_tpu_torch.game import GameTransformer
+    from photon_ml_tpu_torch.game.scoring import raw_scores
+    from photon_ml_tpu_torch.types import TaskType
+
+    best, val = grid["best"], grid["val"]
+    uids = val.id_tags["userId"]
+    per = GRID_HELD_OUT_PER_USER
+    by_user = uids.reshape(-1, per)
+    if not ((by_user == by_user[:, :1]).all() and len(np.unique(by_user[:, 0])) ==
+            len(by_user) and (val.weight == 1).all()):
+        raise AssertionError(f"the held-out rows are not {per} contiguous unit-weight rows "
+                             "a user")
+    suite = EvaluationSuite.from_specs(SUITE_SPECS)
+    tr = GameTransformer(best.model, TaskType.LOGISTIC_REGRESSION, device="cuda")
+    t0 = time.perf_counter()
+    values = tr.evaluate(val, suite).values
+    t_suite = time.perf_counter() - t0
+    same = {k: values[k] == v for k, v in best.evaluation.values.items()}
+    log(f"evaluation suite on the card: {len(SUITE_SPECS)} evaluators over "
+        f"{val.num_samples} held-out rows ({len(by_user)} users) in {t_suite:.3f} s; "
+        "bitwise equal to best.evaluation: " + ", ".join(f"{k} {'ok' if v else 'DIFFERENT'}"
+                                                      for k, v in same.items()))
+    if not all(same.values()):
+        raise AssertionError("the transformer's evaluation differs from best.evaluation")
+
+    score, predict = tr.score(val), tr.predict(val)
+    raw = raw_scores(best.model, val, device="cuda")
+    ok = (torch.equal(score, best.model.score(val, device="cuda"))
+          and torch.equal(predict, torch.sigmoid(raw))
+          and torch.equal(raw, score + torch.as_tensor(val.offset, device="cuda")))
+    log(f"GameTransformer score == GameModel.score, predict == sigmoid(score + offset): "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("GameTransformer's score or predict is not the model's")
+
+    t0 = time.perf_counter()
+    host = _host_suite_metrics(raw.cpu().numpy(), np.asarray(val.y, np.float64), per)
+    t_host = time.perf_counter() - t0
+    errs = {k: abs(values[k] - v) / max(abs(v), 1e-300) for k, v in host.items()}
+    ok = set(host) == set(values) and max(errs.values()) <= SUITE_HOST_RTOL
+    log(f"card vs host float64 recomputation ({t_host:.2f} s on the host): "
+        + ", ".join(f"{k} {values[k]:.10g} vs {host[k]:.10g} ({errs[k]:.1e})" for k in host)
+        + f" (tol {SUITE_HOST_RTOL:g}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("an evaluator disagrees with its host recomputation")
+
+    y = torch.as_tensor(val.y, device="cuda", dtype=torch.float64)
+    w = torch.ones_like(y)
+    padded = pad_groups(uids, raw, y, w)
+    timing = {}
+    for ev in suite.evaluators:
+        fn = ev.metric_fn()
+        if ev.group_name is None:
+            timing[ev.name] = dict(ms=_median_event_ms(lambda: fn(raw, y, w)))
+        else:
+            timing[ev.name] = dict(
+                ms=_median_event_ms(lambda: ev.evaluate(raw, y, w, uids)),
+                without_layout_ms=_median_event_ms(
+                    lambda: grouped_mean(fn(*padded), padded[2])))
+    layout_ms = _median_event_ms(lambda: pad_groups(uids, raw, y, w))
+    ids_ms = _median_event_ms(lambda: torch.as_tensor(uids, device="cuda"))
+    log(f"evaluator times on the card (CUDA events, median of {SUITE_TIMING_REPS}): "
+        + ", ".join(f"{k} {v['ms']:.3f} ms" + (f" ({v['without_layout_ms']:.3f} ms on the "
+                                                "padded layout)" if len(v) > 1 else "")
+                    for k, v in timing.items())
+        + f"; the padded layout alone {layout_ms:.3f} ms, of it the ids' host-to-device "
+        f"copy {ids_ms:.3f} ms (its host part; the largest group's size is the one read "
+        "back)")
+    stats["evaluation_suite"] = dict(values=values, host=host, suite_s=t_suite,
+                                     host_s=t_host, timing=timing, layout_ms=layout_ms,
+                                     ids_upload_ms=ids_ms)
 
 
 KERNELS = {
@@ -2765,10 +3084,13 @@ def main() -> int:
     with Phase("19 glmix_chip-grid full width"):
         train, val = _per_user_split(host, xg)
         del xg, host
-        phase_glmix_chip_grid(stats, train, val)
+        grid = phase_glmix_chip_grid(stats, train, val)
     with Phase("20 glmix_chip-reg-path full width"):
         phase_glmix_chip_reg_path(stats, train, val)
     del train, val
+    with Phase("22 evaluation suite on the card"):
+        phase_evaluation_suite(stats, grid)
+    del grid
     with Phase("7 main path glmix2 TRON full width"):
         phase_glmix2_tron(stats)
     with Phase("8 main path glmix3 L-BFGS full width"):
@@ -2783,6 +3105,8 @@ def main() -> int:
         card = phase_glmix_sparse(stats)
     with Phase("13 card vs CPU full-width glmix_sparse"):
         phase_glmix_sparse_card_vs_cpu(card)
+    with Phase("21 glmix_sparse held out"):
+        phase_glmix_sparse_held_out(stats, card)
     del card
     with Phase("15 glmix2-norm-var full width"):
         phase_glmix2_norm_var(stats)

@@ -217,3 +217,14 @@ def synth_glmix_sparse_norm(scale: int = 1) -> dict:
     u_idx = np.concatenate([u["indices"], np.full((n, 1), GS_VOCAB, np.int32)], axis=1)
     u_val = np.concatenate([u["values"], np.ones((n, 1), np.float32)], axis=1)
     return dict(data, user={"indices": u_idx, "values": u_val, "dim": GS_VOCAB + 1})
+
+
+def last_rows_per_entity(ids: np.ndarray, count: int) -> np.ndarray:
+    """Boolean mask of the last ``count`` rows of every entity of ``ids``, in
+    order of appearance (a held-out split inside each entity)."""
+    ids = np.asarray(ids)
+    _, inverse, counts = np.unique(ids, return_inverse=True, return_counts=True)
+    order = np.argsort(inverse, kind="stable")
+    rank = np.empty(len(ids), np.int64)
+    rank[order] = np.arange(len(ids)) - (np.cumsum(counts) - counts)[inverse[order]]
+    return rank >= counts[inverse] - count

@@ -3,7 +3,8 @@
 from photon_ml_tpu_torch.game.config import (FixedEffectConfig, GameConfig,
                                              RandomEffectConfig)
 from photon_ml_tpu_torch.game.data import GameData, SparseShard
-from photon_ml_tpu_torch.game.estimator import GameEstimator, GameFitResult
+from photon_ml_tpu_torch.game.estimator import (GameEstimator, GameFitResult,
+                                                GameTransformer)
 
 __all__ = ["FixedEffectConfig", "GameConfig", "GameData", "GameEstimator",
-           "GameFitResult", "RandomEffectConfig", "SparseShard"]
+           "GameFitResult", "GameTransformer", "RandomEffectConfig", "SparseShard"]

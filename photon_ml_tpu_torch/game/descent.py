@@ -22,6 +22,7 @@ import torch
 from photon_ml_tpu_torch.evaluation.evaluator import EvaluationResults, EvaluationSuite
 from photon_ml_tpu_torch.game.coordinate import Coordinate
 from photon_ml_tpu_torch.game.data import GameData
+from photon_ml_tpu_torch.game.scoring import raw_scores
 from photon_ml_tpu_torch.models.game import DatumScoringModel, GameModel
 
 logger = logging.getLogger(__name__)
@@ -107,9 +108,9 @@ class CoordinateDescent:
                 if self.validation is not None:
                     val_data, suite = self.validation
                     current = GameModel(models=dict(models))
-                    val_scores = current.score(val_data, device) + torch.as_tensor(
-                        val_data.offset, device=device)
-                    val_res = suite.evaluate(val_scores, val_data.y, val_data.weight)
+                    val_res = suite.evaluate(raw_scores(current, val_data, device),
+                                             val_data.y, val_data.weight,
+                                             group_ids=val_data.id_tags)
                     last_eval = val_res
                     # best-model retention compares full models only
                     if k == last and suite.better_than(val_res, best_eval):

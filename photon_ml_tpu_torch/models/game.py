@@ -298,6 +298,12 @@ class GameModel:
                               (m.score(data, dev) for m in self.models.values()),
                               device=dev)
 
+    def predict(self, data: "GameData", task: TaskType, device=DEFAULT_DEVICE) -> Tensor:
+        """The task's mean (inverse link) of the score plus the offsets."""
+        from photon_ml_tpu_torch.game.scoring import output_scores, raw_scores
+
+        return output_scores(raw_scores(self, data, device), task, predict_mean=True)
+
     def __getitem__(self, cid: str) -> DatumScoringModel:
         return self.models[cid]
 

@@ -12,9 +12,8 @@ first-weight dispatch.  Under a context the port publishes the variances in
 original space, as the means and as the GAME coordinates do; the JAX version
 returns them in the transformed space, so the test maps the JAX variances
 out through the JAX context before comparing.  ``select_best_glm`` picks the
-JAX package's weight for ``auc`` and ``logistic_loss``; the task defaults
-that are not ported (``rmse``, ``poisson_loss``) raise the
-NotImplementedError naming their ROADMAP item.
+JAX package's weight for ``auc`` and ``logistic_loss``, and under every
+task's default metric (``rmse`` for linear, ``poisson_loss`` for Poisson).
 """
 
 import jax.numpy as jnp
@@ -228,10 +227,27 @@ def test_select_best_glm_scores_on_the_asked_device():
             select_best_glm(path, x, y, **device)
 
 
+@pytest.mark.parametrize("task", ["linear", "poisson"])
+def test_select_best_glm_default_metric_matches_jax(task):
+    """Linear and Poisson paths selected by their default metrics (``rmse``,
+    ``poisson_loss``) on held-out rows: the JAX package's weight."""
+    t_task, j_task = TASKS[task]
+    x, y, off, wt = _glm(task, n=900, d=12, seed=10)
+    weights = [1e-3, 1.0, 30.0, 300.0, 3000.0]
+    jp, _ = j_path(x[:300], y[:300], j_task, weights, dtype=np.float64)
+    tp, _ = train_glm_reg_path(x[:300], y[:300], t_task, weights, dtype=torch.float64,
+                               device="cpu")
+    kw = dict(offset=off[300:], weight=wt[300:])
+    jlam, _ = j_select(jp, x[300:], y[300:], **kw)
+    tlam, tmodel = select_best_glm(tp, x[300:], y[300:], device="cpu", **kw)
+    assert tlam == jlam and tmodel is dict(tp)[tlam]
+
+
 def test_reference_errors():
     """The reference's ValueErrors (no weights, an empty path, task NONE
-    without a metric), and the NotImplementedError of the task defaults not
-    ported yet: ``rmse`` (linear) and ``poisson_loss`` (Poisson)."""
+    without a metric, an unknown metric, a grouped metric without group
+    ids), and the task defaults of linear (``rmse``) and Poisson
+    (``poisson_loss``) tasks selecting without an error."""
     x, y, _, _ = _glm()
     with pytest.raises(ValueError, match="at least one regularization weight"):
         train_glm_reg_path(x, y, TaskType.LOGISTIC_REGRESSION, [], device="cpu")
@@ -243,8 +259,11 @@ def test_reference_errors():
         train_glm_reg_path(x, y, TaskType.LOGISTIC_REGRESSION, [1.0],
                            reg_type=RegularizationType.L1, optimizer=OptimizerType.TRON,
                            device="cpu")
-    for task, metric in ((TaskType.LINEAR_REGRESSION, "rmse"),
-                         (TaskType.POISSON_REGRESSION, "poisson_loss")):
+    path = [(1.0, GLMModel(Coefficients(np.zeros(6)), TaskType.LOGISTIC_REGRESSION))]
+    with pytest.raises(ValueError, match="not a valid EvaluatorType"):
+        select_best_glm(path, x, y, metric="auroc", device="cpu")
+    with pytest.raises(ValueError, match="needs group ids"):
+        select_best_glm(path, x, y, metric="auc:userId", device="cpu")
+    for task in (TaskType.LINEAR_REGRESSION, TaskType.POISSON_REGRESSION):
         path = [(1.0, GLMModel(Coefficients(np.zeros(6)), task))]
-        with pytest.raises(NotImplementedError, match=f"{metric}.*item 5"):
-            select_best_glm(path, x, y)
+        assert select_best_glm(path, x, y, device="cpu") == path[0]
