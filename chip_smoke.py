@@ -67,6 +67,22 @@ Phases, each printing its result and wall time on its own line:
     (Mann-Whitney ranks, numpy sorts, closed-form losses, pairwise per-user
     AUC), and each metric's time (CUDA events), the grouped ones with and
     without the padded layout's build;
+23. (after phase 22) glmix_chip-retrain at full width, the daily partial
+    retrain: (a) phase 19's held-out rows as the day's data (users whose id
+    % 8 == 1 keep 4 of their 8 rows, under a per-user lower bound of 8),
+    fitted by ``best.config`` warm-started from ``best.model`` without the
+    users whose id % 16 == 1 and with the fixed effect locked: the fixed
+    effect bitwise the prior's with no kernel-1 launch in the fit, kernel 3
+    launched, the 8,192 under-bound users the prior covers without a lane
+    and bitwise the prior's, the 8,192 new ones trained, 122,880 lanes; (b)
+    the grid's first three points on phase 19's rows with a checkpoint hook
+    (12 saves: the reference's cursors, ``updated`` None on each
+    configuration's first save, ``best`` None before its first complete
+    sweep), then a resume from the save after point 1's third update: 2
+    results, at least the checkpointed best, kernels 1 and 3 launched, and
+    every save and result within 3x the spread of a resume from the same
+    checkpoint nudged by one float32 ulp; (c) both at 4,096 users, card
+    against CPU within F32_PATH_RTOL;
 7. glmix2 at full width under TRON on both coordinates (2048 users x 256
    rows, 256 fixed / 16 per-user features; the per-user lanes are outside
    the SoA gate and run the lane-batched TRON): fit, score, AUC against the
@@ -141,8 +157,10 @@ Phases, each printing its result and wall time on its own line:
     one-ulp nudges of the data; zero-set disagreements); (b) the per-lane
     fold where the shifts are large: glmix2's per-user shard shifted, with
     an intercept and unobserved columns per user, under INDEX_MAP and
-    STANDARDIZATION at scale 8, card against CPU, where a publish without
-    the fold must fail the comparison by more than its tolerance;
+    STANDARDIZATION at scale 8, card against CPU within 3x the CPU fit's own
+    spread under one-ulp nudges of the per-user values (F32_PATH_RTOL where
+    larger), where a publish without the fold must fail the comparison by
+    more than its per-user tolerance;
 18. glmix2-en-box at full width: glmix2-norm-var's data and contexts, the
     fixed effect under elastic net (OWLQN as one lane over
     ``fused_value_and_grad`` with shifts, launches > 0; L1 chosen by CPU
@@ -272,6 +290,16 @@ GS_PER_USER_GAIN = 0.01  # glmix_sparse's held-out AUC >= the fixed effect's alo
 GS_BAYES_SLACK = 0.005  # ... and <= the held-out rows' Bayes AUC + this: above it
 # the model would read the labels' noise, which only leakage can do
 GS_COMPACT_AUC_TOL = 1e-6  # held-out AUC, compact model vs its dense twin
+RETRAIN_THIN, RETRAIN_THIN_ROWS = 8, 4  # glmix_chip-retrain: the users whose id % 8
+# == 1 keep only the first 4 of their 8 held-out rows, under the bound (16,384 users)
+RETRAIN_NEW = 16  # the prior leaves out the users whose id % 16 == 1: 8,192 of the
+# thinned users are new and train, the other 8,192 pass through from the prior
+RETRAIN_MIN_ACTIVE = 8  # the per-user lower bound of glmix_chip-retrain
+RESUME_POINTS = 3  # 23(b): the grid's first three points, two sweeps of two coordinates
+RESUME_CRASH = {"config": 1, "iteration": 1, "coordinate": 1}  # after point 1's third
+# update; the resume recomputes the total score as a fresh sum where the run
+# accumulated it, so it is held within F32_SPREAD_MULTIPLE x the spread of a
+# resume from the same checkpoint nudged by one float32 ulp
 SUITE_SPECS = ["auc", "aupr", "rmse", "logistic_loss", "squared_loss", "poisson_loss",
                "smoothed_hinge_loss", "precision@1000", "auc:userId", "aupr:userId",
                "precision@4:userId"]  # phase 22: every evaluator type, three grouped
@@ -981,13 +1009,14 @@ def phase_glmix3(stats: dict):
 
 
 def _compare_fits(label, data_gpu, data_cpu, config, coords, norms=(None, None),
-                  path=None, stats=None, required=(), check_card=None):
+                  path=None, stats=None, required=(), check_card=None, tols=None):
     """Card and CPU fits of ``config`` (under the normalization contexts
     ``norms``, one per device): coefficients, variances where the config
     asks for them, scores and AUC; random-effect stacks are compared on the
     card.  With ``path``, the card fit's kernel launches are counted (from
     0) and recorded under it.  ``check_card`` gets the card fit's result
-    before the CPU fit."""
+    before the CPU fit.  ``tols(cpu_result, cpu_scores)`` gives each
+    compared quantity's tolerance (default: F32_PATH_RTOL for all)."""
     import torch
 
     kernels = _zero_launches()
@@ -999,11 +1028,12 @@ def _compare_fits(label, data_gpu, data_cpu, config, coords, norms=(None, None),
     rc, sc, auc_c, tc, _ = _fit_and_score(data_cpu, "cpu", config, norms[1])
     errs = _model_errors(label, rg.model, rc.model, coords)
     errs["scores"] = rel_err(sg.cpu(), sc)
-    ok = max(errs.values()) <= F32_PATH_RTOL and abs(auc_g - auc_c) <= 1e-3
-    log(f"card vs CPU, {label}: fit {tg:.2f} s vs {tc:.2f} s; max rel diff "
-        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-        + f" (tol {F32_PATH_RTOL:g}); AUC {auc_g:.5f} vs {auc_c:.5f} "
-        f"{'ok' if ok else 'MISMATCH'}")
+    tol = {k: F32_PATH_RTOL for k in errs} if tols is None else tols(rc, sc)
+    ok = all(errs[k] <= tol[k] for k in errs) and abs(auc_g - auc_c) <= 1e-3
+    fmt = lambda e: ", ".join(f"{k} {v:.2e}" for k, v in e.items())
+    log(f"card vs CPU, {label}: fit {tg:.2f} s vs {tc:.2f} s; max rel diff {fmt(errs)} "
+        + (f"(tol {F32_PATH_RTOL:g})" if tols is None else f"(tol {fmt(tol)})")
+        + f"; AUC {auc_g:.5f} vs {auc_c:.5f} {'ok' if ok else 'MISMATCH'}")
     if not ok:
         raise AssertionError(f"{label}: card and CPU fits disagree beyond the float32 "
                              "tolerance")
@@ -2253,22 +2283,44 @@ def phase_fold_card_vs_cpu(stats: dict):
     data = _baseline_data(host)
     label = (f"fold check, glmix2 per-user shard shifted, INDEX_MAP, STANDARDIZATION, "
              f"elastic net, at scale {REDUCED_GLMIX2_SCALE} ({data.num_samples} rows)")
+    spreads, tol = [], {}
+
+    def spread_tols(rc, sc):
+        # the comparison's own float32 spread: CPU fits of the same rows with
+        # every per-user value moved by about one ulp, one per seed; each
+        # quantity within F32_PATH_RTOL, or F32_SPREAD_MULTIPLE x its largest
+        # spread where larger, as in phase 17
+        for seed in F32_SPREAD_SEEDS:
+            xu = host["xu"] * (1 + np.float32(2 ** -23) * np.random.default_rng(seed).choice(
+                np.float32([-1, 1]), host["xu"].shape))
+            rn, sn, _, _, _ = _fit_and_score(_baseline_data(dict(host, xu=xu)), "cpu", cfg,
+                                             norms[1])
+            sp = _model_errors(label, rn.model, rc.model, ["per-user"])
+            sp["scores"] = rel_err(sn, sc)
+            spreads.append(sp)
+        tol.update({k: max(F32_PATH_RTOL, F32_SPREAD_MULTIPLE * max(sp[k] for sp in spreads))
+                    for k in spreads[0]})
+        log(f"fold check: the float32 CPU fit's own spread under one-ulp nudges of the "
+            f"per-user values, seeds {F32_SPREAD_SEEDS}: "
+            + "; ".join(", ".join(f"{k} {v:.2e}" for k, v in sp.items()) for sp in spreads))
+        return tol
+
     rg, rc = _compare_fits(label, data, data, cfg, ["per-user"], norms=tuple(norms),
                            path="fold_reduced", stats=stats,
-                           required=("fused_value_and_grad",))
+                           required=("fused_value_and_grad",), tols=spread_tols)
     shifts = norms[1]["u"].shifts.double().numpy()
     w = np.asarray(rg.model["per-user"].w_stack, np.float64)
     unfolded = w.copy()
     unfolded[:, ii] += w @ shifts  # unobserved columns publish 0
     e_unfolded = rel_err(unfolded, rc.model["per-user"].w_stack)
-    ok = e_unfolded > F32_PATH_RTOL
+    ok = e_unfolded > tol["per-user"]
     log(f"fold check: max |shift| {float(np.abs(shifts).max()):.3f}; a publish without the "
         f"per-lane intercept fold reads rel diff {e_unfolded:.2e} against the CPU fit, "
-        f"{e_unfolded / F32_PATH_RTOL:.0f}x the tolerance {F32_PATH_RTOL:g} (must exceed "
-        f"it) {'ok' if ok else 'FAILED'}")
+        f"{e_unfolded / tol['per-user']:.1f}x the per-user tolerance "
+        f"{tol['per-user']:.2e} (must exceed it) {'ok' if ok else 'FAILED'}")
     if not ok:
         raise AssertionError("fold check: the card-vs-CPU comparison cannot see the fold")
-    stats["fold_reduced"] = dict(unfolded_rel=e_unfolded)
+    stats["fold_reduced"] = dict(unfolded_rel=e_unfolded, f32_spreads=spreads, tol=tol)
 
 
 def _en_box_config(l1, num_iters=2):
@@ -2446,6 +2498,17 @@ def _per_user_split(host, xg):
     return parts
 
 
+def _part_data(part: dict, device: str = "cuda", users=None):
+    """GameData of a ``_per_user_split`` part (of its first ``users`` users
+    where given), the fixed design moved to ``device``."""
+    from photon_ml_tpu_torch.game import GameData
+
+    m = len(part["y"]) if users is None else users * (len(part["y"]) // MAIN_USERS)
+    return GameData(y=part["y"][:m], features={"g": part["xg"][:m].to(device),
+                                               "u": part["xu"][:m]},
+                    id_tags={"userId": part["uids"][:m]})
+
+
 def phase_glmix_chip_grid(stats: dict, train: dict, val: dict) -> dict:
     """glmix_chip-grid at full width: one ``GameEstimator.fit`` over the grid
     of ``_grid_configs`` on ``train`` (``_per_user_split``), with validation
@@ -2465,17 +2528,13 @@ def phase_glmix_chip_grid(stats: dict, train: dict, val: dict) -> dict:
     import photon_ml_tpu_torch.game.estimator as est_mod
     from photon_ml_tpu_torch.evaluation.evaluator import EvaluationSuite
     from photon_ml_tpu_torch.evaluation.metrics import auc_roc
-    from photon_ml_tpu_torch.game import GameData, GameEstimator
+    from photon_ml_tpu_torch.game import GameEstimator
     from photon_ml_tpu_torch.game.coordinate import build_coordinate
     from photon_ml_tpu_torch.game.descent import CoordinateDescent
 
-    def game_data(part):
-        return GameData(y=part["y"], features={"g": part["xg"], "u": part["xu"]},
-                        id_tags={"userId": part["uids"]})
-
     m, n_val = len(train["y"]), len(val["y"])
     bayes = _bayes_auc(train)
-    train, val = game_data(train), game_data(val)
+    train, val = _part_data(train), _part_data(val)
     groups = len(np.unique(val.id_tags["userId"]))
     suite = EvaluationSuite.from_specs(GRID_SUITE)
     configs = _grid_configs()
@@ -2588,6 +2647,313 @@ def phase_glmix_chip_grid(stats: dict, train: dict, val: dict) -> dict:
                                     best=pick, bayes_auc=bayes, fresh_last_point_s=t_fresh,
                                     peak_gb=peak)
     return dict(best=results[pick], val=val)
+
+
+def _retrain_data(part: dict, device: str):
+    """glmix_chip-retrain's data of the day: ``part``'s held-out rows
+    (GRID_HELD_OUT_PER_USER a user, contiguous), except that every user
+    whose id % RETRAIN_THIN == 1 keeps only its first RETRAIN_THIN_ROWS;
+    the fixed design is gathered where it lives, then moved to ``device``."""
+    import numpy as np
+    import torch
+
+    pos = np.arange(len(part["uids"])) % GRID_HELD_OUT_PER_USER
+    rows = np.nonzero((part["uids"] % RETRAIN_THIN != 1) | (pos < RETRAIN_THIN_ROWS))[0]
+    idx = torch.as_tensor(rows, device=part["xg"].device)
+    return _part_data({k: v[idx] if k == "xg" else v[rows] for k, v in part.items()}, device)
+
+
+def _retrain_prior(model, users=None):
+    """glmix_chip-retrain's prior: ``model`` without the per-user rows of the
+    users whose id % RETRAIN_NEW == 1 (and, with ``users``, of every id from
+    ``users`` on)."""
+    import dataclasses
+
+    import numpy as np
+
+    from photon_ml_tpu_torch.models.game import GameModel
+
+    re = model["per-user"]
+    keep = [u for u in sorted(re.slot_of)
+            if u % RETRAIN_NEW != 1 and (users is None or u < users)]
+    rows = np.asarray([re.slot_of[u] for u in keep])
+    re = dataclasses.replace(re, w_stack=re.w_stack[rows],
+                             slot_of={u: i for i, u in enumerate(keep)},
+                             variances=None if re.variances is None else re.variances[rows])
+    return GameModel(models={**model.models, "per-user": re})
+
+
+def _retrain_config(config):
+    """``config`` with the per-user lower bound at RETRAIN_MIN_ACTIVE."""
+    import dataclasses
+
+    c = config.coordinates
+    return dataclasses.replace(config, coordinates={
+        **c, "per-user": dataclasses.replace(c["per-user"],
+                                             min_active_samples=RETRAIN_MIN_ACTIVE)})
+
+
+def _observed_fit(device: str, data, configs, specs=None, **kw) -> dict:
+    """One ``GameEstimator.fit`` on ``device`` (validated by ``specs``),
+    its construction timed by a wrapper around the estimator's
+    ``build_coordinate``, which keeps the coordinates built, and the card's
+    kernel launches counted from 0.  Returns the results, the coordinates
+    built, construction and fit seconds, launches and each update's solver
+    iterations."""
+    import torch
+
+    import photon_ml_tpu_torch.game.estimator as est_mod
+    from photon_ml_tpu_torch.evaluation.evaluator import EvaluationSuite
+    from photon_ml_tpu_torch.game import GameEstimator
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    real_build, built, build_s = est_mod.build_coordinate, {}, []
+
+    def timed_build(cid, *args, **kwargs):
+        t0 = time.perf_counter()
+        built[cid] = real_build(cid, *args, **kwargs)
+        sync()
+        build_s.append(time.perf_counter() - t0)
+        return built[cid]
+
+    suite = None if specs is None else EvaluationSuite.from_specs(specs)
+    kernels = _zero_launches()
+    est_mod.build_coordinate = timed_build
+    try:
+        sync()
+        t0 = time.perf_counter()
+        results = GameEstimator(device=device, validation_suite=suite).fit(data, configs,
+                                                                           **kw)
+        sync()
+        total = time.perf_counter() - t0
+    finally:
+        est_mod.build_coordinate = real_build
+    return dict(results=results, built=built, build_s=sum(build_s),
+                fit_s=total - sum(build_s),
+                launches={name: k.launches for name, k in kernels.items()},
+                iterations=[[st["solver_iterations"] for st in r.history.steps]
+                            for r in results])
+
+
+def _log_fit(label: str, out: dict) -> None:
+    log(f"{label}: construction {out['build_s']:.3f} s ({len(out['built'])} coordinates "
+        f"built), fit {out['fit_s']:.3f} s, solver iterations {out['iterations']}, "
+        f"launches {out['launches']}")
+
+
+def _retrain(label: str, device: str, today, prior, config) -> dict:
+    """23(a) on ``device``: ``config`` fitted on ``today`` from ``prior``
+    with the fixed effect locked.  Gates: the fixed effect is the prior's,
+    bitwise; the under-bound users that the prior covers have no lane and
+    keep the prior's rows bitwise; the under-bound new users have lanes and
+    trained (finite, nonzero) rows; every other user has a lane."""
+    import numpy as np
+
+    out = _observed_fit(device, today, [config], initial_model=prior,
+                        locked_coordinates={"fixed"})
+    _log_fit(label, out)
+    model = out["results"][0].model
+    lanes = out["built"]["per-user"].buckets.lane_of
+    re, re_prior = model["per-user"], prior["per-user"]
+    ids, counts = np.unique(today.id_tags["userId"], return_counts=True)
+    under = ids[counts < RETRAIN_MIN_ACTIVE]
+    covered = np.asarray([u for u in under.tolist() if u in re_prior.slot_of])
+    new = np.asarray([u for u in under.tolist() if u not in re_prior.slot_of])
+    rows = lambda m, us: m.w_stack[[m.slot_of[u] for u in us.tolist()]]
+    trained = rows(re, new)
+    checks = {
+        "fixed effect bitwise the prior's": np.array_equal(
+            model["fixed"].coefficients.means, prior["fixed"].coefficients.means),
+        f"{len(covered)} covered under-bound users without a lane":
+            len(covered) > 0 and not any(u in lanes for u in covered.tolist()),
+        "their rows bitwise the prior's": np.array_equal(rows(re, covered),
+                                                         rows(re_prior, covered)),
+        f"{len(new)} new under-bound users with lanes":
+            len(new) > 0 and all(u in lanes for u in new.tolist()),
+        "their rows trained": bool(np.isfinite(trained).all()
+                                   and (np.abs(trained).max(axis=1) > 0).all()),
+        f"{len(lanes)} lanes = {len(ids)} users - {len(covered)}":
+            len(lanes) == len(ids) - len(covered),
+    }
+    log(f"{label}: " + "; ".join(f"{k} {'ok' if v else 'FAILED'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"{label}: a warm-start gate failed")
+    out.update(covered=len(covered), new=len(new), lanes=len(lanes))
+    return out
+
+
+def _cursor_rule(num_configs: int, num_iters: int, num_coords: int) -> list:
+    """The reference's checkpoint cursors: after update (ci, it, k), the
+    next update's."""
+    return [{"config": ci, "iteration": it + (k + 1) // num_coords,
+             "coordinate": (k + 1) % num_coords}
+            for ci in range(num_configs) for it in range(num_iters)
+            for k in range(num_coords)]
+
+
+def _checkpoint_resume(label: str, device: str, train, val, nudge_seed=None) -> dict:
+    """23(b) on ``device``: the first RESUME_POINTS points of the grid with
+    a hook that keeps every save in memory, then a resume from the save at
+    RESUME_CRASH with its model, cursor and best (with ``nudge_seed``, also
+    from that model with every coefficient moved by about one float32 ulp).
+    Gates: the saves' number, cursors, ``updated`` and ``best`` as the
+    reference's rule gives them; the resume's result count and its best at
+    least the checkpointed best."""
+    import dataclasses
+
+    import numpy as np
+
+    from photon_ml_tpu_torch.models.game import GameModel
+
+    configs = _grid_configs()[:RESUME_POINTS]
+    order = list(configs[0].coordinates)
+    iters = configs[0].num_outer_iterations
+    saves = []
+    full = _observed_fit(device, train, configs, GRID_SUITE, validation_data=val,
+                         checkpoint_hook=lambda m, cur, **h: saves.append((m, cur, h)))
+    _log_fit(f"{label}, uninterrupted", full)
+    per_config = iters * len(order)
+    first = [i % per_config == 0 for i in range(len(saves))]
+    checks = {
+        f"{len(saves)} saves": len(saves) == RESUME_POINTS * per_config,
+        "cursors": [c for _, c, _ in saves] == _cursor_rule(RESUME_POINTS, iters, len(order)),
+        "updated None on each configuration's first save": [h["updated"] for _, _, h in saves]
+        == [None if f else order[i % len(order)] for i, f in enumerate(first)],
+        "best None before each configuration's first complete sweep":
+            [h["best"] is None for _, _, h in saves] == first,
+    }
+    crash = [c for _, c, _ in saves].index(RESUME_CRASH)
+    model, cursor, h = saves[crash]
+
+    def resume(m):
+        later = []
+        out = _observed_fit(device, train, configs, GRID_SUITE, validation_data=val,
+                            initial_model=m, resume_cursor=cursor, resume_best=h["best"],
+                            checkpoint_hook=lambda m, cur, **k: later.append((m, cur, k)))
+        out["saves"] = later
+        return out
+
+    resumed = resume(model)
+    _log_fit(f"{label}, resumed at {cursor}", resumed)
+    res = resumed["results"]
+    best_primary = h["best"][1].primary
+    checks[f"{len(res)} results"] = len(res) == RESUME_POINTS - cursor["config"]
+    checks["the resume's cursors those after the crash"] = (
+        [c for _, c, _ in resumed["saves"]] == [c for _, c, _ in saves[crash + 1:]])
+    checks[f"resumed point {cursor['config']}'s {GRID_SUITE[0]} {res[0].evaluation.primary:.6f}"
+           f" >= the checkpointed best's {best_primary:.6f} - 1e-9"] = (
+        res[0].evaluation.primary >= best_primary - 1e-9)
+    log(f"{label}: " + "; ".join(f"{k} {'ok' if v else 'FAILED'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"{label}: a checkpoint or resume gate failed")
+    full.update(saves=saves, resumed=resumed, crash=crash)
+    if nudge_seed is not None:
+        rng = np.random.default_rng(nudge_seed)
+        nudge = lambda a: a * (1 + np.float32(2 ** -23) * rng.choice(np.float32([-1, 1]),
+                                                                     a.shape))
+        fixed, re = model["fixed"], model["per-user"]
+        full["nudged"] = resume(GameModel(models={
+            "fixed": dataclasses.replace(fixed, coefficients=dataclasses.replace(
+                fixed.coefficients, means=nudge(fixed.coefficients.means))),
+            "per-user": dataclasses.replace(re, w_stack=nudge(re.w_stack))}))
+        _log_fit(f"{label}, resumed from the nudged checkpoint", full["nudged"])
+    return full
+
+
+def phase_glmix_chip_retrain(stats: dict, grid: dict, train: dict, val: dict):
+    """glmix_chip-retrain at full width: (a) a warm start from phase 19's
+    ``best`` with the fixed effect locked, on the day's data, through the
+    existing-model lower bound; (b) checkpoint and resume of the grid's
+    first points, the resume within a gate derived from its own one-ulp
+    spread; (c) both at REDUCED_USERS, card against CPU."""
+    import torch
+
+    best = grid["best"]
+    config = _retrain_config(best.config)
+    t0 = time.perf_counter()
+    today = _retrain_data(val, "cuda")
+    torch.cuda.synchronize()
+    log(f"glmix_chip-retrain data: {today.num_samples} rows of the held-out part, gathered "
+        f"on the card in {time.perf_counter() - t0:.3f} s; prior: best point's model "
+        f"without the users whose id % {RETRAIN_NEW} == 1; per-user lower bound "
+        f"{RETRAIN_MIN_ACTIVE}")
+    a = _retrain("glmix_chip-retrain (a) warm start, locked fixed effect", "cuda", today,
+                 _retrain_prior(best.model), config)
+    _record_path_launches("glmix_chip_retrain_a", a["launches"], stats, ("newton_step",))
+    if a["launches"]["fused_value_and_grad"] != 0:
+        raise AssertionError("glmix_chip-retrain (a): the locked fixed effect launched "
+                             "kernel 1")
+    del today
+
+    train_d, val_d = _part_data(train), _part_data(val)
+    b = _checkpoint_resume("glmix_chip-retrain (b) checkpoint and resume", "cuda", train_d,
+                           val_d, nudge_seed=F32_SPREAD_SEEDS[0])
+    _record_path_launches("glmix_chip_retrain_b", b["launches"], stats,
+                          ("fused_value_and_grad", "newton_step"))
+    _record_path_launches("glmix_chip_retrain_b_resume", b["resumed"]["launches"], stats,
+                          ("fused_value_and_grad", "newton_step"))
+    start = RESUME_CRASH["config"]
+    # the models compared: every save after the crash (the iterates), then
+    # the results (each point's best); a point's best can be the checkpointed
+    # one, which a nudge of the resume's start does not reach
+    states = lambda o, saves: [m for m, _, _ in saves] + [r.model for r in o["results"]]
+    uninterrupted = [m for m, _, _ in b["saves"][b["crash"] + 1:]] + [
+        r.model for r in b["results"][start:]]
+    resumed = states(b["resumed"], b["resumed"]["saves"])
+    nudged = states(b["nudged"], b["nudged"]["saves"])
+    compare = lambda x, y: _model_errors("glmix_chip-retrain (b)", x, y, ["per-user"])
+    gaps = [compare(r, u) for r, u in zip(resumed, uninterrupted)]
+    spreads = [compare(n, r) for n, r in zip(nudged, resumed)]
+    tol = {k: F32_SPREAD_MULTIPLE * max(sp[k] for sp in spreads) for k in spreads[0]}
+    ok = all(g[k] <= tol[k] for g in gaps for k in g)
+    fmt = lambda e: ", ".join(f"{k} {v:.2e}" for k, v in e.items())
+    worst = lambda errs: {k: max(e[k] for e in errs) for k in errs[0]}
+    log(f"glmix_chip-retrain (b): resumed against uninterrupted over {len(gaps)} models "
+        f"(the {len(b['resumed']['saves'])} saves after the crash and the "
+        f"{len(b['resumed']['results'])} results): largest rel diff {fmt(worst(gaps))}, "
+        f"per model " + "; ".join(fmt(g) for g in gaps)
+        + f" (tol {fmt(tol)}: {F32_SPREAD_MULTIPLE:g} x the largest spread of a resume from "
+        f"the checkpoint nudged by one ulp, per model " + "; ".join(fmt(sp) for sp in spreads)
+        + f") {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("glmix_chip-retrain (b): the resume differs from the "
+                             "uninterrupted run beyond its spread")
+
+    # (c) both at REDUCED_USERS, card against CPU
+    sides = {}
+    for device in ("cuda", "cpu"):
+        t_d, v_d = (_part_data(p, device, REDUCED_USERS) for p in (train, val))
+        v_part = {k: val[k][:REDUCED_USERS * GRID_HELD_OUT_PER_USER] for k in val}
+        sides[device] = (
+            _retrain(f"glmix_chip-retrain (c) at {REDUCED_USERS} users, {device}, (a)",
+                     device, _retrain_data(v_part, device),
+                     _retrain_prior(best.model, REDUCED_USERS), config),
+            _checkpoint_resume(f"glmix_chip-retrain (c) at {REDUCED_USERS} users, {device}, "
+                               "(b)", device, t_d, v_d))
+    (ga, gb), (ca, cb) = sides["cuda"], sides["cpu"]
+    errs = {"(a)": _model_errors("(c) (a)", ga["results"][0].model, ca["results"][0].model,
+                                 ["per-user"])}
+    for i, (g, c) in enumerate(zip(gb["results"], cb["results"])):
+        errs[f"(b) point {i}"] = _model_errors("(c) (b)", g.model, c.model, ["per-user"])
+    for i, (g, c) in enumerate(zip(gb["resumed"]["results"], cb["resumed"]["results"])):
+        errs[f"(b) resumed point {start + i}"] = _model_errors("(c) (b)", g.model, c.model,
+                                                               ["per-user"])
+    same_saves = ([(c, h["updated"], h["best"] is None) for _, c, h in gb["saves"]]
+                  == [(c, h["updated"], h["best"] is None) for _, c, h in cb["saves"]])
+    worst = max(max(e.values()) for e in errs.values())
+    ok = worst <= F32_PATH_RTOL and same_saves
+    log(f"card vs CPU, glmix_chip-retrain at {REDUCED_USERS} users: max rel diff "
+        + "; ".join(f"{k} {fmt(e)}" for k, e in errs.items())
+        + f" (tol {F32_PATH_RTOL:g}); the saves' cursors, updated and best "
+        f"{'the same' if same_saves else 'DIFFERENT'} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("glmix_chip-retrain: card and CPU disagree")
+    part = lambda o: dict(build_s=o["build_s"], fit_s=o["fit_s"], iterations=o["iterations"],
+                          launches=o["launches"])
+    stats["glmix_chip_retrain"] = dict(
+        a=dict(part(a), covered=a["covered"], new=a["new"], lanes=a["lanes"]),
+        b=part(b), b_resumed=part(b["resumed"]), b_nudged=part(b["nudged"]),
+        resume_gaps=gaps, resume_spreads=spreads, resume_tol=tol, card_vs_cpu=errs)
 
 
 def _logistic_gradient_f64(x, y, w, l2: float):
@@ -3087,10 +3453,11 @@ def main() -> int:
         grid = phase_glmix_chip_grid(stats, train, val)
     with Phase("20 glmix_chip-reg-path full width"):
         phase_glmix_chip_reg_path(stats, train, val)
-    del train, val
     with Phase("22 evaluation suite on the card"):
         phase_evaluation_suite(stats, grid)
-    del grid
+    with Phase("23 glmix_chip-retrain full width"):
+        phase_glmix_chip_retrain(stats, grid, train, val)
+    del train, val, grid
     with Phase("7 main path glmix2 TRON full width"):
         phase_glmix2_tron(stats)
     with Phase("8 main path glmix3 L-BFGS full width"):

@@ -57,6 +57,12 @@ fixed effect's ``down_sampling_rate`` draws each update's rows on the host
 from ``numpy.random.default_rng(seed)``, as the reference's host-paced path
 does, and uploads the [n] weight multiplier.
 
+A warm start's entity ids (``existing_model_keys``) shape a random
+effect's lanes through the lower bound: an entity under
+``min_active_samples`` is left out only when the prior covers it, and its
+prior row then passes through the published model unchanged
+(``merge_carry_through``) and scores through the model's ``slot_of``.
+
 The RANDOM projector, which the port does not carry yet, raises
 NotImplementedError naming the ROADMAP item that brings it.
 """
@@ -353,7 +359,8 @@ class RandomEffectCoordinate(Coordinate):
 
     def __init__(self, coordinate_id: str, data: GameData, config: RandomEffectConfig,
                  task: TaskType, seed: int, dtype: torch.dtype, device: torch.device,
-                 norm: Optional[NormalizationContext] = None):
+                 norm: Optional[NormalizationContext] = None,
+                 existing_model_keys: Optional[frozenset] = None):
         _refuse_unported(coordinate_id, config)
         shard = data.features[config.feature_shard]
         self._sparse = isinstance(shard, SparseShard)
@@ -375,6 +382,9 @@ class RandomEffectCoordinate(Coordinate):
         self._device = device
         self._loss = loss_for_task(task)
         self._base_offset = _as_device(data.offset, torch.float64, device)
+        # a warm start's entity ids: the lower bound drops only entities that
+        # the prior covers (their models pass through, ``merge_carry_through``)
+        self.existing_model_keys = existing_model_keys
         np_dtype = _numpy_dtype(dtype)
         entity_ids = data.id_tags[config.random_effect_type]
         rows = dict(y=np.asarray(data.y, np_dtype),
@@ -382,7 +392,7 @@ class RandomEffectCoordinate(Coordinate):
                     weight=np.asarray(data.weight, np_dtype),
                     active_cap=config.active_cap,
                     min_active_samples=config.min_active_samples, seed=seed,
-                    dtype=np_dtype)
+                    dtype=np_dtype, existing_model_keys=existing_model_keys)
 
         # solve_buckets: the buckets in the space the solvers see (compact
         # for sparse shards and INDEX_MAP); projections map them back
@@ -482,7 +492,8 @@ class RandomEffectCoordinate(Coordinate):
         optimization settings (regularization, per-entity multipliers,
         optimizer and solver, variances, box): what they derive is bound
         anew, and a change across the SoA gate permutes the buckets on the
-        device.  A change of the data configuration (the fields of
+        device.  The buckets, and the ``existing_model_keys`` that shaped
+        them, carry over.  A change of the data configuration (the fields of
         ``_re_data_key``) is a new layout: ValueError."""
         if (not isinstance(config, RandomEffectConfig)
                 or _re_data_key(config) != _re_data_key(self.config)):
@@ -709,15 +720,18 @@ def merge_carry_through(model: RandomEffectModel,
 def build_coordinate(coordinate_id: str, data: GameData, config: CoordinateConfig,
                      task: TaskType, seed: int = 0, dtype: torch.dtype = torch.float32,
                      device: "torch.device | str" = "cuda",
-                     norm: Optional[NormalizationContext] = None) -> Coordinate:
+                     norm: Optional[NormalizationContext] = None,
+                     existing_model_keys: Optional[frozenset] = None) -> Coordinate:
     """Construct the coordinate for ``config`` on ``device`` (default: the
     card, raising when none is present), in the transformed space of
-    ``norm`` (the shard's normalization context; None is the identity)."""
+    ``norm`` (the shard's normalization context; None is the identity).
+    ``existing_model_keys``: a warm start's entity ids for a random effect's
+    lower bound (``parallel.bucketing._group_rows``)."""
     device = resolve_device(device)
     if isinstance(config, FixedEffectConfig):
         return FixedEffectCoordinate(coordinate_id, data, config, task, dtype, device,
                                      norm)
     if isinstance(config, RandomEffectConfig):
         return RandomEffectCoordinate(coordinate_id, data, config, task, seed, dtype,
-                                      device, norm)
+                                      device, norm, existing_model_keys)
     raise TypeError(f"unknown coordinate config {type(config)!r}")

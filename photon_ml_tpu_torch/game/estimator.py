@@ -10,9 +10,13 @@ coordinate (``Coordinate.rebind``), and one that changes the data layout
 builds afresh.  ``best`` picks the grid point with the best primary metric
 on the validation data.  ``normalization`` maps a feature shard to the
 context that every coordinate on that shard solves under (models come out
-in original space).  ``GameTransformer`` scores, predicts and evaluates a
-fitted model.  The whole-sweep fused program (``FusedSweep``), locked
-coordinates and checkpoints are later slices.
+in original space).  ``initial_model`` warm-starts the first
+configuration, and its random-effect entity ids feed the lower bound
+(an under-bound entity the prior covers keeps its model); locked coordinates
+keep their initial model and are only scored; a checkpoint hook sees every
+update with its cursor, and a resume skips the work before the cursor.
+``GameTransformer`` scores, predicts and evaluates a fitted model.  The
+whole-sweep fused program (``FusedSweep``) is a later slice.
 """
 
 from __future__ import annotations
@@ -76,6 +80,23 @@ class GameEstimator:
         self.dtype = torch_dtype(dtype)
         self.normalization = normalization or {}
 
+    def build_one_coordinate(self, cid: str, data: GameData, ccfg, task: TaskType,
+                             seed: int = 0, initial_model: Optional[GameModel] = None
+                             ) -> Coordinate:
+        """The one construction call for a coordinate under this estimator's
+        device, dtype and normalization.  ``initial_model``: the entity ids
+        of its model for ``cid`` (dense or compact) feed a random effect's
+        lower bound (RandomEffectDataset.scala:322-333)."""
+        keys = None
+        if initial_model is not None and cid in initial_model:
+            m = initial_model[cid]
+            if hasattr(m, "slot_of"):
+                keys = frozenset(m.slot_of)
+        return build_coordinate(cid, data, ccfg, task, seed=seed, dtype=self.dtype,
+                                device=self.device,
+                                norm=self.normalization.get(ccfg.feature_shard),
+                                existing_model_keys=keys)
+
     def fit(self, data: GameData, configs: Sequence[GameConfig],
             validation_data: Optional[GameData] = None,
             initial_model: Optional[GameModel] = None,
@@ -83,23 +104,29 @@ class GameEstimator:
             seed: int = 0, checkpoint_hook=None,
             resume_cursor: Optional[Dict[str, int]] = None,
             resume_best=None) -> List[GameFitResult]:
-        """One result per configuration, in order.  ``initial_model``,
-        ``locked_coordinates``, ``checkpoint_hook``, ``resume_cursor`` and
-        ``resume_best`` take the reference's positions and are refused
-        unless None (or empty)."""
-        given = [name for name, v in (("initial_model", initial_model),
-                                      ("locked_coordinates", locked_coordinates or None),
-                                      ("checkpoint_hook", checkpoint_hook),
-                                      ("resume_cursor", resume_cursor),
-                                      ("resume_best", resume_best)) if v is not None]
-        if given:
-            raise NotImplementedError(
-                f"GameEstimator.fit({', '.join(given)}) is not ported yet (ROADMAP.md "
-                "'Modules still to port', item 6, estimator surface)")
+        """One result per configuration, in order.
+
+        ``initial_model`` warm-starts the first configuration.
+        ``locked_coordinates`` keep their model from ``initial_model`` and
+        are only scored.  ``checkpoint_hook(model, cursor, updated=cid,
+        best=(model, evaluation) | None, best_changed=bool)`` fires after
+        every coordinate update with the cursor {"config": ci, "iteration":
+        i, "coordinate": k} of the next update; each configuration's first
+        save has ``updated=None`` (a full snapshot).  ``resume_cursor``
+        skips the work before it (``initial_model`` must then be the
+        checkpointed model, and the configurations before the cursor's are
+        left out of the results); ``resume_best`` seeds the best-model
+        tracking of the configuration resumed."""
         results: List[GameFitResult] = []
-        warm: Optional[GameModel] = None
+        warm = initial_model
+        # only a warm start feeds the lower bound: on a resume, initial_model
+        # is the checkpoint, and an under-bound entity that the run left out
+        # of it must stay out, not train as a new one
+        prior_for_bounds = initial_model if resume_cursor is None else None
         prev: Dict[str, Coordinate] = {}
-        for config in configs:
+        for ci, config in enumerate(configs):
+            if resume_cursor is not None and ci < resume_cursor.get("config", 0):
+                continue
             coordinates = {}
             for cid, ccfg in config.coordinates.items():
                 norm = self.normalization.get(ccfg.feature_shard)
@@ -114,8 +141,8 @@ class GameEstimator:
                         except ValueError:
                             pass  # another data layout: build afresh
                 if coord is None:
-                    coord = build_coordinate(cid, data, ccfg, config.task, seed=seed,
-                                             dtype=self.dtype, device=self.device, norm=norm)
+                    coord = self.build_one_coordinate(cid, data, ccfg, config.task, seed,
+                                                      initial_model=prior_for_bounds)
                 coordinates[cid] = coord
             prev = coordinates
             validation = None
@@ -123,8 +150,24 @@ class GameEstimator:
                 validation = (validation_data, self.validation_suite)
             descent = CoordinateDescent(coordinates, order=list(config.coordinates),
                                         num_iterations=config.num_outer_iterations,
-                                        validation=validation)
-            model, history, ev = descent.run(self.device, initial=warm, seed=seed)
+                                        validation=validation, locked=locked_coordinates)
+            hook = None
+            if checkpoint_hook is not None:
+                first_save = [True]
+
+                def hook(m, cur, ci=ci, first_save=first_save, **kw):
+                    # each configuration's first save is a full snapshot: its
+                    # warm start may differ from the previous save's model
+                    if first_save[0]:
+                        kw["updated"] = None
+                        first_save[0] = False
+                    checkpoint_hook(m, {**cur, "config": ci}, **kw)
+            resuming_here = (resume_cursor is not None
+                             and ci == resume_cursor.get("config", 0))
+            model, history, ev = descent.run(
+                self.device, initial=warm, seed=seed, checkpoint_hook=hook,
+                resume_cursor=resume_cursor if resuming_here else None,
+                resume_best=resume_best if resuming_here else None)
             results.append(GameFitResult(model=model, config=config, evaluation=ev,
                                          history=history))
             warm = model

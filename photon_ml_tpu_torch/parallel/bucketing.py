@@ -73,10 +73,16 @@ class EntityBuckets:
 
 
 def _group_rows(entity_ids: np.ndarray, active_cap: Optional[int],
-                min_active_samples: int, seed: int
+                min_active_samples: int, seed: int,
+                existing_model_keys: Optional[frozenset] = None
                 ) -> Tuple[List[np.ndarray], List[int], List[float]]:
     """Group sample rows by entity with the deterministic reservoir cap +
-    weight rescale count/cap and the min-active lower bound."""
+    weight rescale count/cap and the min-active lower bound.
+
+    ``existing_model_keys`` (a warm start's entity ids): an entity under the
+    bound is dropped only when the prior model covers it, and that model
+    then passes through unchanged; an under-bound new entity still trains
+    (RandomEffectDataset.scala:322-333)."""
     uniq, inverse, counts = np.unique(entity_ids, return_inverse=True,
                                       return_counts=True)
     order = np.argsort(inverse, kind="stable")  # rows grouped by entity
@@ -87,7 +93,8 @@ def _group_rows(entity_ids: np.ndarray, active_cap: Optional[int],
     rescale: List[float] = []
     for e in range(len(uniq)):
         rows = order[starts[e]: starts[e + 1]]
-        if len(rows) < min_active_samples:
+        if len(rows) < min_active_samples and (
+                existing_model_keys is None or int(uniq[e]) in existing_model_keys):
             continue
         scale = 1.0
         if active_cap is not None and len(rows) > active_cap:
@@ -132,14 +139,15 @@ def bucket_by_entity(entity_ids: np.ndarray, x: "np.ndarray | Tensor", y: np.nda
                      offset: Optional[np.ndarray] = None,
                      weight: Optional[np.ndarray] = None,
                      active_cap: Optional[int] = None, min_active_samples: int = 1,
-                     lane_multiple: int = 1, seed: int = 0,
-                     dtype=np.float32) -> EntityBuckets:
+                     lane_multiple: int = 1, seed: int = 0, dtype=np.float32,
+                     existing_model_keys: Optional[frozenset] = None) -> EntityBuckets:
     """Group samples by entity into power-of-two-capacity buckets.
 
     ``active_cap``: deterministic reservoir cap per entity with weight
     rescale count/cap; overflow samples are dropped from training (scoring
     still covers them).  ``min_active_samples``: entities with fewer samples
-    are excluded.  ``lane_multiple``: pad each bucket's lane count to a
+    are excluded, except new ones when ``existing_model_keys`` (a warm
+    start's entity ids) is given.  ``lane_multiple``: pad each bucket's lane count to a
     multiple.  ``x`` may be numpy or a torch tensor (e.g. on the device):
     the bucket design blocks are gathered where it lives."""
     n = len(entity_ids)
@@ -152,7 +160,7 @@ def bucket_by_entity(entity_ids: np.ndarray, x: "np.ndarray | Tensor", y: np.nda
     d = x.shape[1]
 
     kept_rows, kept_entities, rescale = _group_rows(
-        entity_ids, active_cap, min_active_samples, seed)
+        entity_ids, active_cap, min_active_samples, seed, existing_model_keys)
     caps = _capacity_classes(kept_rows)
     buckets: List[Bucket] = []
     lane_of: Dict[int, Tuple[int, int]] = {}
@@ -243,7 +251,8 @@ def bucket_by_entity_sparse(entity_ids: np.ndarray, indices: np.ndarray,
                             min_active_samples: int = 1, lane_multiple: int = 1,
                             seed: int = 0, dtype=np.float32,
                             features_to_samples_ratio: Optional[float] = None,
-                            intercept_index: Optional[int] = None):
+                            intercept_index: Optional[int] = None,
+                            existing_model_keys: Optional[frozenset] = None):
     """Compact per-entity buckets built directly from row-sparse features.
 
     Each entity solves in the space of the columns its active samples
@@ -252,6 +261,8 @@ def bucket_by_entity_sparse(entity_ids: np.ndarray, indices: np.ndarray,
     arrays (zero values ignored, duplicate indices within a row accumulate).
     ``features_to_samples_ratio`` / ``intercept_index``: the per-entity
     |Pearson| top-k filter, as ``build_observed_indices`` applies it.
+    ``existing_model_keys``: the lower bound's warm-start rule, as in
+    ``bucket_by_entity``.
 
     Returns ``(EntityBuckets, projections)``: compact buckets (``x`` a CPU
     tensor) plus one ``BucketProjection`` per bucket mapping compact columns
@@ -270,7 +281,7 @@ def bucket_by_entity_sparse(entity_ids: np.ndarray, indices: np.ndarray,
     weight = np.ones(n, dtype) if weight is None else np.asarray(weight, dtype)
 
     kept_rows, kept_entities, rescale = _group_rows(
-        entity_ids, active_cap, min_active_samples, seed)
+        entity_ids, active_cap, min_active_samples, seed, existing_model_keys)
 
     def _compact_lane(rows: np.ndarray):
         """(observed columns, compact dense block [len(rows), n_obs])."""

@@ -13,9 +13,9 @@ the PyTorch port against the JAX package, on the CPU in float64.
   8 of its 32 rows validate): the port's held-out AUC within 1e-6 of the
   JAX package's, and the compact model's through the transformer equal to
   the dense model's.
-- ``GameEstimator(mesh=...)``, ``fused=True`` and ``fit``'s five arguments
-  of the reference that the port does not carry raise NotImplementedError
-  naming their ROADMAP items.
+- ``GameEstimator(mesh=...)`` and ``fused=True`` raise NotImplementedError
+  naming their ROADMAP items; ``fit`` takes the reference's arguments in
+  the reference's positions.
 """
 
 import numpy as np
@@ -270,14 +270,20 @@ def test_estimator_refuses_what_is_not_ported():
     est = GameEstimator(device="cpu", dtype=torch.float64)
     configs = _grid(GameConfig, FixedEffectConfig, RandomEffectConfig, SolverConfig, TReg,
                     TaskType)[:1]
-    model = GameModel(models={})
-    for name, value in (("initial_model", model), ("locked_coordinates", {"fixed"}),
-                        ("checkpoint_hook", lambda *a, **k: None),
-                        ("resume_cursor", {"config": 0}), ("resume_best", (model, None))):
-        _refusal(lambda: est.fit(part(GameData, ~held), configs, **{name: value}), 6, name)
-    # the reference's positional order: data, configs, validation_data,
-    # initial_model, locked_coordinates, seed
-    _refusal(lambda: est.fit(part(GameData, ~held), configs, None, model), 6,
-             "initial_model")
     res = est.fit(part(GameData, ~held), configs, None, None, set(), 3)
     assert len(res) == 1
+    # the reference's positional order: data, configs, validation_data,
+    # initial_model, locked_coordinates, seed, checkpoint_hook, resume_cursor,
+    # resume_best; the five reference arguments run since they were ported
+    model = res[0].model
+    saves = []
+    hook = lambda m, cur, **kw: saves.append((cur, kw["updated"]))
+    by_position = est.fit(part(GameData, ~held), configs, None, model, {"fixed"}, 3, hook,
+                          {"config": 0, "iteration": 1, "coordinate": 1}, None)
+    by_name = est.fit(part(GameData, ~held), configs, initial_model=model,
+                      locked_coordinates={"fixed"}, seed=3,
+                      resume_cursor={"config": 0, "iteration": 1, "coordinate": 1})
+    assert by_position[0].model["fixed"] is model["fixed"]  # locked
+    np.testing.assert_array_equal(by_position[0].model["per-user"].w_stack,
+                                  by_name[0].model["per-user"].w_stack)
+    assert saves == [({"config": 0, "iteration": 2, "coordinate": 0}, None)]
