@@ -168,9 +168,27 @@ Phases, each printing its result and wall time on its own line:
     [0, inf) (the box-constrained lane L-BFGS): AUC against the Bayes AUC,
     the bounds held and binding, the float64 pseudo- and projected-gradient
     norms, and the same configuration at scale 8 on the card and the CPU;
-14. printed last, after phases 15-18: one JSON line describing each
+24. after phase 18, narrow design storage (``storage_dtype="bfloat16"`` on
+    both coordinates): (a) glmix_chip-bf16 at full width, the design
+    generated at bf16 on the card (8.59 GB, 2 bytes an element), the peak
+    allocation from generation to the end of the fit below the float32
+    design's 17.2 GB, AUC >= 0.75, kernels 1 and 3 launched, and the
+    reference's bf16-vs-float32 gate against phase 5's fit (fixed
+    coefficients allclose at 0.08, per-user at 0.15, |dAUC| <= 5e-3); (b)
+    glmix2-TRON-bf16 at full width (kernels 1 and 2, the lane TRON over a
+    narrow ``LaneObjective``), AUC against Bayes and the same gate against
+    phase 7's fit; (c) both at a reduced size on the card and the CPU from
+    the same bf16 inputs, within F32_PATH_RTOL or 3x the CPU fit's own
+    spread under one-ulp nudges of the row weights; (d, e) the bf16 / f16
+    instantiations of kernels 1 and 2 (glmix_chip's and glmix2's shapes,
+    d = 257, odd rows, an unaligned X, n below a tile and one tile + 1,
+    float64 accumulation) against their plain versions, twice bitwise, and
+    of kernel 3 (x_t at bf16 / f16) within phase 4's gate, each main-path
+    shape timed as phases 3 and 4 time theirs;
+14. printed last, after phases 15-18 and 24: one JSON line describing each
     kernel, with its launches on each path and its device time alone
-    (``device_ms``) beside the event time (``ms``).
+    (``device_ms``) beside the event time (``ms``); the storage-width shapes
+    sit under ``by_shape`` with the launches of the path that runs them.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero and prints no result; so does a run without a
@@ -394,7 +412,9 @@ def settle(fn, seconds: float = 0.3) -> None:
 
 PROFILE_ATTEMPTS = 3  # traces of one measurement before it fails: a trace can
 # come back without the device records of a kernel the calls did launch
-# (seen once for the 2 us partials' reduction)
+# (seen once for the 2 us partials' reduction, and for most launches of the
+# bf16 kernels at glmix_chip's shape on an H100 80GB HBM3: 0.44 ms of
+# device time where the events read 4.38 ms, under the 2.59 ms bound)
 
 
 def profiled(fn, reps: int, kernels) -> dict:
@@ -402,9 +422,11 @@ def profiled(fn, reps: int, kernels) -> dict:
     ``reps`` calls after a warm-up call: the summed CUDA time of every kernel
     whose name contains one of ``kernels``, over ``reps`` (ms).  Also the
     host calls per ``fn`` call that would hold the card back inside a
-    wrapper: stream synchronizations and host-to-device copies.  A trace
-    that shows no device time for ``kernels`` is taken again, up to
-    PROFILE_ATTEMPTS traces in all."""
+    wrapper: stream synchronizations and host-to-device copies.  Each call
+    launches each of ``kernels`` once, so a kernel's time per call is its
+    recorded time over its recorded launches; a trace with no record of one
+    of them is taken again, up to PROFILE_ATTEMPTS traces in all, and one
+    with fewer than ``reps`` records is logged."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -415,19 +437,24 @@ def profiled(fn, reps: int, kernels) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        dev_us, syncs, htod = 0.0, 0, 0
+        syncs, htod = 0, 0
+        dev_us, records = dict.fromkeys(kernels, 0.0), dict.fromkeys(kernels, 0)
         for e in prof.key_averages():
-            if any(k in e.key for k in kernels):
-                dev_us += getattr(e, "self_device_time_total", 0) or e.self_cuda_time_total
+            for k in kernels:
+                if k in e.key:
+                    dev_us[k] += (getattr(e, "self_device_time_total", 0)
+                                  or e.self_cuda_time_total)
+                    records[k] += e.count
             if e.key == "cudaStreamSynchronize":
                 syncs += e.count
             if "HtoD" in e.key:
                 htod += e.count
-        if dev_us > 0:
-            return dict(device_ms=dev_us / 1e3 / reps, syncs_per_call=syncs / reps,
-                        htod_per_call=htod / reps)
-        log(f"profiler trace {attempt} of {PROFILE_ATTEMPTS} shows no device time for "
-            f"{kernels}")
+        if min(records.values()) < reps:
+            log(f"profiler trace {attempt} of {PROFILE_ATTEMPTS} shows {records} device "
+                f"records of {reps} calls of {kernels}")
+        if all(records.values()) and all(dev_us.values()):
+            return dict(device_ms=sum(dev_us[k] / records[k] for k in kernels) / 1e3,
+                        syncs_per_call=syncs / reps, htod_per_call=htod / reps)
     raise AssertionError(f"the profiler trace shows no device time for {kernels}")
 
 
@@ -463,19 +490,27 @@ def phase_device():
     return name, count, line
 
 
+_MANGLED_TYPES = {"f": "float32", "d": "float64", "13__nv_bfloat16": "bfloat16",
+                  "6__half": "float16"}
+
+
 def ptxas_table(report: str) -> dict:
-    """ptxas -v output -> {(kernel, dtype, other template ints): {first
-    template int: (registers, spill-store bytes)}}; a kernel templated on
-    the type alone has first int None."""
+    """ptxas -v output -> {(kernel, dtypes, other template ints): {first
+    template int: (registers, spill-store bytes)}}; ``dtypes`` joins the
+    template's types with "/" (storage and accumulation types of the
+    storage-width instantiations); a kernel templated on types alone has
+    first int None."""
     table: dict = {}
     entries = re.findall(r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
                          r"(\d+) bytes spill stores.*\n.*Used (\d+) registers", report)
+    types = "|".join(sorted(_MANGLED_TYPES, key=len, reverse=True))
     for fn, spill, regs in entries:
-        m = re.search(r"\d+([a-z_]+_kernel)I([fd])((?:Li\d+E)*)E", fn)
+        m = re.search(rf"\d+([a-z_]+_kernel)I((?:{types})+)((?:Li\d+E)*)E", fn)
         if m is None:
             raise AssertionError(f"unrecognised kernel symbol {fn}")
         ints = [int(i) for i in re.findall(r"Li(\d+)E", m.group(3))] or [None]
-        key = (m.group(1), {"f": "float32", "d": "float64"}[m.group(2)], tuple(ints[1:]))
+        dts = "/".join(_MANGLED_TYPES[t] for t in re.findall(types, m.group(2)))
+        key = (m.group(1), dts, tuple(ints[1:]))
         table.setdefault(key, {})[ints[0]] = (int(regs), int(spill))
     return table
 
@@ -618,13 +653,17 @@ def phase_fused_glm(stats: dict):
         stats.setdefault(k, {})["max_abs_err"] = e
 
 
-def _time_fused(stats, n, d, w, v, b, shift, v_shift, gen):
+def _time_fused(stats, n, d, w, v, b, shift, v_shift, gen, path_launches=None):
     """Kernel, plain and library times of both fused kernels at one main-path
-    shape (float32, logistic).  glmix_chip's shape is kernel 1's main path,
-    glmix2's is kernel 2's; the other shape is logged beside it.  The shifts
-    are 0-d tensors on the card, made once, as ``GLMObjective`` passes them:
-    a Python float costs the wrapper a blocking host-to-device copy per call,
-    which the event time would count (printed beside it as "float shifts")."""
+    shape (logistic; X at float32, or at a storage width with w and v at it
+    and y / offset / weight at float32).  glmix_chip's shape is kernel 1's
+    main path, glmix2's is kernel 2's; the other shape is logged beside it.
+    The shifts are 0-d tensors on the card, made once, as ``GLMObjective``
+    passes them: a Python float costs the wrapper a blocking host-to-device
+    copy per call, which the event time would count (printed beside it as
+    "float shifts").  A storage-width shape is recorded under "NxD dtype" with
+    ``path_launches`` ({kernel: (path, launches)}) where a path ran it; the
+    library yardstick then takes its operands at the storage width."""
     import torch
 
     from photon_ml_tpu_torch.core import losses as L
@@ -633,28 +672,30 @@ def _time_fused(stats, n, d, w, v, b, shift, v_shift, gen):
                                                    fused_value_and_grad_plain)
 
     loss = L.logistic_loss
-    item = b.x.element_size()
-    sh, vsh = (torch.tensor(s, dtype=b.x.dtype, device="cuda") for s in (shift, v_shift))
-    r = torch.rand(n, generator=gen, device="cuda", dtype=b.x.dtype)
+    item, acc = b.x.element_size(), b.y.element_size()
+    dt = str(b.x.dtype)[6:]
+    narrow = b.x.dtype != b.y.dtype
+    sh, vsh = (torch.tensor(s, dtype=b.y.dtype, device="cuda") for s in (shift, v_shift))
+    r = torch.rand(n, generator=gen, device="cuda").to(b.x.dtype)
     wv = torch.stack([w, v], dim=1)
-    reps = 10 if n * d > 1 << 28 else 50
+    reps = 10 if n * d * item > 1 << 30 else 50
     rows = {
         "fused_value_and_grad": dict(
             kernel=lambda: fused_value_and_grad(loss, w, b, sh),
             float_shifts=lambda: fused_value_and_grad(loss, w, b, shift),
             plain=lambda: fused_value_and_grad_plain(loss, w, b, sh),
             library=lambda: (torch.mv(b.x, w), torch.mv(b.x.T, r)),
-            library_name="torch.mv x2", names=("fvg_",),
-            nbytes=(n * d + 3 * n + d + d + 2) * item, flops=4 * n * d,
-            main=(n, d) == (MAIN_N, MAIN_D)),
+            library_name=f"torch.mv x2, {dt} operands", names=("fvg_",),
+            nbytes=(n * d + d) * item + (3 * n + d + 2) * acc, flops=4 * n * d,
+            main=(n, d) == (MAIN_N, MAIN_D) and not narrow),
         "fused_hvp": dict(
             kernel=lambda: fused_hvp(loss, w, v, b, sh, vsh),
             float_shifts=lambda: fused_hvp(loss, w, v, b, shift, v_shift),
             plain=lambda: fused_hvp_plain(loss, w, v, b, sh, vsh),
             library=lambda: (torch.mm(b.x, wv), torch.mv(b.x.T, r)),
-            library_name="torch.mm X[w|v] + torch.mv Xtq", names=("hvp_",),
-            nbytes=(n * d + 3 * n + 2 * d + d + 1) * item, flops=6 * n * d,
-            main=(n, d) == (GLMIX2_N, GLMIX2_D)),
+            library_name=f"torch.mm X[w|v] + torch.mv Xtq, {dt} operands", names=("hvp_",),
+            nbytes=(n * d + 2 * d) * item + (3 * n + d + 1) * acc, flops=6 * n * d,
+            main=(n, d) == (GLMIX2_N, GLMIX2_D) and not narrow),
     }
     for name, row in rows.items():
         settle(row["kernel"])
@@ -665,7 +706,7 @@ def _time_fused(stats, n, d, w, v, b, shift, v_shift, gen):
         plain_ms = cuda_ms(row["plain"], reps)
         lib_ms = cuda_ms(row["library"], reps)
         bound, by = _bound(row["nbytes"], row["flops"])
-        log(f"{name} timing n={n} d={d} float32 logistic: kernel {ms:.4f} ms (events; "
+        log(f"{name} timing n={n} d={d} {dt} logistic: kernel {ms:.4f} ms (events; "
             f"device alone {prof['device_ms']:.4f} ms, of which the partials' "
             f"reduction {red:.4f} ms; {prof['syncs_per_call']:g} stream "
             f"syncs and {prof['htod_per_call']:g} HtoD copies per call; float shifts "
@@ -678,7 +719,12 @@ def _time_fused(stats, n, d, w, v, b, shift, v_shift, gen):
             raise AssertionError(f"{name} syncs or copies to the card on the real path")
         timed = dict(ms=ms, device_ms=prof["device_ms"], reduce_ms=red, plain_ms=plain_ms,
                      library_ms=lib_ms, bound_ms=bound, bound_by=by)
-        stats.setdefault(name, {}).setdefault("by_shape", {})[f"{n}x{d}"] = timed
+        key = f"{n}x{d}"
+        if narrow:
+            key += f" {dt}"
+            path, count = (path_launches or {}).get(name, (None, 0))
+            timed.update(path=path, launches=count, library=row["library_name"])
+        stats.setdefault(name, {}).setdefault("by_shape", {})[key] = timed
         if row["main"]:
             stats[name].update(timed)
 
@@ -774,7 +820,7 @@ def phase_soa_newton(stats: dict):
     stats.setdefault("newton_step", {})["max_abs_err"] = worst
 
 
-def _glmix_config(num_iters=2, variance="none"):
+def _glmix_config(num_iters=2, variance="none", storage=None):
     from photon_ml_tpu_torch.core.regularization import Regularization
     from photon_ml_tpu_torch.game import FixedEffectConfig, GameConfig, RandomEffectConfig
     from photon_ml_tpu_torch.opt.types import SolverConfig
@@ -786,17 +832,19 @@ def _glmix_config(num_iters=2, variance="none"):
                       coordinates={
                           "fixed": FixedEffectConfig(feature_shard="g", solver=s,
                                                      reg=Regularization(l2=1.0),
-                                                     variance=var),
+                                                     variance=var, storage_dtype=storage),
                           "per-user": RandomEffectConfig(
                               random_effect_type="userId", feature_shard="u",
                               solver=s, reg=Regularization(l2=1.0),
-                              active_cap=MAIN_CAP, variance=var)})
+                              active_cap=MAIN_CAP, variance=var,
+                              storage_dtype=storage)})
 
 
-def _baseline_config(three: bool, optimizer):
+def _baseline_config(three: bool, optimizer, storage=None):
     """BASELINE glmix2 (three False) / glmix3: L2 1.0 on every coordinate, 30
     solver iterations at tolerance 1e-7, two sweeps (bench.py _glmix_coords),
-    every coordinate under ``optimizer``."""
+    every coordinate under ``optimizer`` and at ``storage`` (the storage
+    dtype of every coordinate, as bench.py's PHOTON_BENCH_STORAGE)."""
     from photon_ml_tpu_torch.core.regularization import Regularization
     from photon_ml_tpu_torch.game import FixedEffectConfig, GameConfig, RandomEffectConfig
     from photon_ml_tpu_torch.opt.types import SolverConfig
@@ -805,14 +853,14 @@ def _baseline_config(three: bool, optimizer):
     s = SolverConfig(max_iters=30, tolerance=1e-7)
     reg = Regularization(l2=1.0)
     coords = {"fixed": FixedEffectConfig(feature_shard="g", optimizer=optimizer,
-                                         solver=s, reg=reg),
+                                         solver=s, reg=reg, storage_dtype=storage),
               "per-user": RandomEffectConfig(random_effect_type="userId",
                                              feature_shard="u", optimizer=optimizer,
-                                             solver=s, reg=reg)}
+                                             solver=s, reg=reg, storage_dtype=storage)}
     if three:
         coords["per-item"] = RandomEffectConfig(random_effect_type="itemId",
                                                 feature_shard="i", optimizer=optimizer,
-                                                solver=s, reg=reg)
+                                                solver=s, reg=reg, storage_dtype=storage)
     return GameConfig(task=TaskType.LOGISTIC_REGRESSION, num_outer_iterations=2,
                       coordinates=coords)
 
@@ -912,10 +960,11 @@ def phase_main_path(stats: dict):
         f"card; generated in {time.perf_counter() - t0:.2f} s")
     data = GameData(y=host["y"], features={"g": xg, "u": host["xu"]},
                     id_tags={"userId": host["uids"]})
-    _, _, auc = _drive("glmix_chip", data, _glmix_config(), stats,
-                       required=("fused_value_and_grad", "newton_step"))
+    res, _, auc = _drive("glmix_chip", data, _glmix_config(), stats,
+                         required=("fused_value_and_grad", "newton_step"))
     if auc < AUC_FLOOR:
         raise AssertionError(f"glmix_chip AUC {auc:.4f} < {AUC_FLOOR}")
+    stats["glmix_chip"]["model"] = res.model  # phase 24(a)'s float32 yardstick
     return host, xg
 
 
@@ -989,7 +1038,7 @@ def phase_glmix2_tron(stats: dict):
     if not ok:
         raise AssertionError("glmix2 TRON and L-BFGS objectives disagree")
     stats["glmix2_tron"].update(objective=f_tron, objective_lbfgs=f_lbfgs,
-                                lbfgs_fit_s=lt_fit)
+                                lbfgs_fit_s=lt_fit, model=res.model)
 
 
 def phase_glmix3(stats: dict):
@@ -3313,6 +3362,338 @@ def phase_evaluation_suite(stats: dict, grid: dict):
                                      ids_upload_ms=ids_ms)
 
 
+# Phase 24: narrow design storage.  The fused kernels' storage-width cases
+# (n, d, storage, accumulation, rows skipped at X's start): the main paths'
+# shapes, odd rows (d = 3 and 257 at 2 bytes: 6- and 514-byte rows, whose
+# tile spans start and end off the 16-byte grid), X rows 1.. of a
+# contiguous tensor (data_ptr % 16 == 2 at d = 257: a lone 2-byte element
+# ahead of the first 4-byte word), n below one tile, and float64
+# accumulation
+NARROW_FUSED_CASES = [(MAIN_N, MAIN_D, "bfloat16", "float32", 0),
+                      (GLMIX2_N, GLMIX2_D, "bfloat16", "float32", 0),
+                      (GLMIX2_N, NORM_VAR_II + 1, "bfloat16", "float32", 0),
+                      (GLMIX2_N, GLMIX2_D, "float16", "float32", 0),
+                      (100_003, 3, "bfloat16", "float32", 0),
+                      (100_003, 129, "float16", "float32", 0),
+                      (7, 256, "bfloat16", "float32", 0),
+                      (100_003, 257, "bfloat16", "float32", 1),
+                      (100_003, 3, "float16", "float32", 1),
+                      (100_003, 129, "bfloat16", "float64", 0),
+                      (100_001, 5, "float16", "float64", 1)]
+NARROW_TILE_PLUS_ONE = [(257, "bfloat16"), (512, "float16")]  # n = the plan's tile + 1
+NARROW_TIMED = [(MAIN_N, MAIN_D, "bfloat16"), (GLMIX2_N, GLMIX2_D, "bfloat16"),
+                (GLMIX2_N, NORM_VAR_II + 1, "bfloat16"), (GLMIX2_N, GLMIX2_D, "float16")]
+# newton_step with x_t at a storage width: (d, cap, lanes, storage, solver dtype)
+NARROW_NEWTON = [(MAIN_DU, MAIN_CAP, MAIN_USERS, "bfloat16", "float32"),
+                 (MAIN_DU, MAIN_CAP, MAIN_USERS, "float16", "float32"),
+                 (16, 16, 1000, "bfloat16", "float32"), (1, 32, 1000, "float16", "float32"),
+                 (4, 32, 1000, "bfloat16", "float64")]
+NARROW_CHUNK_ROWS = 1 << 19  # a narrow design is drawn in float32 a chunk at a time
+BF16_FIXED_TOL, BF16_USER_TOL = 0.08, 0.15  # bf16 against float32 fits, rtol and atol:
+# the reference's own gate (tests/test_game.py, test_storage_dtype_mixed_precision_fit)
+BF16_AUC_TOL = 5e-3  # |training AUC(bf16) - AUC(float32)| on the same data
+
+
+def _narrow_glm_batch(n, d, storage, acc, gen, skip_rows=0, scale=0.05):
+    """(w, batch) on the card with X at ``storage`` (rows ``skip_rows``.. of a
+    contiguous tensor, drawn in float32 chunks and rounded), w at the
+    storage width (the effective coefficients as ``GLMObjective`` hands them
+    to the kernels), y / offset / weight at ``acc``."""
+    import torch
+
+    from photon_ml_tpu_torch.core.batch import DenseBatch
+
+    dev, sd, at = "cuda", getattr(torch, storage), getattr(torch, acc)
+    x = torch.empty((n + skip_rows, d), dtype=sd, device=dev)
+    for lo in range(0, n + skip_rows, NARROW_CHUNK_ROWS):
+        hi = min(lo + NARROW_CHUNK_ROWS, n + skip_rows)
+        x[lo:hi] = torch.randn((hi - lo, d), generator=gen, device=dev).to(sd)
+    y = (torch.rand(n, generator=gen, device=dev) < 0.4).to(at)
+    off = torch.randn(n, generator=gen, device=dev, dtype=at) * 0.1
+    wt = torch.rand(n, generator=gen, device=dev, dtype=at) + 0.5
+    wt[::10] = 0.0
+    w = (torch.randn(d, generator=gen, device=dev) * (scale / max(1, d) ** 0.5)).to(sd)
+    return w, DenseBatch(x=x[skip_rows:], y=y, offset=off, weight=wt)
+
+
+def _narrow_fused_cases():
+    import torch
+
+    from photon_ml_tpu_torch.ops import fused_glm
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = list(NARROW_FUSED_CASES)
+    for d, storage in NARROW_TILE_PLUS_ONE:
+        item = getattr(torch, storage).itemsize
+        cases.append((fused_glm.launch_plan(10**6, d, item, sms, 4).tile_rows + 1, d,
+                      storage, "float32", 0))
+    return cases
+
+
+def phase_narrow_kernels(stats: dict):
+    """24(d) and (e): the storage-width instantiations of kernels 1, 2 and 3
+    against their plain versions on the card (F32_KERNEL_RTOL, or
+    F64_KERNEL_RTOL at float64 accumulation; kernels 1 and 2 twice, bitwise
+    equal; kernel 3 within phase 4's gate against a float64 evaluation of the
+    same narrow inputs), then each main-path shape timed as phases 3 and 4
+    time theirs, with the launches of the phase 24 path that runs it."""
+    import torch
+
+    from photon_ml_tpu_torch.core import losses as L
+    from photon_ml_tpu_torch.ops.fused_glm import (fused_hvp, fused_hvp_plain,
+                                                   fused_value_and_grad,
+                                                   fused_value_and_grad_plain,
+                                                   launch_plan)
+    from photon_ml_tpu_torch.ops.soa_newton import newton_step, newton_step_plain
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    losses = (L.logistic_loss, L.squared_loss, L.poisson_loss, L.smoothed_hinge_loss)
+    shift, v_shift = 0.03, -0.02
+    paths = {(MAIN_N, MAIN_D, "bfloat16"): "glmix_chip_bf16",
+             (GLMIX2_N, GLMIX2_D, "bfloat16"): "glmix2_tron_bf16"}
+    for n, d, storage, acc, skip in _narrow_fused_cases():
+        w, b = _narrow_glm_batch(n, d, storage, acc, gen, skip)
+        v = (torch.randn(d, generator=gen, device="cuda") / max(1, d) ** 0.5).to(w.dtype)
+        tol = F32_KERNEL_RTOL if acc == "float32" else F64_KERNEL_RTOL
+        plan = launch_plan(n, d, b.x.element_size(), sms, b.y.element_size())
+        tag = (f"n={n} d={d} {storage} in {acc}"
+               + (f" data_ptr%16={b.x.data_ptr() % 16}" if skip else ""))
+        log(f"fused {tag}: {_plan_text(plan)}")
+        errs = {}
+        for loss in losses:
+            def fvg():
+                return fused_value_and_grad(loss, w, b, margin_shift=shift)
+
+            def hvp():
+                return fused_hvp(loss, w, v, b, margin_shift=shift, v_shift=v_shift)
+
+            errs[("fused_value_and_grad", loss.name)] = _check_close(
+                f"fused_value_and_grad {tag} {loss.name} (value grad rsum)", fvg(), fvg(),
+                fused_value_and_grad_plain(loss, w, b, margin_shift=shift), tol)
+            errs[("fused_hvp", loss.name)] = _check_close(
+                f"fused_hvp {tag} {loss.name} (Xtq sum q)", hvp(), hvp(),
+                fused_hvp_plain(loss, w, v, b, margin_shift=shift, v_shift=v_shift), tol)
+        if acc == "float32" and not skip and (n, d, storage) in NARROW_TIMED:
+            path = paths.get((n, d, storage))
+            launches = {k: (path, stats[k]["launches_by_path"].get(path, 0) if path else 0)
+                        for k in ("fused_value_and_grad", "fused_hvp")}
+            _time_fused(stats, n, d, w, v, b, shift, v_shift, gen, launches)
+            for k in ("fused_value_and_grad", "fused_hvp"):
+                stats[k]["by_shape"][f"{n}x{d} {storage}"]["max_abs_err"] = \
+                    errs[(k, "logistic")]
+        del w, v, b
+        torch.cuda.empty_cache()
+
+    for d, cap, nl, storage, acc in NARROW_NEWTON:
+        w, g, x, y, off, wt, l2 = _soa_inputs(d, cap, nl, getattr(torch, acc), gen)
+        x = x.to(getattr(torch, storage))
+        args = (w, g, x, y, off, wt, l2)
+        for loss in (L.logistic_loss, L.squared_loss, L.poisson_loss):
+            k = newton_step(loss, *args)
+            p = newton_step_plain(loss, *args)
+            ref = newton_step_plain(loss, *[a.double() for a in args])
+            e_k, e_p = rel_err(k, ref), rel_err(p, ref)
+            tol = max(NEWTON_F32_FACTOR * e_p, 1e-5) if acc == "float32" else F64_KERNEL_RTOL
+            ok = e_k <= tol and bool(torch.isfinite(k).all())
+            log(f"newton_step d={d} cap={cap} L={nl} x_t {storage}, {acc} {loss.name}: rel "
+                f"err vs plain {rel_err(k, p):.2e}, vs float64 of the same inputs: kernel "
+                f"{e_k:.2e}, plain {e_p:.2e} (tol {tol:.2e}) {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"newton_step disagrees at d={d} cap={cap} L={nl} "
+                                     f"x_t {storage} {loss.name}")
+        if (d, cap, nl, acc) == (MAIN_DU, MAIN_CAP, MAIN_USERS, "float32"):
+            _time_narrow_newton(stats, storage, args)
+
+
+def _time_narrow_newton(stats, storage, args):
+    """newton_step's times at glmix_chip's per-user shape with x_t at a
+    storage width (phase 4's measurements; the yardstick widens x_t)."""
+    import torch
+
+    from photon_ml_tpu_torch.core import losses as L
+    from photon_ml_tpu_torch.ops.soa_newton import newton_step, newton_step_plain
+
+    loss = L.logistic_loss
+    w, x = args[0], args[2]
+    d, nl = w.shape
+    cap = x.shape[0]
+    ms = cuda_ms(lambda: newton_step(loss, *args), 20)
+    prof = profiled(lambda: newton_step(loss, *args), 20, ("newton_step_kernel",))
+    plain_ms = cuda_ms(lambda: newton_step_plain(loss, *args), 5)
+    lib_ms = cuda_ms(lambda: _library_newton(loss, *args[:2], x.float(), *args[3:]), 5)
+    nbytes = cap * d * nl * x.element_size() + (3 * cap * nl + 3 * d * nl + nl) * 4
+    flops = nl * (cap * (2 * d + 10 + d + d * (d + 1)) + d ** 3 // 3 + 2 * d * d)
+    bound, by = _bound(nbytes, flops)
+    log(f"newton_step timing d={d} cap={cap} L={nl} x_t {storage} logistic: kernel "
+        f"{ms:.4f} ms (events; device alone {prof['device_ms']:.4f} ms, "
+        f"{prof['syncs_per_call']:g} stream syncs and {prof['htod_per_call']:g} HtoD "
+        f"copies per call), plain {plain_ms:.3f} ms, library (einsum on x_t widened to "
+        f"float32 + cholesky + cholesky_solve) {lib_ms:.3f} ms, bound {bound:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB, {flops / 1e6:.0f} MFLOP), "
+        f"{bound / prof['device_ms']:.0%} of bound")
+    if prof["syncs_per_call"] or prof["htod_per_call"]:
+        raise AssertionError("newton_step syncs or copies to the card")
+    path = "glmix_chip_bf16" if storage == "bfloat16" else None
+    st = stats["newton_step"]
+    st.setdefault("by_shape", {})[f"{d}x{cap}x{nl} {storage}"] = dict(
+        ms=ms, device_ms=prof["device_ms"], plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=bound, bound_by=by, max_abs_err=abs_err(newton_step(loss, *args),
+                                                         newton_step_plain(loss, *args)),
+        path=path, launches=st["launches_by_path"].get(path, 0) if path else 0,
+        library="einsum + cholesky + cholesky_solve, x_t widened to float32")
+
+
+def _bf16_vs_f32(label, model, f32_model, auc, f32_auc) -> dict:
+    """The reference's bf16-against-float32 gate on one model pair: fixed
+    coefficients within rtol and atol BF16_FIXED_TOL, the per-user stack
+    within BF16_USER_TOL (elementwise, numpy.allclose), and the training AUCs
+    within BF16_AUC_TOL."""
+    import numpy as np
+
+    fb = np.asarray(model["fixed"].coefficients.means, np.float64)
+    ff = np.asarray(f32_model["fixed"].coefficients.means, np.float64)
+    ub = np.asarray(model["per-user"].w_stack, np.float64)
+    uf = np.asarray(f32_model["per-user"].w_stack, np.float64)
+    if model["per-user"].slot_of != f32_model["per-user"].slot_of:
+        raise AssertionError(f"{label}: the bf16 and float32 models have other entities")
+    # the largest |a - b| - atol - rtol |b|: <= 0 passes numpy.allclose
+    excess = lambda a, b, t: float((np.abs(a - b) - t - t * np.abs(b)).max())
+    out = dict(fixed_excess=excess(fb, ff, BF16_FIXED_TOL),
+               user_excess=excess(ub, uf, BF16_USER_TOL),
+               fixed_rel=rel_err(fb, ff), user_rel=rel_err(ub, uf),
+               auc_diff=abs(auc - f32_auc))
+    ok = out["fixed_excess"] <= 0 and out["user_excess"] <= 0 and \
+        out["auc_diff"] <= BF16_AUC_TOL
+    log(f"{label} against float32: fixed max rel diff {out['fixed_rel']:.2e} (allclose at "
+        f"{BF16_FIXED_TOL}: excess {out['fixed_excess']:.3g}), per-user {out['user_rel']:.2e} "
+        f"(allclose at {BF16_USER_TOL}: excess {out['user_excess']:.3g}), AUC {auc:.5f} vs "
+        f"{f32_auc:.5f}, |diff| {out['auc_diff']:.2e} (tol {BF16_AUC_TOL:g}) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"{label}: bf16 storage moves the fit beyond the reference's "
+                             "bf16-vs-float32 gate")
+    return out
+
+
+def phase_glmix_chip_bf16(stats: dict, host: dict):
+    """24(a): glmix_chip at full width with storage_dtype "bfloat16" on both
+    coordinates (the reference's chip settings, bench.py run_glmix_chip): the
+    [n, 512] design generated at bf16 on the card (8.59 GB), fitted through
+    GameEstimator.fit with the kernel-1 and kernel-3 launches counted; X held
+    at 2 bytes an element, the peak allocation from data generation to the
+    end of the fit below the float32 design's 17.2 GB, AUC >= AUC_FLOOR, and
+    the reference's bf16-vs-float32 gate against phase 5's float32 fit of
+    the same data."""
+    import torch
+
+    from photon_ml_tpu_torch.data.synthetic import chip_design
+    from photon_ml_tpu_torch.game import GameData
+
+    f32_bytes = MAIN_N * MAIN_D * 4
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    xg = chip_design(host["n"], "cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    gen_peak = torch.cuda.max_memory_allocated()
+    log(f"glmix_chip-bf16 data: design {tuple(xg.shape)} {xg.dtype}, "
+        f"{xg.element_size()} bytes an element, {xg.numel() * xg.element_size() / 1e9:.2f} GB "
+        f"on the card (float32: {f32_bytes / 1e9:.2f} GB); generated in "
+        f"{time.perf_counter() - t0:.2f} s, peak {gen_peak / 1e9:.2f} GB "
+        f"({held / 1e9:.2f} GB held before)")
+    if xg.element_size() != 2:
+        raise AssertionError("glmix_chip-bf16's design is not 2 bytes an element")
+    data = GameData(y=host["y"], features={"g": xg, "u": host["xu"]},
+                    id_tags={"userId": host["uids"]})
+    res, _, auc = _drive("glmix_chip_bf16", data, _glmix_config(storage="bfloat16"), stats,
+                         required=("fused_value_and_grad", "newton_step"))
+    peak = max(gen_peak, torch.cuda.max_memory_allocated())
+    ok = peak < f32_bytes and auc >= AUC_FLOOR
+    log(f"glmix_chip-bf16: peak device memory from data generation to the end of the fit "
+        f"{peak / 1e9:.2f} GB (gate: below the float32 design's {f32_bytes / 1e9:.2f} GB), "
+        f"AUC {auc:.4f} (gate: >= {AUC_FLOOR}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("glmix_chip-bf16 peak memory or AUC gate failed")
+    if res.model["fixed"].coefficients.means.dtype.name != "float32":
+        raise AssertionError("glmix_chip-bf16 publishes coefficients that are not float32")
+    f32 = stats["glmix_chip"]
+    stats["glmix_chip_bf16"].update(peak_gb=peak / 1e9, **_bf16_vs_f32(
+        "glmix_chip-bf16", res.model, f32["model"], auc, f32["auc"]))
+    log(f"glmix_chip-bf16 vs glmix_chip on this card: fit {stats['glmix_chip_bf16']['fit_s']:.2f}"
+        f" s vs {f32['fit_s']:.2f} s (construction {stats['glmix_chip_bf16']['build_s']:.2f} s "
+        f"vs {f32['build_s']:.2f} s)")
+    return xg
+
+
+def phase_glmix2_tron_bf16(stats: dict):
+    """24(b): glmix2 under TRON on both coordinates with storage_dtype
+    "bfloat16" (bench.py's PHOTON_BENCH_STORAGE), the designs rounded once on
+    the host (synth_glmix's storage option): kernels 1 and 2 on the fixed
+    effect, the lane TRON over a narrow LaneObjective on the per-user one;
+    AUC against the Bayes AUC and the bf16-vs-float32 gate against phase 7."""
+    from photon_ml_tpu_torch.data.synthetic import synth_glmix
+    from photon_ml_tpu_torch.types import OptimizerType
+
+    host = synth_glmix(1, three=False, storage="bfloat16")
+    data = _baseline_data(host)
+    res, _, auc = _drive("glmix2_tron_bf16", data,
+                         _baseline_config(False, OptimizerType.TRON, storage="bfloat16"),
+                         stats, required=("fused_value_and_grad", "fused_hvp"))
+    _check_bayes("glmix2_tron_bf16", auc, _bayes_auc(host))
+    f32 = stats["glmix2_tron"]
+    stats["glmix2_tron_bf16"].update(**_bf16_vs_f32(
+        "glmix2-TRON-bf16", res.model, f32["model"], auc, f32["auc"]))
+
+
+def phase_narrow_card_vs_cpu(host: dict, xg):
+    """24(c): both phase 24 configurations at REDUCED_USERS users on the card
+    and on the CPU from the same bf16 inputs, within F32_PATH_RTOL or
+    F32_SPREAD_MULTIPLE x the CPU fit's own spread where larger: CPU fits
+    with every row weight moved by one float32 ulp (the weights stay at
+    float32 under narrow storage), one per seed of F32_SPREAD_SEEDS."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.data.synthetic import synth_glmix
+    from photon_ml_tpu_torch.game import GameData
+    from photon_ml_tpu_torch.types import OptimizerType
+
+    m = REDUCED_USERS * host["per_user"]
+    chip = dict(y=host["y"][:m], id_tags={"userId": host["uids"][:m]})
+    glmix2 = synth_glmix(REDUCED_GLMIX2_SCALE, three=False, storage="bfloat16")
+    cases = [
+        (f"glmix_chip-bf16 at {REDUCED_USERS} users ({m} rows)",
+         GameData(features={"g": xg[:m].clone(), "u": host["xu"][:m]}, **chip),
+         GameData(features={"g": xg[:m].cpu(), "u": host["xu"][:m]}, **chip),
+         _glmix_config(storage="bfloat16")),
+        (f"glmix2-TRON-bf16 at scale {REDUCED_GLMIX2_SCALE}", _baseline_data(glmix2),
+         _baseline_data(glmix2),
+         _baseline_config(False, OptimizerType.TRON, storage="bfloat16"))]
+    for label, gpu, cpu, cfg in cases:
+        def spread_tols(rc, sc, label=label, cpu=cpu, cfg=cfg):
+            spreads = []
+            for seed in F32_SPREAD_SEEDS[:2]:
+                rng = np.random.default_rng(seed)
+                wt = (1 + np.float32(2 ** -23) * rng.choice(np.float32([-1, 1]),
+                                                            cpu.num_samples))
+                nudged = GameData(y=cpu.y, features=cpu.features, id_tags=cpu.id_tags,
+                                  weight=wt.astype(np.float32))
+                rn, sn, _, _, _ = _fit_and_score(nudged, "cpu", cfg)
+                sp = _model_errors(label, rn.model, rc.model, ["per-user"])
+                sp["scores"] = rel_err(sn, sc)
+                spreads.append(sp)
+            log(f"card vs CPU, {label}: the float32 CPU fit's own spread under one-ulp "
+                f"nudges of the row weights, seeds {F32_SPREAD_SEEDS[:2]}: "
+                + "; ".join(", ".join(f"{k} {v:.2e}" for k, v in sp.items())
+                            for sp in spreads))
+            return {k: max(F32_PATH_RTOL, F32_SPREAD_MULTIPLE * max(sp[k] for sp in spreads))
+                    for k in spreads[0]}
+
+        _compare_fits(label, gpu, cpu, cfg, ["per-user"], tols=spread_tols)
+
+
 KERNELS = {
     "fused_value_and_grad": dict(
         source="photon_ml_tpu_torch/csrc/fused_glm.cu",
@@ -3449,7 +3830,7 @@ def main() -> int:
         glmix_chip_reduced = phase_card_vs_cpu(host, xg)
     with Phase("19 glmix_chip-grid full width"):
         train, val = _per_user_split(host, xg)
-        del xg, host
+        del xg  # host stays for phase 24
         grid = phase_glmix_chip_grid(stats, train, val)
     with Phase("20 glmix_chip-reg-path full width"):
         phase_glmix_chip_reg_path(stats, train, val)
@@ -3484,6 +3865,15 @@ def main() -> int:
         phase_glmix_sparse_norm_en(stats)
     with Phase("18 glmix2-en-box full width"):
         phase_glmix2_en_box(stats)
+    with Phase("24(a) glmix_chip-bf16 full width"):
+        xg16 = phase_glmix_chip_bf16(stats, host)
+    with Phase("24(b) glmix2-TRON-bf16 full width"):
+        phase_glmix2_tron_bf16(stats)
+    with Phase("24(c) card vs CPU, bf16 storage"):
+        phase_narrow_card_vs_cpu(host, xg16)
+    del xg16, host
+    with Phase("24(d, e) storage-width kernels vs plain, and their times"):
+        phase_narrow_kernels(stats)
     with Phase("14 kernels"):
         kernels = []
         for kname, meta in KERNELS.items():

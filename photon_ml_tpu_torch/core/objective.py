@@ -33,6 +33,19 @@ squared design never exists at full size.  ``soa_hessian_diag`` /
 ``soa_hessian`` are their forms for the lanes-last buckets [cap, d, L] of
 the SoA Newton path (no normalization there: its gate excludes it).
 
+Narrow storage follows the reference's mixed-precision contract on every
+path that reads a design.  A dense batch whose ``x`` is a narrowing of the
+solver dtype (``ops.fused_glm.storage_narrowing_ok``: bf16 / f16 against
+float32) goes to the fused kernels with the effective coefficients rounded
+to the storage width; the kernels round the residual to it before Xᵀr and
+accumulate at the solver width.  Any other mix (wider storage) takes the
+plain path: margins and Xᵀr with the same roundings (``storage_mv`` /
+``storage_rmv``), decided from the dtypes before any launch.  Sparse values
+are widened and neither the coefficients nor the residual are rounded.  The
+Hessian diagonal forms x² at the storage width and rounds q to it, as the
+reference's ``hessian_diag`` does through its mixed Xᵀr; the full Hessian
+widens x.  ``LaneObjective`` rounds w and r as the dense batch does.
+
 Objectives are weighted SUMS, not means, as in the reference.
 """
 
@@ -43,11 +56,13 @@ from typing import Tuple
 
 import torch
 
-from photon_ml_tpu_torch.core.batch import Batch, DenseBatch, SparseBatch, full_f32_matmul
+from photon_ml_tpu_torch.core.batch import (Batch, DenseBatch, SparseBatch, full_f32_matmul,
+                                            narrow, storage_rmv, to_storage)
 from photon_ml_tpu_torch.core.losses import PointwiseLoss
 from photon_ml_tpu_torch.core.normalization import NormalizationContext, no_normalization
 from photon_ml_tpu_torch.core.regularization import Regularization
-from photon_ml_tpu_torch.ops.fused_glm import fused_hvp, fused_value_and_grad
+from photon_ml_tpu_torch.ops.fused_glm import (fused_hvp, fused_value_and_grad,
+                                               storage_narrowing_ok)
 from photon_ml_tpu_torch.ops.soa_newton import hessian_soa, soa_margins
 
 Tensor = torch.Tensor
@@ -64,7 +79,7 @@ def _xt_dot_sparse(batch: SparseBatch, r: Tensor) -> Tensor:
     by ``index_add_``; on CUDA, where ``index_add_`` adds with atomics in an
     order that changes from run to run, by ``index_put_(accumulate=True)``,
     which stable-sorts the slots by column first."""
-    contrib = batch.values * r[:, None]
+    contrib = batch.values.to(r.dtype) * r[:, None]
     out = torch.zeros(batch.dim, dtype=contrib.dtype, device=contrib.device)
     idx, terms = batch.indices.reshape(-1), contrib.reshape(-1)
     if out.is_cuda:
@@ -109,14 +124,22 @@ class GLMObjective:
     def raw_value_and_grad(self, w: Tensor, batch: Batch
                            ) -> Tuple[Tensor, Tensor, Tensor]:
         """(Σ wt·l, Xᵀr, Σ r) with no regularization or chain rule applied."""
+        if isinstance(batch, DenseBatch) and storage_narrowing_ok(batch.x.dtype, w.dtype):
+            eff = narrow(self.norm.effective_coefficients(w), batch.x.dtype)
+            return fused_value_and_grad(self.loss, eff, batch,
+                                        margin_shift=self.norm.margin_shift(w))
+        z = self._safe_margins(w, batch)
+        l, d1 = self.loss.loss_and_d1(z, batch.y)
+        r = batch.weight * d1
+        return torch.sum(batch.weight * l), self._xt_dot(batch, r), torch.sum(r)
+
+    @staticmethod
+    def _xt_dot(batch: Batch, r: Tensor) -> Tensor:
+        """Xᵀr outside the kernels: a sparse scatter-add, or a dense product
+        with r rounded to the storage width."""
         if isinstance(batch, SparseBatch):
-            z = self._safe_margins(w, batch)
-            l, d1 = self.loss.loss_and_d1(z, batch.y)
-            r = batch.weight * d1
-            return torch.sum(batch.weight * l), _xt_dot_sparse(batch, r), torch.sum(r)
-        eff = self.norm.effective_coefficients(w)
-        return fused_value_and_grad(self.loss, eff, batch,
-                                    margin_shift=self.norm.margin_shift(w))
+            return _xt_dot_sparse(batch, r)
+        return storage_rmv(r, batch.x)
 
     def finish_value_and_grad(self, w: Tensor, raw_val: Tensor, g_raw: Tensor,
                               r_sum: Tensor) -> Tuple[Tensor, Tensor]:
@@ -131,16 +154,16 @@ class GLMObjective:
 
     def raw_hvp(self, w: Tensor, batch: Batch, v: Tensor) -> Tuple[Tensor, Tensor]:
         """(Xᵀq, Σ q) raw sums, q = wt·l''(z)·(margin derivative along v)."""
-        if isinstance(batch, SparseBatch):
-            z = self._safe_margins(w, batch)
-            mv = batch.margins(self.norm.effective_coefficients(v)) + \
-                self.norm.margin_shift(v)
-            q = batch.weight * self.loss.d2(z, batch.y) * mv
-            return _xt_dot_sparse(batch, q), torch.sum(q)
-        return fused_hvp(self.loss, self.norm.effective_coefficients(w),
-                         self.norm.effective_coefficients(v), batch,
-                         margin_shift=self.norm.margin_shift(w),
-                         v_shift=self.norm.margin_shift(v))
+        if isinstance(batch, DenseBatch) and storage_narrowing_ok(batch.x.dtype, w.dtype):
+            sd = batch.x.dtype
+            return fused_hvp(self.loss, narrow(self.norm.effective_coefficients(w), sd),
+                             narrow(self.norm.effective_coefficients(v), sd), batch,
+                             margin_shift=self.norm.margin_shift(w),
+                             v_shift=self.norm.margin_shift(v))
+        z = self._safe_margins(w, batch)
+        mv = batch.margins(self.norm.effective_coefficients(v)) + self.norm.margin_shift(v)
+        q = batch.weight * self.loss.d2(z, batch.y) * mv
+        return self._xt_dot(batch, q), torch.sum(q)
 
     def finish_hvp(self, v: Tensor, hv_raw: Tensor, q_sum: Tensor) -> Tensor:
         return self._chain(hv_raw, q_sum) + self.reg.l2 * v
@@ -157,7 +180,7 @@ class GLMObjective:
 
     def hessian_diag(self, w: Tensor, batch: Batch) -> Tensor:
         """diag(H)_j = Σ wt·l''·((x_j - s_j)·f_j)² + l2, from the raw sums
-        Σ q x_j² and Σ q x_j."""
+        Σ q x_j² and Σ q x_j (x² at the storage width, q rounded to it)."""
         q = self._curvature(w, batch)
         with_shift = self.norm.shifts is not None
         if isinstance(batch, SparseBatch):
@@ -169,11 +192,12 @@ class GLMObjective:
             step = max(1, HESSIAN_DIAG_CHUNK_ELEMS // max(d, 1))
             x2 = torch.zeros(d, dtype=q.dtype, device=q.device)
             x1 = torch.zeros_like(x2) if with_shift else None
+            qs = to_storage(q, batch.x.dtype)
             for i in range(0, n, step):
-                xc, qc = batch.x[i:i + step], q[i:i + step]
-                x2 += qc @ (xc * xc)
+                xc, qc = batch.x[i:i + step], qs[i:i + step]
+                x2 += qc @ (xc * xc).to(q.dtype)
                 if with_shift:
-                    x1 += qc @ xc
+                    x1 += qc @ xc.to(q.dtype)
         diag = x2
         if with_shift:
             s = self.norm.shifts
@@ -187,22 +211,24 @@ class GLMObjective:
         densified (small d only)."""
         dense = batch.to_dense() if isinstance(batch, SparseBatch) else batch
         q = self._curvature(w, dense)
-        xn = self.norm.transform_features(dense.x)
+        xn = self.norm.transform_features(dense.x.to(q.dtype))
         full_f32_matmul()
         h = (xn * q[:, None]).T @ xn
         return h + self.reg.l2 * torch.eye(w.shape[-1], dtype=h.dtype, device=h.device)
 
 
 def lane_margins(x: Tensor, w: Tensor) -> Tensor:
-    """[L, cap] raw margins of lanes-first x [L, cap, d] against w [L, d]."""
+    """[L, cap] raw margins of lanes-first x [L, cap, d] against w [L, d], at
+    w's dtype (w rounded to a narrower x's dtype, both widened)."""
     full_f32_matmul()
-    return torch.bmm(x, w.unsqueeze(-1)).squeeze(-1)
+    return torch.bmm(x.to(w.dtype), to_storage(w, x.dtype).unsqueeze(-1)).squeeze(-1)
 
 
 def _lane_xt(x: Tensor, r: Tensor) -> Tensor:
-    """[L, d] = per-lane r [L, cap] @ x [L, cap, d]."""
+    """[L, d] = per-lane r [L, cap] @ x [L, cap, d], at r's dtype (r rounded
+    to a narrower x's dtype, both widened)."""
     full_f32_matmul()
-    return torch.bmm(r.unsqueeze(1), x).squeeze(1)
+    return torch.bmm(to_storage(r, x.dtype).unsqueeze(1), x.to(r.dtype)).squeeze(1)
 
 
 def lane_dot(a: Tensor, b: Tensor) -> Tensor:
@@ -262,15 +288,21 @@ class LaneObjective:
         return self._chain(_lane_xt(batch.x, q), q) + self.l2[:, None] * v
 
     def hessian_diag(self, w: Tensor, batch: DenseBatch) -> Tensor:
-        """[L, d] per-lane diag(H)."""
+        """[L, d] per-lane diag(H), from the raw sums Σ q x_j² and Σ q x_j as
+        ``GLMObjective.hessian_diag`` forms them."""
         q = batch.weight * self.loss.d2(self._safe_margins(w, batch), batch.y)
-        xn = self.norm.transform_features(batch.x)
-        return _lane_xt(xn * xn, q) + self.l2[:, None]
+        diag = _lane_xt(batch.x * batch.x, q)
+        if self.norm.shifts is not None:
+            s = self.norm.shifts
+            diag = diag - 2.0 * s * _lane_xt(batch.x, q) + s * s * q.sum(-1)[:, None]
+        if self.norm.factors is not None:
+            diag = diag * self.norm.factors * self.norm.factors
+        return diag + self.l2[:, None]
 
     def hessian(self, w: Tensor, batch: DenseBatch) -> Tensor:
         """[L, d, d] per-lane Hessians."""
         q = batch.weight * self.loss.d2(self._safe_margins(w, batch), batch.y)
-        xn = self.norm.transform_features(batch.x)
+        xn = self.norm.transform_features(batch.x.to(q.dtype))
         full_f32_matmul()
         h = torch.bmm((xn * q[..., None]).mT, xn)
         eye = torch.eye(h.shape[-1], dtype=h.dtype, device=h.device)
@@ -280,9 +312,11 @@ class LaneObjective:
 def soa_hessian_diag(loss: PointwiseLoss, w_t: Tensor, x_t: Tensor, y_t: Tensor,
                      off_t: Tensor, wt_t: Tensor, l2: Tensor) -> Tensor:
     """[d, L] per-lane diag(H) of lanes-last buckets (w_t [d, L], x_t
-    [cap, d, L], the rest [cap, L], l2 [L])."""
+    [cap, d, L], the rest [cap, L], l2 [L]); x² at the storage width and q
+    rounded to it, as ``GLMObjective.hessian_diag``."""
     q = wt_t * loss.d2(soa_margins(w_t, x_t, off_t), y_t)
-    return (x_t * x_t * q[:, None, :]).sum(0) + l2
+    qs = to_storage(q, x_t.dtype)
+    return ((x_t * x_t).to(q.dtype) * qs[:, None, :]).sum(0) + l2
 
 
 def soa_hessian(loss: PointwiseLoss, w_t: Tensor, x_t: Tensor, y_t: Tensor,

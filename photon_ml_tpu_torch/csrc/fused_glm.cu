@@ -11,11 +11,20 @@
 // finite on padded and weight-0 rows.  Outputs are raw-space sums; the caller
 // applies the normalization chain rule and L2.
 //
+// Storage width (the reference's mixed-precision contract): the kernels are
+// templated on X's element type XT (float, double, __nv_bfloat16, __half)
+// and the accumulation type T (float or double: y, offset, weight, the
+// shifts, the sums and the outputs).  X, w and v are at XT; each element is
+// widened to T as it is read (storage.cuh), and the row coefficient r (or
+// q) is rounded to XT and widened back before it multiplies X in X^T r, as
+// the TPU kernels round r.astype(x.dtype); sum r and sum q are not rounded.
+//
 // Bound on an H100: bytes.  Value+gradient does 4 flops per element of X and
-// the Hessian-vector product 6, against one 4-byte read of it, so X's bytes
-// over HBM bandwidth is the floor (~5.2 ms for the 17.2 GB f32 design of
-// glmix_chip, ~0.16 ms for glmix2's 0.54 GB) and the FP32 pipes are never the
-// limit.  The design keeps bytes in flight at every row width:
+// the Hessian-vector product 6, against one read of it (4 bytes in f32, 2 in
+// bf16), so X's bytes over HBM bandwidth is the floor (~5.2 ms for the
+// 17.2 GB f32 design of glmix_chip, ~2.6 ms at bf16; ~0.16 ms for glmix2's
+// 0.54 GB) and the FP32 pipes are never the limit.  The design keeps bytes in
+// flight at every row width and element size:
 //
 // - A persistent grid (the wrapper plans one or two blocks per SM) in which
 //   each block walks a contiguous range of whole tiles of rows.
@@ -35,11 +44,14 @@
 //   one contiguous span of X.  Its 16-byte-aligned interior is the bulk
 //   copy, into a stage whose start is offset by the span's misalignment
 //   (`pad` elements), so the interior lands aligned in shared memory; the
-//   head and tail (under 16 bytes each) go element by element.  Nothing
+//   head and tail (under 16 bytes each) go element by element (cp.async
+//   moves 4, 8 or 16 bytes, so 2-byte elements go as 4-byte pairs, and an
+//   odd element at a piece's end as a plain load and store).  Nothing
 //   reads past the span.
-// - Short dependency chains on each staged row.  w (and v) sit in
-//   registers up to 32 * kRegCoefs columns (768 in f32, 256 in f64: every
-//   main path's fixed effect) and are read through L1 above that.  Past the
+// - Short dependency chains on each staged row.  w (and v), widened to T,
+//   sit in registers up to 32 * kRegCoefs columns (768 at f32
+//   accumulation, 256 at f64: every main path's fixed effect) and are read
+//   through L1 above that.  Past the
 //   bytes, the cost of a row is its loss, so a row's dot products are formed
 //   by the fewest of 8, 16 or 32 lanes that hold its columns (24 a lane in
 //   f32), and a warp works on up to four rows and their losses at once:
@@ -62,53 +74,61 @@
 #include <cuda_runtime.h>
 
 #include "glm_losses.cuh"
+#include "storage.cuh"
 
 namespace {
+
+using photon::Round;
+using photon::widen;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStages = 8;
-// Columns of w (and v) each lane holds in registers: a row of up to 8 * 24,
-// 16 * 24 or 32 * 24 columns on 8, 16 or 32 lanes in f32 (8 a lane in f64).
+// Columns of w (and v) each lane holds in registers at the accumulation
+// type: a row of up to 8 * 24, 16 * 24 or 32 * 24 columns on 8, 16 or 32
+// lanes in f32 (8 a lane in f64).
 template <typename T>
 constexpr int kRegCoefs = sizeof(T) == 4 ? 24 : 8;
-// Elements in one 16-byte copy.
-template <typename T>
-constexpr int kVec = 16 / (int)sizeof(T);
+// Elements of X in one 16-byte copy.
+template <typename XT>
+constexpr int kVec = 16 / (int)sizeof(XT);
 
 __host__ __device__ inline int64_t round_up(int64_t v, int64_t m) {
   return (v + m - 1) / m * m;
 }
 
-// One stage of the ring, in elements: the tile's span of X (up to kVec - 1
-// elements of pad before it), then the tile's y, offset and weight; a whole
-// number of 16-byte pieces, so every stage starts aligned.
-template <typename T>
-__host__ __device__ int64_t stage_x_elems(int d, int tile_rows) {
-  return round_up((int64_t)tile_rows * d + kVec<T> - 1, kVec<T>);
+// One stage of the ring, in bytes: the tile's span of X (up to kVec - 1
+// elements of pad before it) in whole 16-byte pieces, then the tile's y,
+// offset and weight at T; a whole number of 16-byte pieces, so every stage
+// starts aligned.
+template <typename XT>
+__host__ __device__ int64_t stage_x_bytes(int d, int tile_rows) {
+  return sizeof(XT) * round_up((int64_t)tile_rows * d + kVec<XT> - 1, kVec<XT>);
 }
-template <typename T>
-__host__ __device__ int64_t stage_elems(int d, int tile_rows) {
-  return round_up(stage_x_elems<T>(d, tile_rows) + 3 * (int64_t)tile_rows, kVec<T>);
+template <typename XT, typename T>
+__host__ __device__ int64_t stage_bytes(int d, int tile_rows) {
+  return round_up(stage_x_bytes<XT>(d, tile_rows) + 3 * (int64_t)tile_rows * sizeof(T), 16);
 }
 
 // Shared memory of either kernel: the ring, then the block accumulator [d],
 // the tile's row coefficients [tile_rows], the per-warp scalar sums
-// [2 * kWarps], and from the next 8-byte boundary one mbarrier per stage.
-template <typename T>
+// [2 * kWarps] (all at T), and from the next 8-byte boundary one mbarrier
+// per stage.
+template <typename XT, typename T>
 __host__ __device__ int64_t barrier_offset(int d, int tile_rows, int stages) {
-  return round_up(
-      sizeof(T) * (stages * stage_elems<T>(d, tile_rows) + d + tile_rows + 2 * kWarps), 8);
+  return round_up(stages * stage_bytes<XT, T>(d, tile_rows) +
+                      (int64_t)sizeof(T) * (d + tile_rows + 2 * kWarps),
+                  8);
 }
-template <typename T>
+template <typename XT, typename T>
 size_t smem_bytes(int d, int tile_rows, int stages) {
-  return barrier_offset<T>(d, tile_rows, stages) + 8 * (size_t)stages;
+  return barrier_offset<XT, T>(d, tile_rows, stages) + 8 * (size_t)stages;
 }
 
 // The tensors both kernels read, and the launch plan.
-template <typename T>
+template <typename XT, typename T>
 struct GlmIn {
-  const T* __restrict__ x;
+  const XT* __restrict__ x;
   const T* __restrict__ y;
   const T* __restrict__ off;
   const T* __restrict__ wt;
@@ -127,6 +147,13 @@ template <typename T>
 __device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "n"((int)sizeof(T))
+               : "memory");
+}
+
+// cp.async of one 4-byte word (two 2-byte elements), both ends 4-byte aligned.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
                : "memory");
 }
 
@@ -187,38 +214,61 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
 // Elements of the span starting at `p` that lie past its last 16-byte
 // boundary: the stage's pad, which puts the span's aligned interior on a
 // 16-byte boundary of shared memory.
-template <typename T>
-__device__ __forceinline__ int span_pad(const T* p) {
-  return (int)((reinterpret_cast<uintptr_t>(p) % 16) / sizeof(T));
+template <typename XT>
+__device__ __forceinline__ int span_pad(const XT* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) % 16) / sizeof(XT));
+}
+
+// Copy `count` (< kVec) elements of a span's head or tail; thread `i` of
+// the 8 that serve the piece.  dst and src agree modulo 16 bytes.  4- and
+// 8-byte elements go one cp.async each; 2-byte elements go as 4-byte pairs
+// from the piece's first 4-byte boundary, and an element before it or
+// after the last pair as a plain load and store (ordered before the
+// consumers' reads by the block barrier that precedes them).
+template <typename XT>
+__device__ __forceinline__ void copy_piece(XT* dst, const XT* src, int count, int i) {
+  if (count <= 0 || i < 0 || i >= 8) return;
+  if constexpr (sizeof(XT) >= 4) {
+    if (i < count) cp_async_elem(dst + i, src + i);
+  } else {
+    const int lead = (reinterpret_cast<uintptr_t>(src) & 3) ? 1 : 0;
+    const int pairs = (count - lead) / 2;
+    const int trail = count - lead - 2 * pairs;
+    if (i < pairs) {
+      cp_async_4(dst + lead + 2 * i, src + lead + 2 * i);
+    } else if (i == pairs) {
+      if (lead) dst[0] = src[0];
+    } else if (i == pairs + 1) {
+      if (trail) dst[count - 1] = src[count - 1];
+    }
+  }
 }
 
 // Start the copies of rows [r0, r0 + rows) into `stage`: X's span
 // [r0 * d, (r0 + rows) * d) at stage[pad ..], its aligned interior as one
-// bulk copy that completes on `bar`, its head and tail element by element,
+// bulk copy that completes on `bar`, its head and tail piece by piece,
 // then the rows' y, offset and weight.  The caller commits the group of
 // element copies.
-template <typename T>
-__device__ __forceinline__ void stage_tile(T* stage, const GlmIn<T>& in, int64_t r0,
-                                           int rows, uint64_t* bar) {
-  constexpr int VW = kVec<T>;
+template <typename XT, typename T>
+__device__ __forceinline__ void stage_tile(unsigned char* stage, const GlmIn<XT, T>& in,
+                                           int64_t r0, int rows, uint64_t* bar) {
+  constexpr int VW = kVec<XT>;
   const int tid = threadIdx.x;
-  const T* src = in.x + r0 * in.d;
+  const XT* src = in.x + r0 * in.d;
   const int64_t count = (int64_t)rows * in.d;
   const int pad = span_pad(src);
   const int head = pad ? (int)(VW - pad < count ? VW - pad : count) : 0;
   const int64_t nvec = (count - head) / VW;
   const int tail = (int)(count - head - nvec * VW);
-  T* dst = stage + pad;
+  XT* dst = reinterpret_cast<XT*>(stage) + pad;
   if (tid == 0) {
     mbar_arrive_expect(bar, (uint32_t)(nvec * 16));
     if (nvec > 0) bulk_copy(dst + head, src + head, (uint32_t)(nvec * 16), bar);
   }
-  if (tid < head) cp_async_elem(dst + tid, src + tid);
-  if (tid >= kThreads - tail) {
-    const int64_t e = head + nvec * VW + (tid - (kThreads - tail));
-    cp_async_elem(dst + e, src + e);
-  }
-  T* vec = stage + stage_x_elems<T>(in.d, in.tile_rows);
+  copy_piece(dst, src, head, tid);
+  const int64_t e = head + nvec * VW;
+  copy_piece(dst + e, src + e, tail, tid - (kThreads - 8));
+  T* vec = reinterpret_cast<T*>(stage + stage_x_bytes<XT>(in.d, in.tile_rows));
   for (int i = tid; i < rows; i += kThreads) {
     cp_async_elem(vec + i, in.y + r0 + i);
     cp_async_elem(vec + in.tile_rows + i, in.off + r0 + i);
@@ -249,17 +299,17 @@ __host__ __device__ inline int row_lanes(int d) {
 }
 
 // The NV coefficient vectors of a group of L lanes' row dot products: lane p
-// of the group holds columns p + L * k in registers when d <= L * kRegCoefs,
-// and reads them through L1 above that (L = 32 only).
-template <typename T, int NV>
+// of the group holds columns p + L * k in registers, widened to T, when
+// d <= L * kRegCoefs, and reads them through L1 above that (L = 32 only).
+template <typename XT, typename T, int NV>
 struct RowCoefs {
   static constexpr int K = kRegCoefs<T>;
   T r[NV][K];
-  const T* g[NV];
+  const XT* g[NV];
   bool in_regs;
 
   template <int L>
-  __device__ __forceinline__ void load(const T* const* vecs, int d, int p) {
+  __device__ __forceinline__ void load(const XT* const* vecs, int d, int p) {
     in_regs = d <= L * K;
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
@@ -267,7 +317,7 @@ struct RowCoefs {
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const int j = p + L * k;
-        r[v][k] = in_regs && j < d ? __ldg(vecs[v] + j) : T(0);
+        r[v][k] = in_regs && j < d ? widen<T>(vecs[v][j]) : T(0);
       }
     }
   }
@@ -277,11 +327,12 @@ struct RowCoefs {
 // per group of L lanes; each lane reads its columns of its group's row at
 // immediate offsets, the group sums its products by a butterfly, and its
 // lanes evaluate the row's loss (so a warp works on up to four losses at
-// once), the first storing the row coefficient.
-template <int L, typename T, class Row, int NV>
-__device__ __forceinline__ void tile_dots(const RowCoefs<T, NV>& cs, Row& row, const T* xt,
-                                          const T* vy, const T* voff, const T* vwt,
-                                          int rows, int d, int warp, int lane, T* coef) {
+// once), the first storing the row coefficient rounded to X's type.
+template <int L, typename XT, typename T, class Row, int NV>
+__device__ __forceinline__ void tile_dots(const RowCoefs<XT, T, NV>& cs, Row& row,
+                                          const XT* xt, const T* vy, const T* voff,
+                                          const T* vwt, int rows, int d, int warp, int lane,
+                                          T* coef) {
   constexpr int G = 32 / L;
   const int p = lane % L;
   for (int base = warp * G; base < rows; base += kWarps * G) {
@@ -289,31 +340,31 @@ __device__ __forceinline__ void tile_dots(const RowCoefs<T, NV>& cs, Row& row, c
     const bool ok = rr < rows;
     // a group past the tile's last row reads row 0 (finite data) and is
     // discarded
-    const T* xr = xt + (size_t)(ok ? rr : 0) * d + p;
+    const XT* xr = xt + (size_t)(ok ? rr : 0) * d + p;
     T m[NV];
 #pragma unroll
     for (int v = 0; v < NV; ++v) m[v] = T(0);
     if (cs.in_regs) {
 #pragma unroll
-      for (int k = 0; k < RowCoefs<T, NV>::K; ++k) {
+      for (int k = 0; k < RowCoefs<XT, T, NV>::K; ++k) {
         if (p + L * k < d) {
-          const T x = xr[L * k];
+          const T x = widen<T>(xr[L * k]);
 #pragma unroll
           for (int v = 0; v < NV; ++v) m[v] += x * cs.r[v][k];
         }
       }
     } else {
       for (int j = 0; p + j < d; j += L) {
-        const T x = xr[j];
+        const T x = widen<T>(xr[j]);
 #pragma unroll
-        for (int v = 0; v < NV; ++v) m[v] += x * __ldg(cs.g[v] + p + j);
+        for (int v = 0; v < NV; ++v) m[v] += x * widen<T>(cs.g[v][p + j]);
       }
     }
 #pragma unroll
     for (int v = 0; v < NV; ++v) m[v] = group_sum(m[v], L);
     if (ok) {
       const T c = row(m, vy[rr], voff[rr], vwt[rr]);
-      if (p == 0) coef[rr] = c;
+      if (p == 0) coef[rr] = Round<XT>::to(c);
     }
   }
 }
@@ -326,8 +377,8 @@ __device__ __forceinline__ void tile_dots(const RowCoefs<T, NV>& cs, Row& row, c
 // writes the block's row of partials: the accumulator, and the NS scalar
 // sums that `row` keeps (its `sums()`, summed over a group's rows, the
 // groups and the warps in a fixed order).
-template <typename T, int NV, int NS, class Row>
-__device__ __forceinline__ void fold_rows(const GlmIn<T>& in, const T* const* vecs,
+template <typename XT, typename T, int NV, int NS, class Row>
+__device__ __forceinline__ void fold_rows(const GlmIn<XT, T>& in, const XT* const* vecs,
                                           Row& row, unsigned char* smem_raw,
                                           T* __restrict__ partials) {
   const int tid = threadIdx.x;
@@ -335,20 +386,20 @@ __device__ __forceinline__ void fold_rows(const GlmIn<T>& in, const T* const* ve
   const int lane = tid % 32;
   const int d = in.d;
   const int S = in.stages;
-  const int64_t se = stage_elems<T>(d, in.tile_rows);
-  const int64_t sx = stage_x_elems<T>(d, in.tile_rows);
-  T* ring = reinterpret_cast<T*>(smem_raw);
-  T* acc = ring + S * se;
+  const int64_t sb = stage_bytes<XT, T>(d, in.tile_rows);
+  const int64_t sxb = stage_x_bytes<XT>(d, in.tile_rows);
+  unsigned char* ring = smem_raw;
+  T* acc = reinterpret_cast<T*>(ring + S * sb);
   T* coef = acc + d;
   T* red = coef + in.tile_rows;
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      smem_raw + barrier_offset<T>(d, in.tile_rows, S));  // one per stage
+      smem_raw + barrier_offset<XT, T>(d, in.tile_rows, S));  // one per stage
   if (tid == 0) {
     for (int k = 0; k < S; ++k) mbar_init(full + k, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   const int L = row_lanes<T>(d);
-  RowCoefs<T, NV> cs;
+  RowCoefs<XT, T, NV> cs;
   if (L == 8)
     cs.template load<8>(vecs, d, lane % 8);
   else if (L == 16)
@@ -372,7 +423,7 @@ __device__ __forceinline__ void fold_rows(const GlmIn<T>& in, const T* const* ve
   // always mean "tile t has landed"
   for (int t = 0; t < S - 1; ++t) {
     if (t < num_tiles)
-      stage_tile(ring + t * se, in, row_begin + (int64_t)t * in.tile_rows, rows_of(t),
+      stage_tile(ring + t * sb, in, row_begin + (int64_t)t * in.tile_rows, rows_of(t),
                  full + t);
     cp_async_commit();
   }
@@ -382,15 +433,15 @@ __device__ __forceinline__ void fold_rows(const GlmIn<T>& in, const T* const* ve
     __syncthreads();  // tile t is in; every warp is done with tile t - 1's slot
     const int tn = t + S - 1;
     if (tn < num_tiles)
-      stage_tile(ring + (tn % S) * se, in, row_begin + (int64_t)tn * in.tile_rows,
+      stage_tile(ring + (tn % S) * sb, in, row_begin + (int64_t)tn * in.tile_rows,
                  rows_of(tn), full + tn % S);
     cp_async_commit();
 
     const int64_t r0 = row_begin + (int64_t)t * in.tile_rows;
     const int rows = rows_of(t);
-    const T* stage = ring + (t % S) * se;
-    const T* xt = stage + span_pad(in.x + r0 * d);
-    const T* vy = stage + sx;
+    const unsigned char* stage = ring + (t % S) * sb;
+    const XT* xt = reinterpret_cast<const XT*>(stage) + span_pad(in.x + r0 * d);
+    const T* vy = reinterpret_cast<const T*>(stage + sxb);
     const T* voff = vy + in.tile_rows;
     const T* vwt = voff + in.tile_rows;
     if (L == 8)
@@ -403,7 +454,7 @@ __device__ __forceinline__ void fold_rows(const GlmIn<T>& in, const T* const* ve
     for (int j = tid; j < d; j += kThreads) {
       T a = acc[j];
 #pragma unroll 4
-      for (int rr = 0; rr < rows; ++rr) a += coef[rr] * xt[(size_t)rr * d + j];
+      for (int rr = 0; rr < rows; ++rr) a += coef[rr] * widen<T>(xt[(size_t)rr * d + j]);
       acc[j] = a;
     }
   }
@@ -467,25 +518,25 @@ struct HvpRow {
   __device__ __forceinline__ void sums(T (&s)[1]) const { s[0] = qsum; }
 };
 
-template <typename T, int LOSS>
+template <typename XT, typename T, int LOSS>
 __global__ void __launch_bounds__(kThreads, 2)
-fvg_partial_kernel(GlmIn<T> in, const T* __restrict__ w, const T* __restrict__ shift,
+fvg_partial_kernel(GlmIn<XT, T> in, const XT* __restrict__ w, const T* __restrict__ shift,
                    T* __restrict__ partials) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const T* vecs[1] = {w};
+  const XT* vecs[1] = {w};
   FvgRow<T, LOSS> row{shift[0]};
-  fold_rows<T, 1, 2>(in, vecs, row, smem_raw, partials);
+  fold_rows<XT, T, 1, 2>(in, vecs, row, smem_raw, partials);
 }
 
-template <typename T, int LOSS>
+template <typename XT, typename T, int LOSS>
 __global__ void __launch_bounds__(kThreads, 2)
-hvp_partial_kernel(GlmIn<T> in, const T* __restrict__ w, const T* __restrict__ v,
+hvp_partial_kernel(GlmIn<XT, T> in, const XT* __restrict__ w, const XT* __restrict__ v,
                    const T* __restrict__ shift, const T* __restrict__ vshift,
                    T* __restrict__ partials) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const T* vecs[2] = {w, v};
+  const XT* vecs[2] = {w, v};
   HvpRow<T, LOSS> row{shift[0], vshift[0]};
-  fold_rows<T, 2, 1>(in, vecs, row, smem_raw, partials);
+  fold_rows<XT, T, 2, 1>(in, vecs, row, smem_raw, partials);
 }
 
 // out[j] = sum over blocks of partials[b, j] in a fixed order: each of 8
@@ -532,13 +583,13 @@ struct GlmArgs {
   void* out;
 };
 
-template <typename T, int LOSS, bool HVP>
+template <typename XT, typename T, int LOSS, bool HVP>
 int launch_typed(const GlmArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(a.d, a.tile_rows, a.stages);
-  const GlmIn<T> in{static_cast<const T*>(a.x), static_cast<const T*>(a.y),
-                    static_cast<const T*>(a.off), static_cast<const T*>(a.wt),
-                    a.n, a.d, a.rows_per_block, a.tile_rows, a.stages};
-  const T* w = static_cast<const T*>(a.w);
+  const size_t smem = smem_bytes<XT, T>(a.d, a.tile_rows, a.stages);
+  const GlmIn<XT, T> in{static_cast<const XT*>(a.x), static_cast<const T*>(a.y),
+                        static_cast<const T*>(a.off), static_cast<const T*>(a.wt),
+                        a.n, a.d, a.rows_per_block, a.tile_rows, a.stages};
+  const XT* w = static_cast<const XT*>(a.w);
   const T* shift = static_cast<const T*>(a.shift);
   T* partials = static_cast<T*>(a.partials);
   auto prepare = [&](const void* kern) {
@@ -551,14 +602,14 @@ int launch_typed(const GlmArgs& a, cudaStream_t stream) {
   };
   cudaError_t err;
   if constexpr (HVP) {
-    auto kern = hvp_partial_kernel<T, LOSS>;
+    auto kern = hvp_partial_kernel<XT, T, LOSS>;
     err = prepare(reinterpret_cast<const void*>(kern));
     if (err != cudaSuccess) return (int)err;
     kern<<<a.num_blocks, kThreads, smem, stream>>>(
-        in, w, static_cast<const T*>(a.v), shift, static_cast<const T*>(a.vshift),
+        in, w, static_cast<const XT*>(a.v), shift, static_cast<const T*>(a.vshift),
         partials);
   } else {
-    auto kern = fvg_partial_kernel<T, LOSS>;
+    auto kern = fvg_partial_kernel<XT, T, LOSS>;
     err = prepare(reinterpret_cast<const void*>(kern));
     if (err != cudaSuccess) return (int)err;
     kern<<<a.num_blocks, kThreads, smem, stream>>>(in, w, shift, partials);
@@ -571,20 +622,42 @@ int launch_typed(const GlmArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool HVP>
+template <typename XT, typename T, bool HVP>
 int dispatch_loss(int loss, const GlmArgs& a, cudaStream_t stream) {
   switch (loss) {
     case 0:
-      return launch_typed<T, 0, HVP>(a, stream);
+      return launch_typed<XT, T, 0, HVP>(a, stream);
     case 1:
-      return launch_typed<T, 1, HVP>(a, stream);
+      return launch_typed<XT, T, 1, HVP>(a, stream);
     case 2:
-      return launch_typed<T, 2, HVP>(a, stream);
+      return launch_typed<XT, T, 2, HVP>(a, stream);
     case 3:
-      return launch_typed<T, 3, HVP>(a, stream);
+      return launch_typed<XT, T, 3, HVP>(a, stream);
     default:
       return -1;
   }
+}
+
+// f.template run<XT, T>() for the (storage, accumulation) type codes the
+// kernels take (storage equal to or narrower than accumulation); -1 for any
+// other pair.
+template <class F>
+long long with_types(int xtype, int acctype, const F& f) {
+  using photon::kBF16;
+  using photon::kF16;
+  using photon::kF32;
+  using photon::kF64;
+  if (acctype == kF32) {
+    if (xtype == kF32) return f.template run<float, float>();
+    if (xtype == kBF16) return f.template run<__nv_bfloat16, float>();
+    if (xtype == kF16) return f.template run<__half, float>();
+  } else if (acctype == kF64) {
+    if (xtype == kF64) return f.template run<double, double>();
+    if (xtype == kF32) return f.template run<float, double>();
+    if (xtype == kBF16) return f.template run<__nv_bfloat16, double>();
+    if (xtype == kF16) return f.template run<__half, double>();
+  }
+  return -1;
 }
 
 // The plan must give every block a nonempty range of whole tiles, and the
@@ -598,46 +671,64 @@ bool plan_ok(const GlmArgs& a) {
 }
 
 template <bool HVP>
-int dispatch(int dtype, int loss, const GlmArgs& a, void* stream) {
+struct LaunchOp {
+  int loss;
+  const GlmArgs& a;
+  cudaStream_t stream;
+  template <typename XT, typename T>
+  long long run() const {
+    return dispatch_loss<XT, T, HVP>(loss, a, stream);
+  }
+};
+
+struct SmemOp {
+  int d, tile_rows, stages;
+  template <typename XT, typename T>
+  long long run() const {
+    return (long long)smem_bytes<XT, T>(d, tile_rows, stages);
+  }
+};
+
+template <bool HVP>
+int dispatch(int xtype, int acctype, int loss, const GlmArgs& a, void* stream) {
   if (!plan_ok(a)) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_loss<float, HVP>(loss, a, s);
-  if (dtype == 1) return dispatch_loss<double, HVP>(loss, a, s);
-  return -1;
+  const LaunchOp<HVP> op{loss, a, static_cast<cudaStream_t>(stream)};
+  return (int)with_types(xtype, acctype, op);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes one block of either kernel needs; the wrapper checks
-// its plan against it.
-long long glm_smem_bytes(int dtype, int d, int tile_rows, int stages) {
-  return dtype == 0 ? (long long)smem_bytes<float>(d, tile_rows, stages)
-                    : (long long)smem_bytes<double>(d, tile_rows, stages);
+// Shared-memory bytes one block of either kernel needs (-1 for a type pair
+// the kernels do not take); the wrapper checks its plan against it.
+long long glm_smem_bytes(int xtype, int acctype, int d, int tile_rows, int stages) {
+  return with_types(xtype, acctype, SmemOp{d, tile_rows, stages});
 }
 
-// dtype: 0 float32, 1 float64.  x [n, d] row-major; w [d]; y, off, wt [n];
-// shift [1]; partials [num_blocks, d + 2]; out [d + 2] = (grad, value, rsum).
-int fvg_launch(int dtype, int loss, const void* x, const void* w, const void* y,
-               const void* off, const void* wt, const void* shift, long long n,
-               int d, long long rows_per_block, int tile_rows, int stages,
+// xtype: X's (and w's) element type, acctype: the accumulation type (of y,
+// off, wt, shift and the outputs); codes 0 float32, 1 float64, 2 bfloat16,
+// 3 float16.  x [n, d] row-major; w [d]; y, off, wt [n]; shift [1]; partials
+// [num_blocks, d + 2]; out [d + 2] = (grad, value, rsum).
+int fvg_launch(int xtype, int acctype, int loss, const void* x, const void* w,
+               const void* y, const void* off, const void* wt, const void* shift,
+               long long n, int d, long long rows_per_block, int tile_rows, int stages,
                int num_blocks, void* partials, void* out, void* stream) {
   const GlmArgs a{x, w, nullptr, y, off, wt, shift, nullptr, n, d,
                   rows_per_block, tile_rows, stages, num_blocks, partials, out};
-  return dispatch<false>(dtype, loss, a, stream);
+  return dispatch<false>(xtype, acctype, loss, a, stream);
 }
 
-// dtype: 0 float32, 1 float64.  x [n, d] row-major; w, v [d]; y, off, wt [n];
-// shift, vshift [1]; partials [num_blocks, d + 1]; out [d + 1] = (X^T q, sum q).
-int hvp_launch(int dtype, int loss, const void* x, const void* w, const void* v,
-               const void* y, const void* off, const void* wt, const void* shift,
-               const void* vshift, long long n, int d, long long rows_per_block,
-               int tile_rows, int stages, int num_blocks, void* partials, void* out,
-               void* stream) {
+// Types as fvg_launch.  x [n, d] row-major; w, v [d]; y, off, wt [n]; shift,
+// vshift [1]; partials [num_blocks, d + 1]; out [d + 1] = (X^T q, sum q).
+int hvp_launch(int xtype, int acctype, int loss, const void* x, const void* w,
+               const void* v, const void* y, const void* off, const void* wt,
+               const void* shift, const void* vshift, long long n, int d,
+               long long rows_per_block, int tile_rows, int stages, int num_blocks,
+               void* partials, void* out, void* stream) {
   const GlmArgs a{x, w, v, y, off, wt, shift, vshift, n, d,
                   rows_per_block, tile_rows, stages, num_blocks, partials, out};
-  return dispatch<true>(dtype, loss, a, stream);
+  return dispatch<true>(xtype, acctype, loss, a, stream);
 }
 
 }  // extern "C"

@@ -8,7 +8,14 @@
 // is the [d, L] step (H + jitter I)^-1 g.  The op order follows
 // photon_ml_tpu/opt/newton_soa.py (_hess, _cholesky_solve_soa).
 //
-// Bound on an H100: bytes.  Each lane reads cap * (d + 3) values once and does
+// Storage width: x may be held at a narrower float XT than the solver type T
+// of w, g, y, off, wt and l2 (bf16 or f16 against float32 or float64,
+// float32 against float64); each element is widened as it is read
+// (storage.cuh), and w is not rounded, as the TPU kernel computes at
+// promote(x, w).
+//
+// Bound on an H100: bytes.  Each lane reads cap * d elements of x and
+// 3 * cap values of T once, and does
 // O(cap d^2 + d^3) flops on them in registers; at glmix_chip's d = 4, cap = 32
 // that is ~10 flops per byte against the FP32 ridge of ~20, so HBM bandwidth
 // is the floor.  Design: one thread per lane, templated on D (1..16) so the
@@ -27,8 +34,11 @@
 #include <cuda_runtime.h>
 
 #include "glm_losses.cuh"
+#include "storage.cuh"
 
 namespace {
+
+using photon::widen;
 
 constexpr int kThreads = 128;
 
@@ -39,10 +49,10 @@ __device__ __forceinline__ T dev_abs(T v) { return v < T(0) ? -v : v; }
 template <typename T>
 __device__ __forceinline__ T dev_max(T a, T b) { return a > b ? a : b; }
 
-template <typename T, int D, int LOSS>
+template <typename T, typename XT, int D, int LOSS>
 __global__ void __launch_bounds__(kThreads)
 newton_step_kernel(const T* __restrict__ w, const T* __restrict__ g,
-                   const T* __restrict__ x, const T* __restrict__ y,
+                   const XT* __restrict__ x, const T* __restrict__ y,
                    const T* __restrict__ off, const T* __restrict__ wt,
                    const T* __restrict__ l2, int cap, int64_t L, T eps,
                    T* __restrict__ out) {
@@ -61,7 +71,7 @@ newton_step_kernel(const T* __restrict__ w, const T* __restrict__ g,
   for (int c = 0; c < cap; ++c) {
     T xv[D];
 #pragma unroll
-    for (int i = 0; i < D; ++i) xv[i] = x[((int64_t)c * D + i) * L + l];
+    for (int i = 0; i < D; ++i) xv[i] = widen<T>(x[((int64_t)c * D + i) * L + l]);
     T z = xv[0] * wl[0];
 #pragma unroll
     for (int i = 1; i < D; ++i) z += xv[i] * wl[i];
@@ -121,26 +131,26 @@ newton_step_kernel(const T* __restrict__ w, const T* __restrict__ g,
   }
 }
 
-template <typename T, int D, int LOSS>
+template <typename T, typename XT, int D, int LOSS>
 int launch_typed(const void* w, const void* g, const void* x, const void* y,
                  const void* off, const void* wt, const void* l2, int cap,
                  int64_t L, double eps, void* out, cudaStream_t stream) {
   const int64_t blocks = (L + kThreads - 1) / kThreads;
-  newton_step_kernel<T, D, LOSS><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(w), static_cast<const T*>(g), static_cast<const T*>(x),
+  newton_step_kernel<T, XT, D, LOSS><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(w), static_cast<const T*>(g), static_cast<const XT*>(x),
       static_cast<const T*>(y), static_cast<const T*>(off),
       static_cast<const T*>(wt), static_cast<const T*>(l2), cap, L, (T)eps,
       static_cast<T*>(out));
   return (int)cudaGetLastError();
 }
 
-template <typename T, int LOSS>
+template <typename T, typename XT, int LOSS>
 int dispatch_d(int d, const void* w, const void* g, const void* x, const void* y,
                const void* off, const void* wt, const void* l2, int cap, int64_t L,
                double eps, void* out, cudaStream_t s) {
 #define PHOTON_SOA_CASE(DD) \
   case DD:                  \
-    return launch_typed<T, DD, LOSS>(w, g, x, y, off, wt, l2, cap, L, eps, out, s);
+    return launch_typed<T, XT, DD, LOSS>(w, g, x, y, off, wt, l2, cap, L, eps, out, s);
   switch (d) {
     PHOTON_SOA_CASE(1)
     PHOTON_SOA_CASE(2)
@@ -164,18 +174,18 @@ int dispatch_d(int d, const void* w, const void* g, const void* x, const void* y
 #undef PHOTON_SOA_CASE
 }
 
-template <typename T>
+template <typename T, typename XT>
 int dispatch_loss(int loss, int d, const void* w, const void* g, const void* x,
                   const void* y, const void* off, const void* wt, const void* l2,
                   int cap, int64_t L, double eps, void* out, cudaStream_t s) {
   // the losses the SoA gate admits: logistic, squared, Poisson
   switch (loss) {
     case 0:
-      return dispatch_d<T, 0>(d, w, g, x, y, off, wt, l2, cap, L, eps, out, s);
+      return dispatch_d<T, XT, 0>(d, w, g, x, y, off, wt, l2, cap, L, eps, out, s);
     case 1:
-      return dispatch_d<T, 1>(d, w, g, x, y, off, wt, l2, cap, L, eps, out, s);
+      return dispatch_d<T, XT, 1>(d, w, g, x, y, off, wt, l2, cap, L, eps, out, s);
     case 2:
-      return dispatch_d<T, 2>(d, w, g, x, y, off, wt, l2, cap, L, eps, out, s);
+      return dispatch_d<T, XT, 2>(d, w, g, x, y, off, wt, l2, cap, L, eps, out, s);
     default:
       return -1;
   }
@@ -185,18 +195,33 @@ int dispatch_loss(int loss, int d, const void* w, const void* g, const void* x,
 
 extern "C" {
 
-// dtype: 0 float32, 1 float64.  w, g, out [d, L]; x [cap, d, L];
-// y, off, wt [cap, L]; l2 [L]; all contiguous, lanes last.
-int newton_step_launch(int dtype, int loss, int d, const void* w, const void* g,
-                       const void* x, const void* y, const void* off,
+// dtype: the solver type of w, g, y, off, wt, l2 and out; xtype: x's
+// storage type, the same or narrower; codes 0 float32, 1 float64,
+// 2 bfloat16, 3 float16.  w, g, out [d, L]; x [cap, d, L]; y, off, wt
+// [cap, L]; l2 [L]; all contiguous, lanes last.
+int newton_step_launch(int dtype, int xtype, int loss, int d, const void* w,
+                       const void* g, const void* x, const void* y, const void* off,
                        const void* wt, const void* l2, int cap, long long L,
                        double eps, void* out, void* stream) {
+  using photon::kBF16;
+  using photon::kF16;
+  using photon::kF32;
+  using photon::kF64;
   if (cap < 1 || L < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_loss<float>(loss, d, w, g, x, y, off, wt, l2, cap, L, eps, out, s);
-  if (dtype == 1)
-    return dispatch_loss<double>(loss, d, w, g, x, y, off, wt, l2, cap, L, eps, out, s);
+#define PHOTON_SOA_TYPES(TT, XX) \
+  return dispatch_loss<TT, XX>(loss, d, w, g, x, y, off, wt, l2, cap, L, eps, out, s)
+  if (dtype == kF32) {
+    if (xtype == kF32) PHOTON_SOA_TYPES(float, float);
+    if (xtype == kBF16) PHOTON_SOA_TYPES(float, __nv_bfloat16);
+    if (xtype == kF16) PHOTON_SOA_TYPES(float, __half);
+  } else if (dtype == kF64) {
+    if (xtype == kF64) PHOTON_SOA_TYPES(double, double);
+    if (xtype == kF32) PHOTON_SOA_TYPES(double, float);
+    if (xtype == kBF16) PHOTON_SOA_TYPES(double, __nv_bfloat16);
+    if (xtype == kF16) PHOTON_SOA_TYPES(double, __half);
+  }
+#undef PHOTON_SOA_TYPES
   return -1;
 }
 

@@ -24,7 +24,10 @@ users x 256 rows with 256 fixed and 16 per-user features (glmix2), or 2048
 users x 128 rows with 128 fixed, 16 per-user and 16 per-item features over
 1024 items (glmix3); ``scale`` divides the rows per user.  The same seed and
 draws give bitwise the same arrays; it also returns the generative logits,
-from which the task's Bayes AUC (~0.73 at full scale) follows.
+from which the task's Bayes AUC (~0.73 at full scale) follows.  With
+``storage`` ("bfloat16", "float16") the designs come as CPU tensors of that
+dtype, rounded once from the float32 draws (numpy has no bfloat16); labels
+and logits are drawn from the float32 designs either way.
 
 The rest of this module is the ``glmix_chip`` task.
 
@@ -40,7 +43,9 @@ bit-for-bit the reference's numpy draws.  Device half (``chip_design``): the
 counter-based signal columns, which the host half reproduces exactly to draw
 the labels, then 496 columns of Gaussian noise from a seeded
 ``torch.Generator`` (other bits than JAX's PRNG; only the distribution
-matches).  Generative logits have std ~1.3, so the task has real label noise
+matches).  At a narrow ``dtype`` each float32 chunk is rounded on the
+device as it is made, so the design at bf16 is the float32 design rounded
+and no float32 [n, 512] copy exists.  Generative logits have std ~1.3, so the task has real label noise
 (Bayes AUC ~0.8).
 """
 
@@ -128,10 +133,11 @@ def chip_design(n: int, device: "torch.device | str", seed: int = CHIP_SEED,
     return x
 
 
-def synth_glmix(scale: int, three: bool) -> dict:
+def synth_glmix(scale: int, three: bool, storage: "str | None" = None) -> dict:
     """BASELINE glmix2 (``three`` False) / glmix3 (True) data, rows in a
     seeded random order: xg, xu, uids, y (and xi, iids for glmix3) as the
-    reference generator gives them, plus the generative ``logits``."""
+    reference generator gives them, plus the generative ``logits``; with
+    ``storage`` the designs xg, xu (xi) as CPU tensors of that dtype."""
     rng = np.random.default_rng(42)
     n_users, d_g, d_u = 2048, (128 if three else 256), 16
     per_user = (128 if three else 256) // scale
@@ -153,7 +159,15 @@ def synth_glmix(scale: int, three: bool) -> dict:
     out["y"] = (rng.random(n) < 1 / (1 + np.exp(-logits))).astype(np.float32)
     out["logits"] = logits
     perm = rng.permutation(n)
-    return {k: v[perm] for k, v in out.items()}
+    out = {k: v[perm] for k, v in out.items()}
+    if storage is not None:
+        from photon_ml_tpu_torch.game.config import storage_torch_dtype
+
+        sd = storage_torch_dtype(storage)
+        for k in ("xg", "xu", "xi"):
+            if k in out:
+                out[k] = torch.from_numpy(out[k]).to(sd)
+    return out
 
 
 def synth_sparse1m(scale: int = 1) -> dict:

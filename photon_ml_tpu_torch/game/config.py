@@ -6,15 +6,20 @@ absorbs a shift normalization and that the INDEX_MAP filter keeps), box
 constraints with their ``constraint_space``, the fixed effect's
 ``down_sampling_rate``, and the projector field, whose RANDOM value the
 random-effect coordinate refuses (NotImplementedError naming the ROADMAP
-item that brings it).  The rest of the reference's fields (``projected_dim``
-of the RANDOM projector, storage dtypes, feature sharding) arrive with the
-slices that carry them.
+item that brings it), and ``storage_dtype``: the design held at a narrower
+float ("bfloat16", "float16") while the solver state, labels, offsets,
+weights and the published coefficients stay at the compute dtype
+(``storage_torch_dtype`` resolves the name).  The rest of the reference's
+fields (``projected_dim`` of the RANDOM projector, feature sharding) arrive
+with the slices that carry them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple, Union
+
+import torch
 
 from photon_ml_tpu_torch.core.regularization import Regularization
 from photon_ml_tpu_torch.opt.types import SolverConfig
@@ -23,6 +28,23 @@ from photon_ml_tpu_torch.types import (OptimizerType, ProjectorType, TaskType,
 
 # Per-feature-index box constraints: ((index, lo, hi), ...), as the reference.
 ConstraintMap = Tuple[Tuple[int, float, float], ...]
+
+# storage dtype names (the reference resolves them through numpy and
+# ml_dtypes, which the port does not use)
+_STORAGE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                   "float32": torch.float32, "float64": torch.float64}
+
+
+def storage_torch_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """The torch dtype of a ``storage_dtype`` name, None when unset;
+    ValueError for a name it does not know, as ``numpy.dtype`` raises."""
+    if name is None:
+        return None
+    try:
+        return _STORAGE_DTYPES[name]
+    except (KeyError, TypeError):
+        raise ValueError(f"unknown storage dtype {name!r} (expected one of "
+                         f"{sorted(_STORAGE_DTYPES)})") from None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +66,13 @@ class FixedEffectConfig:
     # "transformed" (solver space; see _canonicalize_constraints)
     constraint_space: str = "original"
     intercept_index: Optional[int] = None  # column that absorbs a shift normalization
+    # the design's width on the device ("bfloat16", "float16"); None keeps the
+    # compute dtype.  Products round the coefficients (and residuals) to it and
+    # accumulate at the compute dtype
+    storage_dtype: Optional[str] = None
 
     def __post_init__(self):
+        storage_torch_dtype(self.storage_dtype)
         _canonicalize_constraints(self)
 
 
@@ -74,8 +101,10 @@ class RandomEffectConfig:
     # bounds on every entity's coefficients (L-BFGS only), and their space
     constraints: Optional[ConstraintMap] = None
     constraint_space: str = "original"
+    storage_dtype: Optional[str] = None  # each bucket's design width (FixedEffectConfig)
 
     def __post_init__(self):
+        storage_torch_dtype(self.storage_dtype)
         m = self.per_entity_l2_multipliers
         if m is not None:
             pairs = m.items() if isinstance(m, dict) else m

@@ -63,6 +63,18 @@ effect's lanes through the lower bound: an entity under
 prior row then passes through the published model unchanged
 (``merge_carry_through``) and scores through the model's ``slot_of``.
 
+Narrow storage (``storage_dtype`` "bfloat16" / "float16" on either config):
+the fixed effect's design (a sparse shard's values) and each random-effect
+solve bucket's design reside on the device at that width, y, offsets and
+weights at the compute dtype.  A host array is cast on the host (numpy has
+no bfloat16), so what crosses to the device is already narrow; a device
+tensor at the storage width is kept without a copy, and one at another
+width is cast on the device.  The random effect's full-sample design for
+scoring stays at the compute dtype, or at its own width where it is a
+device tensor at a narrower one (scoring widens it).  The published
+coefficients keep the compute dtype.  A change of ``storage_dtype`` is a
+new layout: ``rebind`` refuses it, so ``GameEstimator.fit`` rebuilds.
+
 The RANDOM projector, which the port does not carry yet, raises
 NotImplementedError naming the ROADMAP item that brings it.
 """
@@ -76,18 +88,19 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.core.batch import DenseBatch, SparseBatch
+from photon_ml_tpu_torch.core.batch import DenseBatch, SparseBatch, narrow
 from photon_ml_tpu_torch.core.losses import loss_for_task
 from photon_ml_tpu_torch.core.normalization import NormalizationContext, no_normalization
 from photon_ml_tpu_torch.core.objective import GLMObjective, LaneObjective
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.game.config import (CoordinateConfig, FixedEffectConfig,
-                                             RandomEffectConfig)
+                                             RandomEffectConfig, storage_torch_dtype)
 from photon_ml_tpu_torch.game.data import GameData, SparseShard
 from photon_ml_tpu_torch.models.game import (DatumScoringModel, FixedEffectModel,
                                              RandomEffectModel, cached_device_copies,
                                              dense_random_effect, seed_device_copies)
 from photon_ml_tpu_torch.models.glm import Coefficients
+from photon_ml_tpu_torch.ops.fused_glm import storage_narrowing_ok
 from photon_ml_tpu_torch.opt.constraints import box_arrays
 from photon_ml_tpu_torch.opt.newton_soa import soa_eligible, solve_newton_soa
 from photon_ml_tpu_torch.opt.solve import (check_box_support, check_supported,
@@ -174,10 +187,19 @@ def _numpy_dtype(dtype: torch.dtype):
 
 def _as_device(a, dtype: Optional[torch.dtype], device: torch.device) -> Tensor:
     """A contiguous tensor on ``device`` (``dtype`` None keeps the dtype); no
-    copy when ``a`` already is one."""
+    copy when ``a`` already is one.  A host array is cast on the host, so it
+    crosses to the device at ``dtype`` (numpy has no bfloat16)."""
     if not isinstance(a, torch.Tensor):
-        a = np.asarray(a)
+        a = torch.as_tensor(np.asarray(a))
+        if dtype is not None:
+            a = narrow(a, dtype)
     return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+
+
+def _storage(config: CoordinateConfig, dtype: torch.dtype) -> torch.dtype:
+    """The design's dtype on the device: ``config.storage_dtype``, else the
+    compute dtype."""
+    return storage_torch_dtype(config.storage_dtype) or dtype
 
 class Coordinate:
     """update/score contract (reference Coordinate.scala:28-81)."""
@@ -236,12 +258,13 @@ class FixedEffectCoordinate(Coordinate):
         rows = dict(y=_as_device(data.y, dtype, device),
                     offset=_as_device(data.offset, dtype, device),
                     weight=_as_device(data.weight, dtype, device))
+        sd = _storage(config, dtype)
         if isinstance(shard, SparseShard):
             self._batch = SparseBatch(indices=_as_device(shard.indices, torch.int64, device),
-                                      values=_as_device(shard.values, dtype, device),
+                                      values=_as_device(shard.values, sd, device),
                                       dim=shard.dim, **rows)
         else:
-            self._batch = DenseBatch(x=_as_device(shard, dtype, device), **rows)
+            self._batch = DenseBatch(x=_as_device(shard, sd, device), **rows)
         self._bind_solver()
 
     def _bind_solver(self) -> None:
@@ -263,10 +286,11 @@ class FixedEffectCoordinate(Coordinate):
         """A shallow copy over the same device batch under ``config``'s
         optimization settings; its objective, box and solver are bound
         anew, and so is the context when ``intercept_index`` changes.  A new
-        feature shard is a new design: ValueError."""
+        feature shard or storage dtype is a new design: ValueError."""
         if (not isinstance(config, FixedEffectConfig)
-                or config.feature_shard != self.config.feature_shard):
-            raise ValueError("rebind cannot change the feature shard")
+                or config.feature_shard != self.config.feature_shard
+                or config.storage_dtype != self.config.storage_dtype):
+            raise ValueError("rebind cannot change the feature shard or its storage dtype")
         _refuse_unported(self.coordinate_id, config)
         new = copy.copy(self)
         new.config = config
@@ -338,7 +362,8 @@ def _re_data_key(config: RandomEffectConfig) -> tuple:
     elsewhere share it through ``rebind``."""
     return (config.random_effect_type, config.feature_shard, config.active_cap,
             config.min_active_samples, config.projector,
-            config.features_to_samples_ratio, config.intercept_index)
+            config.features_to_samples_ratio, config.intercept_index,
+            config.storage_dtype)
 
 
 def _refuse_lane_context_variances(coordinate_id: str, config: RandomEffectConfig,
@@ -409,8 +434,11 @@ class RandomEffectCoordinate(Coordinate):
                 intercept_index=config.intercept_index, **rows)
             solve_buckets = self.buckets.buckets
         else:
-            # the design moves to the device once; the buckets are gathered there
-            self._x_full = _as_device(shard, dtype, device)
+            # the design moves to the device once; the buckets are gathered
+            # there.  A device tensor at a narrower width keeps it (scoring
+            # widens it), as the reference keeps a device-resident shard
+            keep = isinstance(shard, torch.Tensor) and storage_narrowing_ok(shard.dtype, dtype)
+            self._x_full = _as_device(shard, shard.dtype if keep else dtype, device)
             self.buckets = bucket_by_entity(entity_ids, self._x_full, **rows)
             solve_buckets = self.buckets.buckets
             if config.projector == ProjectorType.INDEX_MAP:
@@ -440,11 +468,13 @@ class RandomEffectCoordinate(Coordinate):
                                             device=device)
                             for b in self.buckets.buckets]
 
-        # buckets on the device once, lanes-first (x [L, cap, d]; y / wt /
-        # rows / valid [L, cap]); ``_bind_solver`` lays them lanes-last
-        # (x [cap, d, L]; the rest [cap, L]) for SoA Newton
+        # buckets on the device once, lanes-first (x [L, cap, d] at the
+        # storage width; y / wt at the compute dtype; rows / valid [L, cap]);
+        # ``_bind_solver`` lays them lanes-last (x [cap, d, L]; the rest
+        # [cap, L]) for SoA Newton
+        widths = dict(x=_storage(config, dtype), y=dtype, wt=dtype)
         self._dev = [
-            {k: _as_device(v, dtype if k in ("x", "y", "wt") else None, device)
+            {k: _as_device(v, widths.get(k), device)
              for k, v in dict(x=b.x, y=b.y, wt=b.weight,
                               rows=np.where(b.rows < 0, 0, b.rows).astype(np.int64),
                               valid=b.rows >= 0).items()}

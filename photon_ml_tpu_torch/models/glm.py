@@ -13,7 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.core.batch import full_f32_matmul
+from photon_ml_tpu_torch.core.batch import widened_mv
 from photon_ml_tpu_torch.types import TaskType
 
 Tensor = torch.Tensor
@@ -31,11 +31,9 @@ class Coefficients:
         return self.means.shape[-1]
 
     def score(self, x: Tensor) -> Tensor:
-        """Raw dot-product scores x @ means, in x's and the means' common dtype."""
-        w = torch.as_tensor(self.means, device=x.device)
-        dt = torch.promote_types(x.dtype, w.dtype)
-        full_f32_matmul()
-        return torch.mv(x.to(dt), w.to(dt))
+        """Raw dot-product scores x @ means, in x's and the means' common dtype
+        (a narrow-stored x is widened a row chunk at a time)."""
+        return widened_mv(x, torch.as_tensor(self.means, device=x.device))
 
 
 @dataclasses.dataclass(frozen=True)

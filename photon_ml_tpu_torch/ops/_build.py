@@ -119,15 +119,15 @@ def load(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
     if name == "fused_glm":
-        lib.fvg_launch.argtypes = [I, I, P, P, P, P, P, P, L, I, L, I, I, I, P, P, P]
+        lib.fvg_launch.argtypes = [I, I, I, P, P, P, P, P, P, L, I, L, I, I, I, P, P, P]
         lib.fvg_launch.restype = I
-        lib.hvp_launch.argtypes = [I, I, P, P, P, P, P, P, P, P, L, I, L, I, I, I, P,
-                                   P, P]
+        lib.hvp_launch.argtypes = [I, I, I, P, P, P, P, P, P, P, P, L, I, L, I, I, I,
+                                   P, P, P]
         lib.hvp_launch.restype = I
-        lib.glm_smem_bytes.argtypes = [I, I, I, I]
+        lib.glm_smem_bytes.argtypes = [I, I, I, I, I]
         lib.glm_smem_bytes.restype = L
     elif name == "soa_newton":
-        lib.newton_step_launch.argtypes = [I, I, I, P, P, P, P, P, P, P, I, L, D,
+        lib.newton_step_launch.argtypes = [I, I, I, I, P, P, P, P, P, P, P, I, L, D,
                                            P, P]
         lib.newton_step_launch.restype = I
     elif name == "compact_score":

@@ -11,6 +11,11 @@ it runs ``newton_step_plain``: ``soa_margins``, ``hessian_soa`` and
 photon_ml_tpu/opt/newton_soa.py (``_margins``, ``_hess``,
 ``_cholesky_solve_soa``) op for op.  Unlike the TPU kernel (L % 128 == 0)
 any lane count is taken.  ``launches`` counts kernel launches only.
+
+Storage width: ``x_t`` may be held at a narrower float than w (bf16 or f16
+against float32; ``ops.fused_glm.storage_narrowing_ok``); the kernel and the
+plain version widen each element of x and do not round w, as the reference
+computes at promote(x, w).  Every other input is at w's dtype.
 """
 
 from __future__ import annotations
@@ -21,17 +26,18 @@ from typing import List
 import torch
 
 from photon_ml_tpu_torch.core.losses import PointwiseLoss
+from photon_ml_tpu_torch.ops.fused_glm import DTYPE_CODE, storage_narrowing_ok
 
 Tensor = torch.Tensor
 
 MAX_DIM = 16  # the kernel's D template range, and the SoA gate's width cap
 KERNEL_LOSSES = ("logistic", "squared", "poisson")  # what the SoA gate admits
-_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 
 def soa_margins(w: Tensor, x_t: Tensor, off_t: Tensor) -> Tensor:
-    """[cap, L] margins: sum over the d axis of x_t [cap, d, L] * w [d, L]."""
-    return (x_t * w[None]).sum(dim=1) + off_t
+    """[cap, L] margins: sum over the d axis of x_t [cap, d, L] (widened to
+    w's dtype) * w [d, L]."""
+    return (x_t.to(w.dtype) * w[None]).sum(dim=1) + off_t
 
 
 def hessian_soa(loss: PointwiseLoss, w, x_t, y_t, off_t, wt_t, l2) -> List[List[Tensor]]:
@@ -40,6 +46,7 @@ def hessian_soa(loss: PointwiseLoss, w, x_t, y_t, off_t, wt_t, l2) -> List[List[
     z = soa_margins(w, x_t, off_t)
     q = wt_t * loss.d2(z, y_t)                       # [cap, L]
     d = w.shape[0]
+    x_t = x_t.to(q.dtype)
     xq = x_t * q[:, None, :]                         # [cap, d, L]
     hh = [[None] * d for _ in range(d)]
     for i in range(d):
@@ -102,7 +109,8 @@ def _check(w, g, x_t, y_t, off_t, wt_t, l2) -> None:
         if tuple(t.shape) != shape:
             raise ValueError(f"newton_step: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
-        if t.dtype != w.dtype:
+        if t.dtype != w.dtype and not (name == "x_t"
+                                        and storage_narrowing_ok(t.dtype, w.dtype)):
             raise ValueError(f"newton_step: {name} is {t.dtype}, w is {w.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"newton_step: {name} must be contiguous (lanes last)")
@@ -135,8 +143,8 @@ def _launch(loss, w, g, x_t, y_t, off_t, wt_t, l2) -> Tensor:
     if loss.name not in KERNEL_LOSSES:
         raise ValueError(f"newton_step kernel takes losses {KERNEL_LOSSES}, "
                          f"not {loss.name!r}")
-    if w.dtype not in _DTYPE_CODE:
-        raise ValueError(f"newton_step kernel takes float32/float64, not {w.dtype}")
+    if w.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"newton_step kernel takes w in float32/float64, not {w.dtype}")
     if cap < 1 or num_l < 1:
         raise ValueError(f"newton_step: empty bucket (cap {cap}, lanes {num_l})")
     tensors = (w, g, x_t, y_t, off_t, wt_t, l2)
@@ -149,7 +157,7 @@ def _launch(loss, w, g, x_t, y_t, off_t, wt_t, l2) -> Tensor:
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         err = lib.newton_step_launch(
-            _DTYPE_CODE[w.dtype], loss.code, d, P(w.data_ptr()), P(g.data_ptr()),
+            DTYPE_CODE[w.dtype], DTYPE_CODE[x_t.dtype], loss.code, d, P(w.data_ptr()), P(g.data_ptr()),
             P(x_t.data_ptr()), P(y_t.data_ptr()), P(off_t.data_ptr()),
             P(wt_t.data_ptr()), P(l2.data_ptr()), cap, num_l, eps,
             P(out.data_ptr()), P(stream))

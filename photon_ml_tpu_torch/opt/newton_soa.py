@@ -11,7 +11,8 @@ loops over device tensors, synchronising once per Newton iteration and once
 per backtracking trial to test whether any lane is still active.
 
 The step itself is ``ops.soa_newton.newton_step``: the CUDA kernel on the
-card, its plain version on the CPU.
+card, its plain version on the CPU.  A narrow-stored ``x_t`` (bf16 / f16) is
+widened element by element in margins and gradients; w is not rounded.
 
 Gate (game/coordinate.py): solve dim <= 16, cap*d^2 <= 2560, a smooth loss,
 no normalization, box or L1.
@@ -44,7 +45,7 @@ def _value_grad(loss: PointwiseLoss, w, x_t, y_t, off_t, wt_t, l2):
     l, d1 = loss.loss_and_d1(z, y_t)
     f = (wt_t * l).sum(0) + 0.5 * l2 * (w * w).sum(0)
     r = wt_t * d1                                        # [cap, L]
-    g = (x_t * r[:, None, :]).sum(0) + l2 * w           # [d, L]
+    g = (x_t.to(r.dtype) * r[:, None, :]).sum(0) + l2 * w  # [d, L]; x widened
     return f, g
 
 

@@ -154,6 +154,7 @@ def bucket_by_entity(entity_ids: np.ndarray, x: "np.ndarray | Tensor", y: np.nda
     entity_ids = np.asarray(entity_ids, np.int64)
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(np.asarray(x, dtype))
+    tdtype = torch.from_numpy(np.zeros(0, dtype)).dtype
     y = np.asarray(y, dtype)
     offset = np.zeros(n, dtype) if offset is None else np.asarray(offset, dtype)
     weight = np.ones(n, dtype) if weight is None else np.asarray(weight, dtype)
@@ -170,11 +171,13 @@ def bucket_by_entity(entity_ids: np.ndarray, x: "np.ndarray | Tensor", y: np.nda
         by, boff, bw, brows, bcounts, blanes = _pack_lane_meta(
             n_lanes, cap, idxs, kept_rows, kept_entities, rescale,
             y, offset, weight, dtype, lane_of, len(buckets))
-        # rows copy exactly and padding slots are exact zeros
+        # rows copy exactly and padding slots are exact zeros; a design at
+        # another width is cast after the gather (on its device), so no
+        # full-size copy of it exists
         valid = torch.as_tensor(brows >= 0, device=x.device)
         safe = torch.as_tensor(np.where(brows >= 0, brows, 0).astype(np.int64),
                                device=x.device)
-        bx = torch.where(valid[..., None], x[safe], 0.0)
+        bx = torch.where(valid[..., None], x[safe].to(tdtype), 0.0)
         buckets.append(Bucket(x=bx, y=by, offset=boff, weight=bw, rows=brows,
                               counts=bcounts, entity_lanes=blanes))
     return EntityBuckets(buckets=buckets, lane_of=lane_of, dim=d,
@@ -225,9 +228,10 @@ def publish_stack(coeffs: Sequence[Tensor], lane_slots: Sequence[Tensor],
 
 
 def score_samples(w_stack: Tensor, slots: Tensor, x: Tensor) -> Tensor:
-    """Raw per-sample scores x_i · w_entity(i); slot -1 (no model) scores 0."""
+    """Raw per-sample scores x_i · w_entity(i); slot -1 (no model) scores 0.
+    A narrow-stored x is widened; w is not rounded."""
     safe = torch.where(slots >= 0, slots, 0).long()
-    margins = (x * w_stack[safe]).sum(dim=1)
+    margins = (x.to(w_stack.dtype) * w_stack[safe]).sum(dim=1)
     return torch.where(slots >= 0, margins, 0.0)
 
 
