@@ -185,7 +185,31 @@ Phases, each printing its result and wall time on its own line:
     float64 accumulation) against their plain versions, twice bitwise, and
     of kernel 3 (x_t at bf16 / f16) within phase 4's gate, each main-path
     shape timed as phases 3 and 4 time theirs;
-14. printed last, after phases 15-18 and 24: one JSON line describing each
+25. after phase 24, host syncs and the device's idle share per fit, on
+    glmix_chip, glmix2-TRON, glmix3 and glmix_sparse at full width, each
+    built as in phases 5, 7, 8 and 12 and fitted three times: timed; under
+    ``torch.cuda.set_sync_debug_mode("warn")`` with every warning recorded
+    (each sync names the Python line that made the card wait: the count a
+    fit, split into construction and each coordinate update, per solver
+    loop trip, and the top sites by file:line); and under ``torch.profiler``
+    (the idle share, 1 - the union of the device's
+    kernel, memcpy and memset intervals over the wall time, of the fit and
+    of its updates, these between two ``torch.cuda._sleep`` marks on the
+    card's clock; the same busy time also over the timed fit's untraced
+    wall times; a trace short of records, by each kernel's device records
+    against its launch counter or by the host's kernel launch calls against
+    the device's kernel records, marks included, makes the shares upper
+    bounds).  On glmix3 six more fits time the solvers' state tracking,
+    off, on, on, off, off, on.
+    Every ``torch.profiler`` trace of the script runs 0.5 s before its first
+    call and after its last, since late in a run traces lost the records of
+    whole runs of calls.
+    Gates: the counted fit bitwise the timed one (or within the spread of
+    the timed and profiled fits), and the untracked fits too, syncs > 0,
+    none in the state tracker's lines, ``num_states == iterations + 1`` on
+    every tracked valid lane and scalar solve, and each coordinate's
+    ``tracker_summary`` counting its solves;
+14. printed last, after phases 15-18, 24 and 25: one JSON line describing each
     kernel, with its launches on each path and its device time alone
     (``device_ms``) beside the event time (``ms``); the storage-width shapes
     sit under ``by_shape`` with the launches of the path that runs them.
@@ -410,11 +434,16 @@ def settle(fn, seconds: float = 0.3) -> None:
         torch.cuda.synchronize()
 
 
-PROFILE_ATTEMPTS = 3  # traces of one measurement before it fails: a trace can
-# come back without the device records of a kernel the calls did launch
-# (seen once for the 2 us partials' reduction, and for most launches of the
-# bf16 kernels at glmix_chip's shape on an H100 80GB HBM3: 0.44 ms of
-# device time where the events read 4.38 ms, under the 2.59 ms bound)
+PROFILE_ATTEMPTS = 5  # traces of one measurement: a trace can come back
+# without the device records of a kernel the calls did launch (seen once for
+# the 2 us partials' reduction, and for most launches of the bf16 kernels at
+# glmix_chip's shape on an H100 80GB HBM3: 0.44 ms of device time where the
+# events read 4.38 ms, under the 2.59 ms bound; late in a run, all 10 calls
+# of both kernels in three traces running)
+PROFILE_PAD_S = 0.5  # a trace runs this long before its first call and after
+# its last.  Late in a run the first trace of a measurement lost the records
+# of whole runs of calls, most often all of them, and the next trace of the
+# same calls kept them; with no padding three traces in a row lost them
 
 
 def profiled(fn, reps: int, kernels) -> dict:
@@ -426,7 +455,9 @@ def profiled(fn, reps: int, kernels) -> dict:
     launches each of ``kernels`` once, so a kernel's time per call is its
     recorded time over its recorded launches; a trace with no record of one
     of them is taken again, up to PROFILE_ATTEMPTS traces in all, and one
-    with fewer than ``reps`` records is logged."""
+    with fewer than ``reps`` records is logged.  Where every trace lacks a
+    kernel's records the measurement fails: the device time and the sync and
+    copy counts come only from a trace that recorded the calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -434,9 +465,11 @@ def profiled(fn, reps: int, kernels) -> dict:
     torch.cuda.synchronize()
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
         syncs, htod = 0, 0
         dev_us, records = dict.fromkeys(kernels, 0.0), dict.fromkeys(kernels, 0)
         for e in prof.key_averages():
@@ -455,7 +488,8 @@ def profiled(fn, reps: int, kernels) -> dict:
         if all(records.values()) and all(dev_us.values()):
             return dict(device_ms=sum(dev_us[k] / records[k] for k in kernels) / 1e3,
                         syncs_per_call=syncs / reps, htod_per_call=htod / reps)
-    raise AssertionError(f"the profiler trace shows no device time for {kernels}")
+    raise AssertionError(f"no profiler trace of {PROFILE_ATTEMPTS} shows device time "
+                         f"for every one of {kernels}")
 
 
 class Phase:
@@ -3694,6 +3728,489 @@ def phase_narrow_card_vs_cpu(host: dict, xg):
         _compare_fits(label, gpu, cpu, cfg, ["per-user"], tols=spread_tols)
 
 
+# -- phase 25: host syncs and device idle share per fit -----------------------
+
+SYNC_TOP_SITES = 8  # sync sites listed per cell, most frequent first
+SYNC_MESSAGE = "synchroniz"  # what torch's sync debug mode puts in each warning
+MARK_KERNEL, MARK_CYCLES = "spin_kernel", 1000  # torch.cuda._sleep's kernel marks
+# where the descent starts and ends on the card's timeline
+LAUNCH_CALL = re.compile(r"^cu(da)?Launch\w*Kernel")  # the host's CUDA API
+# calls that launch one kernel (cudaLaunchKernel, cuLaunchKernelEx, ...)
+COPY_OR_SET = ("Memcpy", "Memset")  # device records that are no kernel
+TRACK_AB_CELLS = ("glmix3",)  # lane cells whose fit is timed with and without
+TRACK_AB_ORDER = (False, True, True, False, False, True)  # the solvers' state
+# tracking, in this order (off, on, on, off, off, on)
+TRACED_KERNELS = {"fused_value_and_grad": "fvg_partial_kernel",
+                  "fused_hvp": "hvp_partial_kernel",
+                  "newton_step": "newton_step_kernel", "match_dot": "match_dot_kernel"}
+
+
+def _sync_cells(host: dict):
+    """(cell, a function making its data, config) of phase 25's four
+    cells, each built as phases 5, 7, 8 and 12 build it; ``host`` is phase
+    5's host data."""
+    from photon_ml_tpu_torch.data.synthetic import (chip_design, synth_glmix,
+                                                    synth_glmix_sparse)
+    from photon_ml_tpu_torch.game import GameData
+    from photon_ml_tpu_torch.types import OptimizerType
+
+    def glmix_chip():
+        return GameData(y=host["y"], features={"g": chip_design(host["n"], "cuda"),
+                                               "u": host["xu"]},
+                        id_tags={"userId": host["uids"]})
+
+    return [("glmix_chip", glmix_chip, _glmix_config()),
+            ("glmix2_tron", lambda: _baseline_data(synth_glmix(1, three=False)),
+             _baseline_config(False, OptimizerType.TRON)),
+            ("glmix3", lambda: _baseline_data(synth_glmix(1, three=True)),
+             _baseline_config(True, OptimizerType.LBFGS)),
+            ("glmix_sparse", lambda: _glmix_sparse_data(synth_glmix_sparse(1)),
+             _glmix_sparse_config())]
+
+
+def _coefficients(model) -> dict:
+    """Each coordinate's published coefficients (fixed means, random-effect
+    stacks) as host arrays."""
+    return {cid: (m.coefficients.means if hasattr(m, "coefficients") else m.w_stack)
+            for cid, m in model.models.items()}
+
+
+def _coefficient_diff(a: dict, b: dict) -> float:
+    import numpy as np
+
+    return max(float(np.abs(np.asarray(a[k], np.float64) - np.asarray(b[k], np.float64))
+                     .max(initial=0.0)) for k in a)
+
+
+def _tracker_lines() -> set:
+    """(file, line) of the StateTracker's own code and of every solver line
+    that makes or records into a tracker."""
+    import inspect
+    import os
+
+    from photon_ml_tpu_torch.opt import lbfgs, solve, tron, types
+
+    lines = set()
+    for obj in (types.StateTracker, types.new_tracker):
+        src, start = inspect.getsourcelines(obj)
+        path = os.path.realpath(inspect.getsourcefile(obj))
+        lines |= {(path, start + i) for i in range(len(src))}
+    for mod in (lbfgs, tron, solve):
+        path = os.path.realpath(inspect.getsourcefile(mod))
+        with open(path) as f:
+            lines |= {(path, i) for i, text in enumerate(f, 1) if "tracker" in text}
+    return lines
+
+
+def _port_frames() -> list:
+    """(file, line) of the photon_ml_tpu_torch frames on the calling
+    thread's stack, innermost first."""
+    import os
+
+    pkg = str(Path(__file__).resolve().parent / "photon_ml_tpu_torch") + os.sep
+    frames, f = [], sys._getframe(1)
+    while f is not None:
+        path = os.path.realpath(f.f_code.co_filename)
+        if path.startswith(pkg):
+            frames.append((path, f.f_lineno))
+        f = f.f_back
+    return frames
+
+
+def _site(frame) -> str:
+    """A port frame's file:line relative to the package."""
+    pkg = str(Path(__file__).resolve().parent / "photon_ml_tpu_torch") + "/"
+    path, line = frame
+    return f"{path[len(pkg):] if path.startswith(pkg) else path}:{line}"
+
+
+def _solve_trips(coord, results) -> list:
+    """Per solve of one update: (valid lanes, loop trips = the most
+    iterations of any valid lane, [(num_states, iterations)] of its valid
+    lanes where it tracked states).  A scalar solve is one lane."""
+    import numpy as np
+    import torch
+
+    if not isinstance(results, (list, tuple)):
+        results, masks = [results], [None]
+    else:
+        masks = [np.asarray(b.entity_lanes) >= 0 for b in coord.buckets.buckets]
+    out = []
+    for res, mask in zip(results, masks):
+        its = np.atleast_1d(torch.as_tensor(res.iterations).cpu().numpy())
+        mask = np.ones(its.shape, bool) if mask is None else mask
+        pairs = []
+        if res.tracker is not None:
+            states = np.atleast_1d(res.tracker.num_states.cpu().numpy())
+            pairs = list(zip(states[mask].tolist(), its[mask].tolist()))
+        out.append((int(mask.sum()), int(its[mask].max(initial=0)), pairs))
+    return out
+
+
+def _counted_fit(data, config) -> dict:
+    """One ``GameEstimator.fit`` under ``torch.cuda.set_sync_debug_mode("warn")``
+    inside ``warnings.catch_warnings(record=True)`` with every warning let
+    through: each sync's warning is kept with the port's frames on the stack
+    when it was raised, innermost first, so a sync names the Python line
+    that made the card wait and the lines that called it.  Wrappers mark
+    where the descent starts and where each update ends
+    (``DescentHistory.add``) and keep each update's coordinate and solver
+    results; all are restored, with the debug mode and the warning
+    filters, in a ``finally``."""
+    import warnings
+
+    import torch
+
+    import photon_ml_tpu_torch.game.coordinate as coord_mod
+    import photon_ml_tpu_torch.game.descent as descent
+    from photon_ml_tpu_torch.game import GameEstimator
+
+    syncs, marks, updates = [], [], []
+    real = dict(run=descent.CoordinateDescent.run, add=descent.DescentHistory.add,
+                fixed=coord_mod.FixedEffectCoordinate.update,
+                random=coord_mod.RandomEffectCoordinate.update)
+
+    def keep_results(update):
+        def wrapped(self, *args, **kwargs):
+            model, results = update(self, *args, **kwargs)
+            updates.append((self, results))
+            return model, results
+        return wrapped
+
+    def run(self, *args, **kwargs):
+        marks.append(("construction", len(syncs)))
+        return real["run"](self, *args, **kwargs)
+
+    def add(self, iteration, coordinate_id, *args, **kwargs):
+        marks.append((f"it{iteration} {coordinate_id}", len(syncs)))
+        return real["add"](self, iteration, coordinate_id, *args, **kwargs)
+
+    def shown(message, *args, **kwargs):
+        if SYNC_MESSAGE in str(message):
+            syncs.append(_port_frames())
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        warnings.showwarning = shown  # restored by catch_warnings
+        descent.CoordinateDescent.run = run
+        descent.DescentHistory.add = add
+        coord_mod.FixedEffectCoordinate.update = keep_results(real["fixed"])
+        coord_mod.RandomEffectCoordinate.update = keep_results(real["random"])
+        try:
+            torch.cuda.set_sync_debug_mode("warn")
+            res = GameEstimator(device="cuda").fit(data, [config])[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            descent.CoordinateDescent.run = real["run"]
+            descent.DescentHistory.add = real["add"]
+            coord_mod.FixedEffectCoordinate.update = real["fixed"]
+            coord_mod.RandomEffectCoordinate.update = real["random"]
+    torch.cuda.synchronize()
+    parts = {"construction": marks[0][1],
+             "updates": {label: pos - marks[k][1]
+                         for k, (label, pos) in enumerate(marks[1:])},
+             "after": len(syncs) - marks[-1][1]}
+    return dict(res=res, syncs=syncs, parts=parts, updates=updates)
+
+
+def _busy_ns(intervals, lo: int, hi: int) -> int:
+    """Length of the union of ``intervals`` (start, end) clipped to [lo, hi]."""
+    busy, reach = 0, lo
+    for start, end in sorted(intervals):
+        start, end = max(start, reach), min(end, hi)
+        if end > start:
+            busy += end - start
+            reach = end
+    return busy
+
+
+def _profiled_fit(data, config) -> dict:
+    """One ``GameEstimator.fit`` under ``torch.profiler`` (CPU and CUDA
+    activity; with CUDA activity alone traces lost device records, in two
+    of four cells a descent mark): the device idle share, 1 - (union of the
+    device's kernel, memcpy and memset intervals) / (wall time).  Over the
+    fit: every device record of the trace is the fit's, over the fit's host
+    wall time.  Over its descent: between two ``torch.cuda._sleep`` marks
+    that the card runs when the descent starts and ends (after a sync
+    each), on the card's own clock; None where the trace lost a mark.  Also
+    the records the trace lost: each kernel's device records against its
+    launch counter, and the host's kernel launch calls whose correlation id
+    has no device kernel record (by count where the trace's ids do not pair
+    up), the marks included.  The trace's raw events are read, without
+    building the profiler's event tree."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import photon_ml_tpu_torch.game.descent as descent
+    from photon_ml_tpu_torch.game import GameEstimator
+
+    real_run = descent.CoordinateDescent.run
+
+    def mark():
+        torch.cuda.synchronize()
+        torch.cuda._sleep(MARK_CYCLES)
+
+    def run(self, *args, **kwargs):
+        mark()
+        try:
+            return real_run(self, *args, **kwargs)
+        finally:
+            mark()
+
+    kernels = _zero_launches()
+    descent.CoordinateDescent.run = run
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            res = GameEstimator(device="cuda").fit(data, [config])[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(PROFILE_PAD_S)
+    finally:
+        descent.CoordinateDescent.run = real_run
+    launches = {name: k.launches for name, k in kernels.items()}
+    device, marks, calls, ran = [], [], [], set()
+    records = dict.fromkeys(TRACED_KERNELS, 0)
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() != DeviceType.CUDA:
+            if LAUNCH_CALL.match(name):
+                calls.append(e.correlation_id())
+            continue
+        if not name.startswith(COPY_OR_SET):
+            ran.add(e.correlation_id())
+        if MARK_KERNEL in name:
+            marks.append((e.start_ns(), e.end_ns()))
+            continue
+        device.append((e.start_ns(), e.end_ns()))
+        for k, sym in TRACED_KERNELS.items():
+            records[k] += sym in name
+    if ran & set(calls):
+        unrecorded = sum(c not in ran for c in calls)
+    else:  # ids that do not pair up: compare the counts
+        unrecorded = max(len(calls) - len(ran), 0)
+    busy = _busy_ns(device, -(1 << 62), 1 << 62)
+    shares = dict(fit=dict(wall_ms=wall * 1e3, busy_ms=busy / 1e6,
+                           idle_share=1.0 - busy / (wall * 1e9)),
+                  updates=dict(wall_ms=None, busy_ms=None, idle_share=None))
+    if len(marks) == 2:
+        (_, lo), (hi, _) = sorted(marks)
+        busy = _busy_ns(device, lo, hi)
+        shares["updates"] = dict(wall_ms=(hi - lo) / 1e6, busy_ms=busy / 1e6,
+                                 idle_share=1.0 - busy / (hi - lo))
+    return dict(res=res, wall_s=wall, shares=shares, launches=launches, records=records,
+                device_events=len(device), marks=len(marks), launch_calls=len(calls),
+                kernel_records=len(ran), unrecorded=unrecorded)
+
+
+def _timed_fit(data, config) -> dict:
+    """One untraced, uncounted ``GameEstimator.fit``: its wall time, and
+    that of its descent, between a sync where the descent starts and one
+    where it ends (as ``_profiled_fit``'s marks)."""
+    import torch
+
+    import photon_ml_tpu_torch.game.descent as descent
+    from photon_ml_tpu_torch.game import GameEstimator
+
+    real_run, descent_s = descent.CoordinateDescent.run, []
+
+    def run(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return real_run(self, *args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            descent_s.append(time.perf_counter() - t0)
+
+    descent.CoordinateDescent.run = run
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = GameEstimator(device="cuda").fit(data, [config])[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        descent.CoordinateDescent.run = real_run
+    return dict(res=res, wall_s=wall, updates_s=sum(descent_s))
+
+
+def _untracked(config):
+    """``config`` with every coordinate's solver set to ``track_states=False``."""
+    import dataclasses
+
+    return dataclasses.replace(config, coordinates={
+        cid: dataclasses.replace(c, solver=dataclasses.replace(c.solver, track_states=False))
+        for cid, c in config.coordinates.items()})
+
+
+def _tracking_ab(cell: str, data, config, base: dict, spread: float) -> dict:
+    """More untraced fits of ``cell``, without and with the solvers' state
+    tracking in TRACK_AB_ORDER: the least and the median wall time of the
+    fit and of its descent each way.  Gate: the untracked fits'
+    coefficients equal the tracked timed fit's, within ``spread``."""
+    import statistics
+
+    fits = {False: [], True: []}
+    for track in TRACK_AB_ORDER:
+        fit = _timed_fit(data, config if track else _untracked(config))
+        fits[track].append(fit)
+        if not track:
+            diff = _coefficient_diff(_coefficients(fit["res"].model), base)
+            if diff > spread:
+                raise AssertionError(f"{cell}: track_states=False changed the fit by "
+                                     f"{diff:.3e} (spread {spread:.3e})")
+    row = {}
+    for track, fs in fits.items():
+        fit_s, upd_s = [f["wall_s"] for f in fs], [f["updates_s"] for f in fs]
+        row["tracked" if track else "untracked"] = dict(
+            fit_s_min=min(fit_s), fit_s_median=statistics.median(fit_s),
+            updates_s_min=min(upd_s), updates_s_median=statistics.median(upd_s),
+            fit_s_each=fit_s, updates_s_each=upd_s)
+    on, off = row["tracked"], row["untracked"]
+    log(f"{cell}: state tracking on / off over {len(TRACK_AB_ORDER)} fits "
+        f"{['on' if t else 'off' for t in TRACK_AB_ORDER]}: descent least "
+        f"{on['updates_s_min'] * 1e3:.1f} / {off['updates_s_min'] * 1e3:.1f} ms "
+        f"({(on['updates_s_min'] / off['updates_s_min'] - 1) * 100:+.1f}%), median "
+        f"{on['updates_s_median'] * 1e3:.1f} / {off['updates_s_median'] * 1e3:.1f} ms; "
+        f"fit least {on['fit_s_min'] * 1e3:.1f} / {off['fit_s_min'] * 1e3:.1f} ms; "
+        f"untracked coefficients within the spread")
+    return row
+
+
+def phase_sync_counts(stats: dict, host: dict):
+    """Phase 25 (module docstring): per cell an uncounted timed fit, a
+    counted fit and a profiled fit, and on TRACK_AB_CELLS the tracking
+    A/B."""
+    import collections
+
+    import torch
+
+    no_tracker = _tracker_lines()
+    out = {}
+    for cell, make_data, config in _sync_cells(host):
+        clock = [time.perf_counter()]
+
+        def lap() -> float:
+            clock.append(time.perf_counter())
+            return clock[-1] - clock[-2]
+
+        data = make_data()
+        t_data = lap()
+        timed = _timed_fit(data, config)
+        t_timed = lap()
+        counted = _counted_fit(data, config)
+        t_counted = lap()
+        traced = _profiled_fit(data, config)
+        t_traced = lap()
+
+        # gates: the counted fit is the uncounted one, bitwise (or within
+        # the spread of two uncounted fits where they differ)
+        base = _coefficients(timed["res"].model)
+        spread = _coefficient_diff(_coefficients(traced["res"].model), base)
+        diff = _coefficient_diff(_coefficients(counted["res"].model), base)
+        log(f"{cell}: counted fit vs uncounted: max |diff| {diff:.3e}; two uncounted "
+            f"fits (timed, profiled): {spread:.3e} {'ok' if diff <= spread else 'MISMATCH'}")
+        if diff > spread:
+            raise AssertionError(f"{cell}: counting the syncs changed the fit")
+        tracking = (_tracking_ab(cell, data, config, base, spread)
+                    if cell in TRACK_AB_CELLS else None)
+        t_tracking = lap()
+        del data
+        torch.cuda.empty_cache()
+        syncs = counted["syncs"]
+        if not syncs:
+            raise AssertionError(f"{cell}: the counted fit saw no host sync")
+        in_tracker = [s for s in syncs if any(f in no_tracker for f in s)]
+        if in_tracker:
+            raise AssertionError(f"{cell}: {len(in_tracker)} syncs in tracker code, from "
+                                 f"{sorted(set(_site(s[0]) for s in in_tracker))}")
+
+        trips, tracked = [], 0
+        for coord, results in counted["updates"]:
+            solves = _solve_trips(coord, results)
+            trips.append(sum(t for _, t, _ in solves))
+            for _, _, pairs in solves:
+                bad = [(n, it) for n, it in pairs if n != it + 1]
+                if bad:
+                    raise AssertionError(f"{cell} {coord.coordinate_id}: num_states != "
+                                         f"iterations + 1 on {len(bad)} lanes, e.g. {bad[:3]}")
+                tracked += len(pairs)
+            summary = coord.tracker_summary(results)
+            lanes = sum(v for v, _, _ in solves)
+            log(f"{cell} {coord.coordinate_id} tracker_summary: {summary}")
+            if summary.get("count") != lanes:
+                raise AssertionError(f"{cell} {coord.coordinate_id}: summary counts "
+                                     f"{summary.get('count')} solves, not {lanes}")
+
+        parts = counted["parts"]
+        n_upd = sum(parts["updates"].values())
+        top = collections.Counter(_site(s[0]) if s else "outside the package"
+                                  for s in syncs).most_common(SYNC_TOP_SITES)
+        chains = collections.Counter(" < ".join(_site(f) for f in s[:3])
+                                     for s in syncs).most_common(SYNC_TOP_SITES)
+        dropped = {k: (traced["records"][k], v) for k, v in traced["launches"].items()
+                   if traced["records"][k] < v}
+        lost = bool(dropped) or traced["unrecorded"] > 0 or traced["marks"] != 2
+        sh = traced["shares"]
+        # the same device busy time over the untraced fit's wall times: the
+        # trace's own host cost lengthens the traced fit
+        untraced = dict(
+            fit=1.0 - sh["fit"]["busy_ms"] / (timed["wall_s"] * 1e3),
+            updates=(None if sh["updates"]["busy_ms"] is None else
+                     1.0 - sh["updates"]["busy_ms"] / (timed["updates_s"] * 1e3)))
+        row = dict(syncs=len(syncs), construction=parts["construction"],
+                   updates=parts["updates"], after=parts["after"],
+                   solver_trips=trips, syncs_per_trip=n_upd / max(sum(trips), 1),
+                   tracked_solves=tracked, top_sites=top, top_chains=chains,
+                   fit_s=timed["wall_s"], traced_fit_s=traced["wall_s"],
+                   idle_fit=sh["fit"]["idle_share"], idle_updates=sh["updates"]["idle_share"],
+                   busy_ms=sh["fit"]["busy_ms"], busy_updates_ms=sh["updates"]["busy_ms"],
+                   updates_wall_ms=sh["updates"]["wall_ms"],
+                   untraced_updates_ms=timed["updates_s"] * 1e3,
+                   idle_fit_untraced=untraced["fit"], idle_updates_untraced=untraced["updates"],
+                   device_events=traced["device_events"], records=traced["records"],
+                   launches=traced["launches"], launch_calls=traced["launch_calls"],
+                   kernel_records=traced["kernel_records"],
+                   unrecorded_launches=traced["unrecorded"], marks=traced["marks"],
+                   idle_is_upper_bound=lost, tracking=tracking,
+                   seconds=dict(data=t_data, timed=t_timed, counted=t_counted,
+                                traced=t_traced, tracking=t_tracking))
+        log(f"{cell}: {len(syncs)} host syncs a fit: construction {parts['construction']}, "
+            f"updates {parts['updates']}, after {parts['after']}; solver loop trips per "
+            f"update {trips}, {row['syncs_per_trip']:.2f} update syncs a trip; "
+            f"{tracked} tracked solves with num_states == iterations + 1")
+        log(f"{cell}: top sync sites {top}")
+        log(f"{cell}: top sync chains (innermost first) {chains}")
+        bound = (f" (upper bounds: the trace lost records: {traced['unrecorded']} of "
+                 f"{traced['launch_calls']} kernel launch calls without a device record, "
+                 f"{traced['marks']} of 2 marks, kernels short of their counters "
+                 f"{dropped})" if lost else "")
+        upd = (f"updates not measured: the trace holds {traced['marks']} of the 2 marks"
+               if sh["updates"]["idle_share"] is None else
+               f"{sh['updates']['idle_share']:.4f} over the updates "
+               f"({sh['updates']['wall_ms']:.1f} ms traced), "
+               f"{untraced['updates']:.4f} over the untraced updates "
+               f"({timed['updates_s'] * 1e3:.1f} ms)")
+        log(f"{cell}: device idle share {sh['fit']['idle_share']:.4f} over the fit "
+            f"({sh['fit']['wall_ms']:.1f} ms traced), {untraced['fit']:.4f} over the "
+            f"untraced fit ({timed['wall_s'] * 1e3:.1f} ms), {upd}{bound}; "
+            f"{traced['launch_calls']} kernel launch calls, {traced['kernel_records']} "
+            f"device kernel records, {traced['unrecorded']} calls unrecorded; kernel "
+            f"records / launches "
+            f"{ {k: (traced['records'][k], v) for k, v in traced['launches'].items()} }; "
+            f"seconds: data {t_data:.2f}, timed fit {t_timed:.2f}, counted fit "
+            f"{t_counted:.2f}, profiled fit and its trace {t_traced:.2f}, tracking "
+            f"on / off {t_tracking:.2f}")
+        out[cell] = row
+    stats["sync_counts"] = out
+    log("phase 25: " + json.dumps(out))
+
+
 KERNELS = {
     "fused_value_and_grad": dict(
         source="photon_ml_tpu_torch/csrc/fused_glm.cu",
@@ -3871,9 +4388,12 @@ def main() -> int:
         phase_glmix2_tron_bf16(stats)
     with Phase("24(c) card vs CPU, bf16 storage"):
         phase_narrow_card_vs_cpu(host, xg16)
-    del xg16, host
+    del xg16
     with Phase("24(d, e) storage-width kernels vs plain, and their times"):
         phase_narrow_kernels(stats)
+    with Phase("25 host syncs and device idle share per fit"):
+        phase_sync_counts(stats, host)
+    del host
     with Phase("14 kernels"):
         kernels = []
         for kname, meta in KERNELS.items():

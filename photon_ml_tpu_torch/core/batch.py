@@ -127,6 +127,10 @@ class DenseBatch:
         shift); under narrow storage w is rounded to x's dtype first."""
         return storage_mv(self.x, w, w.dtype)
 
+    def rescale_weights(self, scale) -> "DenseBatch":
+        """The batch with its row weights times ``scale``; x keeps its width."""
+        return self.replace(weight=self.weight * scale)
+
     def replace(self, **kw) -> "DenseBatch":
         return dataclasses.replace(self, **kw)
 
@@ -164,6 +168,11 @@ class SparseBatch:
         """Raw margins: a gather of w at each row's indices and a row sum;
         narrow-stored values are widened, w is not rounded."""
         return (self.values.to(w.dtype) * w[self.indices]).sum(dim=-1)
+
+    def rescale_weights(self, scale) -> "SparseBatch":
+        """The batch with its row weights times ``scale``; the values keep
+        their width."""
+        return self.replace(weight=self.weight * scale)
 
     def replace(self, **kw) -> "SparseBatch":
         return dataclasses.replace(self, **kw)

@@ -107,8 +107,23 @@ class GLMObjective:
         on padded rows."""
         return torch.where(batch.weight > 0, self.margins(w, batch), 0.0)
 
+    # -- objective value -------------------------------------------------------
+
+    def raw_value(self, w: Tensor, batch: Batch) -> Tensor:
+        """Σ wt·l, no regularization; plain PyTorch on either device, as the
+        reference computes it outside its kernels."""
+        z = self._safe_margins(w, batch)
+        return torch.sum(batch.weight * self.loss.loss(z, batch.y))
+
     def l2_term(self, w: Tensor) -> Tensor:
         return 0.5 * self.reg.l2 * torch.dot(w, w)
+
+    def l1_term(self, w: Tensor) -> Tensor:
+        return self.reg.l1 * torch.sum(w.abs())
+
+    def value(self, w: Tensor, batch: Batch) -> Tensor:
+        """The smooth objective: the loss sum plus L2 (OWLQN carries L1)."""
+        return self.raw_value(w, batch) + self.l2_term(w)
 
     # -- gradient ------------------------------------------------------------
 
@@ -149,6 +164,10 @@ class GLMObjective:
 
     def value_and_grad(self, w: Tensor, batch: Batch) -> Tuple[Tensor, Tensor]:
         return self.finish_value_and_grad(w, *self.raw_value_and_grad(w, batch))
+
+    def gradient(self, w: Tensor, batch: Batch) -> Tensor:
+        """The gradient, through ``value_and_grad`` (kernel 1 on the card)."""
+        return self.value_and_grad(w, batch)[1]
 
     # -- Hessian-vector product ------------------------------------------------
 
@@ -215,6 +234,16 @@ class GLMObjective:
         full_f32_matmul()
         h = (xn * q[:, None]).T @ xn
         return h + self.reg.l2 * torch.eye(w.shape[-1], dtype=h.dtype, device=h.device)
+
+    # -- predictions -----------------------------------------------------------
+
+    def scores(self, w: Tensor, batch: Batch) -> Tensor:
+        """The margins, offsets and shifts included."""
+        return self.margins(w, batch)
+
+    def means(self, w: Tensor, batch: Batch) -> Tensor:
+        """The inverse link of the margins."""
+        return self.loss.mean(self.margins(w, batch))
 
 
 def lane_margins(x: Tensor, w: Tensor) -> Tensor:

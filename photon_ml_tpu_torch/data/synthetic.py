@@ -29,7 +29,11 @@ from which the task's Bayes AUC (~0.73 at full scale) follows.  With
 dtype, rounded once from the float32 draws (numpy has no bfloat16); labels
 and logits are drawn from the float32 designs either way.
 
-The rest of this module is the ``glmix_chip`` task.
+``generate_binary_classification``, ``generate_poisson``, ``generate_linear``
+and ``generate_glmix``, at the end of this module, are the small seeded
+generators of photon_ml_tpu/data/synthetic.py, bitwise the same numpy arrays.
+
+The module's middle part is the ``glmix_chip`` task.
 
 Port of the glmix_chip generator of the repository's ``bench.py``
 (``_chip_sizes``, ``_chip_signal_cols``, ``synth_glmix_chip`` and the device
@@ -51,8 +55,12 @@ and no float32 [n, 512] copy exists.  Generative logits have std ~1.3, so the ta
 
 from __future__ import annotations
 
+from typing import Dict, Optional, Tuple
+
 import numpy as np
 import torch
+
+from photon_ml_tpu_torch.game.data import GameData
 
 D_SIG, D_CHIP_G, D_CHIP_U = 16, 512, 4  # glmix_chip feature widths
 CHIP_CAP = 32        # per-entity active-sample cap
@@ -242,3 +250,74 @@ def last_rows_per_entity(ids: np.ndarray, count: int) -> np.ndarray:
     rank = np.empty(len(ids), np.int64)
     rank[order] = np.arange(len(ids)) - (np.cumsum(counts) - counts)[inverse[order]]
     return rank >= counts[inverse] - count
+
+
+# -- the reference's small seeded generators (tests and examples), the same
+# numpy draws in the same order, so each array is the reference's bitwise
+
+
+def generate_binary_classification(n: int, d: int, seed: int = 0, intercept: bool = True,
+                                   dtype=np.float32
+                                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(x, y, w_true) with logits x @ w_true; column 0 is 1 with ``intercept``."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(dtype)
+    if intercept:
+        x[:, 0] = 1.0
+    w = (rng.normal(size=d) * 0.5).astype(dtype)
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-(x @ w)))).astype(dtype)
+    return x, y, w
+
+
+def generate_poisson(n: int, d: int, seed: int = 0, dtype=np.float32
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(n, d)) * 0.3).astype(dtype)
+    w = (rng.normal(size=d) * 0.3).astype(dtype)
+    lam = np.exp(np.clip(x @ w, -10, 3))
+    y = rng.poisson(lam).astype(dtype)
+    return x, y, w
+
+
+def generate_linear(n: int, d: int, noise: float = 0.1, seed: int = 0, dtype=np.float32
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(dtype)
+    w = rng.normal(size=d).astype(dtype)
+    y = (x @ w + noise * rng.normal(size=n)).astype(dtype)
+    return x, y, w
+
+
+def generate_glmix(n_users: int = 64, per_user: int = 128, d_global: int = 32,
+                   d_user: int = 8, n_items: Optional[int] = None, d_item: int = 8,
+                   seed: int = 0, dtype=np.float32
+                   ) -> Tuple[GameData, Dict[str, np.ndarray]]:
+    """Two- or three-coordinate GLMix data (fixed, per-user and, with
+    ``n_items``, per-item), logistic response, rows shuffled.  Returns
+    (GameData, the true parameters)."""
+    rng = np.random.default_rng(seed)
+    n = n_users * per_user
+    xg = rng.normal(size=(n, d_global)).astype(dtype)
+    xu = rng.normal(size=(n, d_user)).astype(dtype)
+    uid = np.repeat(np.arange(n_users, dtype=np.int64), per_user)
+    wg = (rng.normal(size=d_global) * 0.5).astype(dtype)
+    wu = (rng.normal(size=(n_users, d_user))).astype(dtype)
+    logits = xg @ wg + np.einsum("nd,nd->n", xu, wu[uid])
+
+    features = {"global": xg, "per_user": xu}
+    id_tags = {"userId": uid}
+    truth = {"wg": wg, "wu": wu}
+    if n_items is not None:
+        xi = rng.normal(size=(n, d_item)).astype(dtype)
+        iid = rng.integers(0, n_items, size=n).astype(np.int64)
+        wi = rng.normal(size=(n_items, d_item)).astype(dtype)
+        logits = logits + np.einsum("nd,nd->n", xi, wi[iid])
+        features["per_item"] = xi
+        id_tags["itemId"] = iid
+        truth["wi"] = wi
+
+    perm = rng.permutation(n)
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-logits))).astype(dtype)
+    data = GameData(y=y[perm], features={k: v[perm] for k, v in features.items()},
+                    id_tags={k: v[perm] for k, v in id_tags.items()})
+    return data, truth

@@ -106,7 +106,7 @@ from photon_ml_tpu_torch.opt.newton_soa import soa_eligible, solve_newton_soa
 from photon_ml_tpu_torch.opt.solve import (check_box_support, check_supported,
                                            compute_soa_variances, compute_variances,
                                            default_config, make_lane_solver, make_solver)
-from photon_ml_tpu_torch.opt.types import SolverResult
+from photon_ml_tpu_torch.opt.types import SolverResult, summarize_solver_results
 from photon_ml_tpu_torch.parallel.bucketing import (bucket_by_entity,
                                                     bucket_by_entity_sparse, publish_stack,
                                                     score_samples, score_samples_sparse,
@@ -354,6 +354,10 @@ class FixedEffectCoordinate(Coordinate):
     def score(self, model: FixedEffectModel) -> Tensor:
         w = _as_device(model.coefficients.means, self._dtype, self._device)
         return self._batch.margins(w)
+
+    def tracker_summary(self, result: SolverResult) -> dict:
+        """The update's solver statistics for the job log."""
+        return summarize_solver_results(result)
 
 
 def _re_data_key(config: RandomEffectConfig) -> tuple:
@@ -718,6 +722,12 @@ class RandomEffectCoordinate(Coordinate):
         if self._sparse:
             return score_samples_sparse(w, slots, self._x_idx, self._x_val)
         return score_samples(w, slots, self._x_full)
+
+    def tracker_summary(self, results: List[SolverResult]) -> dict:
+        """Statistics over the update's per-entity solves, one result per
+        bucket, padding lanes left out."""
+        masks = [np.asarray(b.entity_lanes) >= 0 for b in self.buckets.buckets]
+        return summarize_solver_results(list(results), valid_masks=masks)
 
 
 def merge_carry_through(model: RandomEffectModel,

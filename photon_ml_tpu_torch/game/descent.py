@@ -8,6 +8,9 @@ model by the primary evaluator, compared after complete sweeps only, is kept.
 Locked coordinates (partial retraining) are scored from the initial model and
 never updated.  A checkpoint hook sees the model after every update with the
 cursor of the next one, and a resume skips every update before its cursor.
+At DEBUG level each update's solver statistics are logged
+(``Coordinate.tracker_summary``), built only then, since they read the
+results on the host.
 
 The per-sample score vectors stay on the device in float64.
 """
@@ -128,6 +131,13 @@ class CoordinateDescent:
                 offsets = coord.base_offset() + partial
                 model, results = coord.update(offsets, seed=seed + it,
                                               init=models.get(cid))
+                if logger.isEnabledFor(logging.DEBUG):
+                    try:
+                        logger.debug("coord %s solvers: %s", cid,
+                                     coord.tracker_summary(results))
+                    except Exception:  # telemetry never stops training
+                        logger.debug("coord %s: tracker summary unavailable", cid,
+                                     exc_info=True)
                 new_score = coord.score(model)
                 models[cid] = model
                 scores[cid] = new_score.double()

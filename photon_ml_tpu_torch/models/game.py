@@ -26,7 +26,7 @@ import torch
 
 from photon_ml_tpu_torch.data.shards import SparseShard
 from photon_ml_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from photon_ml_tpu_torch.models.glm import Coefficients
+from photon_ml_tpu_torch.models.glm import Coefficients, GLMModel
 from photon_ml_tpu_torch.ops import compact_score
 from photon_ml_tpu_torch.parallel.bucketing import (score_samples, score_samples_sparse,
                                                     slots_from)
@@ -103,6 +103,9 @@ class FixedEffectModel(DatumScoringModel):
             return (vals.to(dt) * w.to(dt)[idx.long()]).sum(dim=-1)
         return self.coefficients.score(_dense_shard(data, self.feature_shard, dev))
 
+    def glm(self) -> GLMModel:
+        return GLMModel(coefficients=self.coefficients, task=self.task)
+
 
 @dataclasses.dataclass(frozen=True)
 class RandomEffectModel(DatumScoringModel):
@@ -135,6 +138,14 @@ class RandomEffectModel(DatumScoringModel):
         x = _dense_shard(data, self.feature_shard, dev)
         dt = torch.promote_types(x.dtype, w.dtype)
         return score_samples(w.to(dt), slots, x.to(dt))
+
+    def coefficients_for(self, entity_id: int) -> Optional[Coefficients]:
+        """An entity's coefficients (and variances), None without a model."""
+        slot = self.slot_of.get(int(entity_id))
+        if slot is None:
+            return None
+        var = self.variances[slot] if self.variances is not None else None
+        return Coefficients(means=self.w_stack[slot], variances=var)
 
     def to_compact(self, k: Optional[int] = None) -> "CompactRandomEffectModel":
         """The sparse per-entity container: each entity's nonzero columns,
@@ -266,6 +277,17 @@ class CompactRandomEffectModel(DatumScoringModel):
         x = _dense_shard(data, self.feature_shard, dev).to(w_val.dtype)
         return score_compact_dense(w_idx, w_val, slots, x)
 
+    def coefficients_for(self, entity_id: int) -> Optional[Coefficients]:
+        """An entity's coefficients at full width (zero off its columns),
+        None without a model."""
+        slot = self.slot_of.get(int(entity_id))
+        if slot is None:
+            return None
+        means = np.zeros(self.dim, self.values.dtype)
+        keep = self.indices[slot] < self.dim
+        means[self.indices[slot][keep]] = self.values[slot][keep]
+        return Coefficients(means=means)
+
     def to_dense(self) -> RandomEffectModel:
         e, k = self.indices.shape
         w = np.zeros((e, self.dim), self.values.dtype)
@@ -303,6 +325,12 @@ class GameModel:
         from photon_ml_tpu_torch.game.scoring import output_scores, raw_scores
 
         return output_scores(raw_scores(self, data, device), task, predict_mean=True)
+
+    def updated(self, coordinate_id: str, model: DatumScoringModel) -> "GameModel":
+        """A new composite with ``coordinate_id``'s model replaced (or added)."""
+        out = dict(self.models)
+        out[coordinate_id] = model
+        return GameModel(models=out)
 
     def __getitem__(self, cid: str) -> DatumScoringModel:
         return self.models[cid]

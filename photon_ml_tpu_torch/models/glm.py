@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.core.batch import widened_mv
+from photon_ml_tpu_torch.core.losses import loss_for_task
 from photon_ml_tpu_torch.types import TaskType
 
 Tensor = torch.Tensor
@@ -35,6 +36,10 @@ class Coefficients:
         (a narrow-stored x is widened a row chunk at a time)."""
         return widened_mv(x, torch.as_tensor(self.means, device=x.device))
 
+    @classmethod
+    def zeros(cls, dim: int, dtype=np.float32) -> "Coefficients":
+        return cls(means=np.zeros(dim, dtype))
+
 
 @dataclasses.dataclass(frozen=True)
 class GLMModel:
@@ -45,3 +50,10 @@ class GLMModel:
 
     def score(self, x: Tensor) -> Tensor:
         return self.coefficients.score(x)
+
+    def predict(self, x: Tensor, offset: Optional[Tensor] = None) -> Tensor:
+        """The task's mean (inverse link) of x·w plus ``offset``."""
+        z = self.score(x)
+        if offset is not None:
+            z = z + offset
+        return loss_for_task(self.task).mean(z)

@@ -152,6 +152,16 @@ def match_dot(w_idx: Tensor, w_val: Tensor, slots: Tensor, f_idx: Tensor,
 match_dot.launches = 0
 
 
+def score_sparse_compact(w_idx: Tensor, w_val: Tensor, slots: Tensor, f_idx: Tensor,
+                         f_val: Tensor) -> Tensor:
+    """The reference's wrapper of its kernel: per-sample compact margins [n],
+    each sample's entity row gathered by slot and matched against its
+    features, samples without an entity (slot -1) scored 0.  Here the slot
+    gather and the zeroing happen inside ``match_dot`` (the kernel on the
+    card, ``match_dot_plain`` on the CPU)."""
+    return match_dot(w_idx, w_val, slots, f_idx, f_val)
+
+
 def _launch(w_idx, w_val, slots, f_idx, f_val) -> Tensor:
     from photon_ml_tpu_torch.ops import _build
 

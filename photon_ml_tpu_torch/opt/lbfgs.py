@@ -26,6 +26,12 @@ the same lane form, with a per-lane L1 weight; a single solve (the fixed
 effect) runs it as one lane.  A lane's carry freezes once its reason is set;
 the host reads one flag per iteration and one per line-search evaluation.
 The history slots are written in place.
+
+Every solver records its states in a ``StateTracker`` (``SolverConfig.
+track_states``) as the reference does: the initial state, then per
+iteration the accepted point's value and (projected or pseudo-) gradient
+norm, or the current point's where the line search failed.  A finished
+lane records no more, as under ``jax.vmap`` of the reference's loop.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ from photon_ml_tpu_torch.core.objective import lane_dot, lane_norm
 from photon_ml_tpu_torch.opt.constraints import project_to_box
 from photon_ml_tpu_torch.opt.linesearch import (numpy_scalar_type, strong_wolfe,
                                                 strong_wolfe_lanes)
-from photon_ml_tpu_torch.opt.types import SolverConfig, SolverResult, convergence_check
+from photon_ml_tpu_torch.opt.types import (SolverConfig, SolverResult, convergence_check,
+                                          new_tracker)
 from photon_ml_tpu_torch.types import ConvergenceReason
 
 Tensor = torch.Tensor
@@ -133,6 +140,9 @@ def minimize_lbfgs(value_and_grad: ValueAndGrad, w0: Tensor,
     g0norm = host(torch.linalg.vector_norm(opt_gradient(w0, g0)))
     w, f, g = w0, f0, g0
     hist = _History(config.history)
+    tracker = new_tracker(config, w0)
+    if tracker is not None:
+        tracker.record(f0, g0norm)
     it = 0
     reason = (ConvergenceReason.GRADIENT_CONVERGED if g0norm == 0.0
               else ConvergenceReason.NOT_CONVERGED)
@@ -178,10 +188,12 @@ def minimize_lbfgs(value_and_grad: ValueAndGrad, w0: Tensor,
             reason = ConvergenceReason.OBJECTIVE_NOT_IMPROVING
         else:
             w, f, g = w_new, f_new, g_new
+        if tracker is not None:
+            tracker.record(f, g_new_norm if ls.success else gnorm)
 
     return SolverResult(w=w, value=f,
                         grad_norm=host(torch.linalg.vector_norm(opt_gradient(w, g))),
-                        iterations=it, reason=int(reason))
+                        iterations=it, reason=int(reason), tracker=tracker)
 
 
 def two_loop_direction_lanes(g: Tensor, s_hist: Tensor, y_hist: Tensor, rho: Tensor,
@@ -272,6 +284,9 @@ def minimize_lbfgs_lanes(value_and_grad: ValueAndGrad, w0: Tensor,
     g0norm = lane_norm(opt_gradient(w0, g0))
     w, f, g = w0, f0, g0
     hist = _LaneHistory(num_l, config.history, d, w0.dtype, dev)
+    tracker = new_tracker(config, w0, num_l)
+    if tracker is not None:
+        tracker.record(f0, g0norm)
     it = torch.zeros(num_l, dtype=torch.int32, device=dev)
     reason = torch.where(g0norm == 0.0, _code(ConvergenceReason.GRADIENT_CONVERGED, dev),
                          _code(ConvergenceReason.NOT_CONVERGED, dev))
@@ -289,7 +304,8 @@ def minimize_lbfgs_lanes(value_and_grad: ValueAndGrad, w0: Tensor,
             dvec = torch.where(free, dvec, 0.0)
         # the direction lost descent: fall back to steepest descent
         dvec = torch.where((lane_dot(g, dvec) >= 0)[:, None], -g_dir, dvec)
-        alpha0 = _first_step(lane_norm(opt_gradient(w, g)), hist.count)
+        gnorm = lane_norm(opt_gradient(w, g))
+        alpha0 = _first_step(gnorm, hist.count)
 
         def phi_fn(alpha, w=w, dvec=dvec):
             wt = w + alpha[:, None] * dvec
@@ -305,19 +321,22 @@ def minimize_lbfgs_lanes(value_and_grad: ValueAndGrad, w0: Tensor,
         hist.admit(w_new - w, g_new - g, active & ls.success)
 
         it_new = it + 1
-        r_new = convergence_check(f_new, f, f0, lane_norm(opt_gradient(w_new, g_new)),
-                                  g0norm, it_new, config.max_iters, config.tolerance)
+        g_new_norm = lane_norm(opt_gradient(w_new, g_new))
+        r_new = convergence_check(f_new, f, f0, g_new_norm, g0norm, it_new,
+                                  config.max_iters, config.tolerance)
         # no Armijo point along any direction we can build
         r_new = torch.where(ls.success, r_new, not_improving)
         keep = active & ls.success
         w = torch.where(keep[:, None], w_new, w)
         f = torch.where(keep, f_new, f)
         g = torch.where(keep[:, None], g_new, g)
+        if tracker is not None:
+            tracker.record(f, torch.where(keep, g_new_norm, gnorm), active)
         it = torch.where(active, it_new, it)
         reason = torch.where(active, r_new, reason)
 
     return SolverResult(w=w, value=f, grad_norm=lane_norm(opt_gradient(w, g)),
-                        iterations=it, reason=reason)
+                        iterations=it, reason=reason, tracker=tracker)
 
 
 def pseudo_gradient(w: Tensor, g: Tensor, l1: Tensor) -> Tensor:
@@ -353,6 +372,9 @@ def minimize_owlqn_lanes(value_and_grad: ValueAndGrad, w0: Tensor, l1,
     ff0 = composite(w0, f0)
     w, f, g, full_f = w0, f0, g0, ff0
     hist = _LaneHistory(num_l, config.history, d, dt, dev)
+    tracker = new_tracker(config, w0, num_l)
+    if tracker is not None:
+        tracker.record(ff0, pg0norm)
     it = torch.zeros(num_l, dtype=torch.int32, device=dev)
     reason = torch.where(pg0norm == 0.0, _code(ConvergenceReason.GRADIENT_CONVERGED, dev),
                          _code(ConvergenceReason.NOT_CONVERGED, dev))
@@ -372,7 +394,8 @@ def minimize_owlqn_lanes(value_and_grad: ValueAndGrad, w0: Tensor, l1,
         dphi0 = torch.where(bad, -lane_dot(pg, pg), dphi0)
         # the orthant of the trial region: sign(w), or the steepest one at 0
         xi = torch.where(w != 0, torch.sign(w), torch.sign(-pg))
-        alpha = _first_step(lane_norm(pg), hist.count)
+        pgnorm = lane_norm(pg)
+        alpha = _first_step(pgnorm, hist.count)
 
         # backtracking Armijo search on the composite objective; a lane's
         # last trial is kept whether or not it succeeded, and ``ok`` selects
@@ -396,17 +419,19 @@ def minimize_owlqn_lanes(value_and_grad: ValueAndGrad, w0: Tensor, l1,
         hist.admit(w_new - w, g_new - g, active & ok)
         ff_new = composite(w_new, f_new)
         it_new = it + 1
-        r_new = convergence_check(ff_new, full_f, ff0,
-                                  lane_norm(pseudo_gradient(w_new, g_new, l1)), pg0norm,
-                                  it_new, config.max_iters, config.tolerance)
+        pg_new_norm = lane_norm(pseudo_gradient(w_new, g_new, l1))
+        r_new = convergence_check(ff_new, full_f, ff0, pg_new_norm, pg0norm, it_new,
+                                  config.max_iters, config.tolerance)
         r_new = torch.where(ok, r_new, not_improving)
         keep = active & ok
         w = torch.where(keep[:, None], w_new, w)
         f = torch.where(keep, f_new, f)
         g = torch.where(keep[:, None], g_new, g)
         full_f = torch.where(keep, ff_new, full_f)
+        if tracker is not None:
+            tracker.record(full_f, torch.where(keep, pg_new_norm, pgnorm), active)
         it = torch.where(active, it_new, it)
         reason = torch.where(active, r_new, reason)
 
     return SolverResult(w=w, value=full_f, grad_norm=lane_norm(pseudo_gradient(w, g, l1)),
-                        iterations=it, reason=reason)
+                        iterations=it, reason=reason, tracker=tracker)

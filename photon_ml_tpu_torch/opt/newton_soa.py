@@ -103,5 +103,6 @@ def solve_newton_soa(loss: PointwiseLoss, w0_t: Tensor, x_t: Tensor, y_t: Tensor
         iters = torch.where(active, iters + 1, iters)
         k += 1
 
+    # no state tracking here, as in the reference
     return SolverResult(w=w, value=f, grad_norm=_gnorm(g), iterations=iters,
-                        reason=reason)
+                        reason=reason, tracker=None)

@@ -69,10 +69,11 @@ def default_config(optimizer: OptimizerType) -> SolverConfig:
 
 
 def _one_lane(res: SolverResult) -> SolverResult:
-    """A one-lane solve's result as a single solve's."""
+    """A one-lane solve's result, its tracker included, as a single solve's."""
     return SolverResult(w=res.w[0], value=res.value[0].item(),
                         grad_norm=res.grad_norm[0].item(),
-                        iterations=int(res.iterations[0]), reason=int(res.reason[0]))
+                        iterations=int(res.iterations[0]), reason=int(res.reason[0]),
+                        tracker=None if res.tracker is None else res.tracker.lane(0))
 
 
 def make_solver(objective: GLMObjective, optimizer: OptimizerType = OptimizerType.LBFGS,

@@ -13,7 +13,9 @@ carries a leading lane axis [L, ...], and per-lane masks reproduce the
 vmapped loops exactly.  A lane's carry freezes once its own loop condition is
 false; each loop runs while any lane's condition holds.  The host reads one
 flag per CG step and one per outer iteration.  The fixed effect runs it with
-one lane, its Hessian-vector products from the fused CUDA kernel.
+one lane, its Hessian-vector products from the fused CUDA kernel.  Each
+lane's states go to a ``StateTracker``, the reference's record: the initial
+state, then the value and gradient norm after every outer iteration it runs.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from typing import Callable, Tuple
 import torch
 
 from photon_ml_tpu_torch.core.objective import lane_dot, lane_norm
-from photon_ml_tpu_torch.opt.types import SolverConfig, SolverResult, convergence_check
+from photon_ml_tpu_torch.opt.types import (SolverConfig, SolverResult, convergence_check,
+                                          new_tracker)
 from photon_ml_tpu_torch.types import ConvergenceReason
 
 Tensor = torch.Tensor
@@ -103,6 +106,9 @@ def minimize_tron(value_and_grad: Callable[[Tensor], Tuple[Tensor, Tensor]],
     w, f, g = w0, f0, g0
     delta = g0norm
     num_l = w0.shape[0]
+    tracker = new_tracker(config, w0, num_l)
+    if tracker is not None:
+        tracker.record(f0, g0norm)
     it = torch.zeros(num_l, dtype=torch.int32, device=w0.device)
     failures = torch.zeros_like(it)
     reason = torch.where(g0norm == 0.0,
@@ -150,7 +156,8 @@ def minimize_tron(value_and_grad: Callable[[Tensor], Tuple[Tensor, Tensor]],
         failures_new = torch.where(accept, 0, failures + 1).to(torch.int32)
 
         it_new = it + 1
-        r_new = convergence_check(f_new, f, f0, lane_norm(g_new), g0norm, it_new,
+        g_new_norm = lane_norm(g_new)
+        r_new = convergence_check(f_new, f, f0, g_new_norm, g0norm, it_new,
                                   config.max_iters, config.tolerance)
         # only accepted steps can claim convergence (a rejected step has
         # f_new == f trivially); rejected steps retry, or give up after
@@ -168,5 +175,8 @@ def minimize_tron(value_and_grad: Callable[[Tensor], Tuple[Tensor, Tensor]],
         it = torch.where(active, it_new, it)
         failures = torch.where(active, failures_new, failures)
         reason = torch.where(active, r_new, reason)
+        if tracker is not None:
+            tracker.record(f_new, g_new_norm, active)
 
-    return SolverResult(w=w, value=f, grad_norm=lane_norm(g), iterations=it, reason=reason)
+    return SolverResult(w=w, value=f, grad_norm=lane_norm(g), iterations=it, reason=reason,
+                        tracker=tracker)

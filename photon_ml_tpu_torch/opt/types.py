@@ -1,14 +1,23 @@
-"""Solver configuration, result and the convergence contract.
+"""Solver configuration, result, state tracking and the convergence contract.
 
 Port of photon_ml_tpu/opt/types.py.  The JAX solvers run inside
 ``lax.while_loop``; the port's solvers are host loops, so the result is a
 plain dataclass of tensors and Python numbers.
+
+``StateTracker`` is the per-iteration history (the reference's
+OptimizationStatesTracker): values and gradient norms in device tensors of
+[max_iters + 1] slots, or [L, max_iters + 1] over lanes, padded with nan,
+slot 0 the initial state.  ``record`` writes a slot by ``scatter_`` at each
+lane's ``num_states`` and never reads a device value on the host, so a
+solver loop that records pays no synchronisation for it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.types import ConvergenceReason
@@ -35,6 +44,7 @@ class SolverConfig:
     c1: float = 1e-4  # Armijo
     c2: float = 0.9  # Wolfe curvature
     max_cg: int = 20  # TRON's truncated-CG steps per outer iteration
+    track_states: bool = True  # the result carries its StateTracker
 
     @classmethod
     def lbfgs_default(cls) -> "SolverConfig":
@@ -46,15 +56,79 @@ class SolverConfig:
 
 
 @dataclasses.dataclass
+class StateTracker:
+    """Per-iteration history: ``values[..., i]`` and ``grad_norms[..., i]``
+    hold state i for i < ``num_states`` (an int32 tensor, one per lane);
+    later slots stay nan."""
+
+    values: Tensor
+    grad_norms: Tensor
+    num_states: Tensor
+
+    @classmethod
+    def init(cls, max_iters: int, dtype, device=None,
+             lanes: Optional[int] = None) -> "StateTracker":
+        """An empty tracker of ``max_iters + 1`` slots, over ``lanes`` lanes
+        when given."""
+        lead = () if lanes is None else (lanes,)
+        values = torch.full(lead + (max_iters + 1,), float("nan"), dtype=dtype,
+                            device=device)
+        return cls(values=values, grad_norms=values.clone(),
+                   num_states=torch.zeros(lead, dtype=torch.int32, device=device))
+
+    def _like(self, v) -> Tensor:
+        """``v`` as a tensor of the lanes' shape on the tracker's device; a
+        host number is filled in on the device, never copied there."""
+        lead = self.num_states.shape
+        if isinstance(v, Tensor):
+            return v.to(self.values.dtype).expand(lead)
+        return torch.full(lead, float(v), dtype=self.values.dtype,
+                          device=self.values.device)
+
+    def record(self, value, grad_norm, active: Optional[Tensor] = None) -> "StateTracker":
+        """Write (value, grad_norm) into slot ``num_states`` of every lane
+        (of the lanes where ``active`` holds) and count it; in place,
+        returning the tracker."""
+        slot = self.num_states.clamp(max=self.values.shape[-1] - 1).long().unsqueeze(-1)
+        for hist, v in ((self.values, value), (self.grad_norms, grad_norm)):
+            v = self._like(v).unsqueeze(-1)
+            if active is not None:
+                v = torch.where(active.unsqueeze(-1), v, hist.gather(-1, slot))
+            hist.scatter_(-1, slot, v)
+        self.num_states += 1 if active is None else active.to(torch.int32)
+        return self
+
+    def lane(self, i: int) -> "StateTracker":
+        """Lane ``i`` of a lane tracker, as a single solve's."""
+        return StateTracker(values=self.values[i], grad_norms=self.grad_norms[i],
+                            num_states=self.num_states[i])
+
+
+def new_tracker(config: "SolverConfig", like: Tensor,
+                lanes: Optional[int] = None) -> Optional[StateTracker]:
+    """A solve's empty tracker at ``like``'s dtype and device; None when
+    ``config.track_states`` is off."""
+    if not config.track_states:
+        return None
+    return StateTracker.init(config.max_iters, like.dtype, like.device, lanes)
+
+
+@dataclasses.dataclass
 class SolverResult:
     """Final solver output.  ``reason`` is the ConvergenceReason code: an int
-    for a single solve, an int32 tensor over lanes for batched solves."""
+    for a single solve, an int32 tensor over lanes for batched solves.
+    ``tracker`` is the solve's StateTracker (None when states are not
+    tracked, and for the SoA Newton solver)."""
 
     w: Tensor
     value: "Tensor | float"
     grad_norm: "Tensor | float"
     iterations: "Tensor | int"
     reason: "Tensor | int"
+    tracker: Optional[StateTracker] = None
+
+    def convergence_reason(self) -> ConvergenceReason:
+        return ConvergenceReason(int(self.reason))
 
 
 def convergence_check(value: Tensor, prev_value: Tensor, init_value: Tensor,
@@ -87,3 +161,44 @@ def convergence_check(value: Tensor, prev_value: Tensor, init_value: Tensor,
         torch.where(grad_conv, code(ConvergenceReason.GRADIENT_CONVERGED),
                     torch.where(max_iter, code(ConvergenceReason.MAX_ITERATIONS),
                                 code(ConvergenceReason.NOT_CONVERGED))))
+
+
+def _host(a) -> np.ndarray:
+    """A number, array or tensor as a numpy array of at least one dimension."""
+    if isinstance(a, Tensor):
+        a = a.detach().cpu().numpy()
+    return np.atleast_1d(np.asarray(a))
+
+
+def summarize_solver_results(results, valid_masks=None) -> dict:
+    """Statistics over many solver results, scalar or over lanes: counts of
+    convergence reasons and summaries of iterations and final values (the
+    reference's RandomEffectOptimizationTracker summary).  ``valid_masks``:
+    one boolean lane mask (or None) per result; masked-out lanes, such as a
+    bucket's padding, are left out."""
+    if not isinstance(results, (list, tuple)):
+        results = [results]
+    its, reasons, values = [], [], []
+    for k, res in enumerate(results):
+        it, rs, va = _host(res.iterations), _host(res.reason), _host(res.value)
+        mask = np.ones(it.shape, bool)
+        if valid_masks is not None and valid_masks[k] is not None:
+            mask = _host(valid_masks[k]).astype(bool)
+        its.append(it[mask])
+        reasons.append(rs[mask])
+        values.append(va[mask])
+    its = np.concatenate(its) if its else np.zeros(0, np.int32)
+    reasons = np.concatenate(reasons) if reasons else np.zeros(0, np.int32)
+    values = np.concatenate(values) if values else np.zeros(0)
+    if len(its) == 0:
+        return {"count": 0}
+    return {
+        "count": int(len(its)),
+        "convergence_reasons": {ConvergenceReason(int(r)).name: int((reasons == r).sum())
+                                for r in np.unique(reasons)},
+        "iterations": {"mean": float(its.mean()), "max": int(its.max()),
+                       "p50": float(np.percentile(its, 50)),
+                       "p90": float(np.percentile(its, 90))},
+        "final_value": {"mean": float(values.mean()), "max": float(values.max()),
+                        "min": float(values.min())},
+    }
