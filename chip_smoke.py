@@ -208,11 +208,27 @@ Phases, each printing its result and wall time on its own line:
     the timed and profiled fits), and the untracked fits too, syncs > 0,
     none in the state tracker's lines, ``num_states == iterations + 1`` on
     every tracked valid lane and scalar solve, and each coordinate's
-    ``tracker_summary`` counting its solves;
+    ``tracker_summary`` counting its solves.  The solvers' loops (each
+    module's ``while_loop``, wrapped for the counted fit) are counted by
+    the line that runs them: each update sync whose innermost frame is in
+    ``opt/`` must be ``opt/loop.while_loop``'s read, each loop must read
+    once a trip and once where it ends (the syncs per trip of every loop
+    level are printed), and no update may upload through
+    ``game/coordinate._as_device``; the update syncs of the four cells are
+    printed against the 1,552 before the solvers' loop form;
 14. printed last, after phases 15-18, 24 and 25: one JSON line describing each
     kernel, with its launches on each path and its device time alone
     (``device_ms``) beside the event time (``ms``); the storage-width shapes
     sit under ``by_shape`` with the launches of the path that runs them.
+
+Every path that records its kernels' launches also counts the
+``GLMObjective.value_and_grad`` calls on kernel 1's path (a dense batch on
+the card), the fixed effect's objective evaluations: kernel 1 must launch
+once for each.  Each fixed-effect L-BFGS solve on that path must launch it
+as often as the solver counts its own evaluations (1 and each line
+search's, from the searches' state on the card), and every path as often
+as the scalar host loop did before the solvers took the loop form
+(``SCALAR_LOOP_KERNEL1``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero and prints no result; so does a run without a
@@ -222,11 +238,23 @@ CUDA device or without the package beside this script.
 
 runs only phases 1-2 against the package in directory TREE, then times
 both fused kernels at the four main-path shapes (after one parity check
-each against the plain version) and fits glmix_chip, glmix2-TRON, glmix3
-and glmix2-norm-var at full width, printing one JSON line of device times,
-fit times and the fixed effects' update times last.  To compare two trees
-on one card, unpack both into git-ignored directories and run one process
-per tree in the order A B B A.
+each against the plain version), fits glmix2-TRON, glmix3 and
+glmix2-en-box at scale 8 once untimed (every solver path's first launches),
+and fits glmix_chip, glmix2-TRON, glmix3, glmix2-norm-var and glmix2-en-box
+at full width, each AB_REPEATS times, printing per fit each
+fixed-effect update's seconds, solver iterations and kernel-1 launches
+(which must equal its objective evaluations), and one JSON line of device
+times, fit times, those updates and a digest of each fit's published
+coefficients last.  To compare two trees on one
+card, unpack both into git-ignored directories and run one process per
+tree in the order A B B A.
+
+    python3 chip_smoke.py --ab-summary LOG...  # medians of --ab runs' logs
+
+reads the last JSON line of each log and prints, per cell, the medians over
+each tree's fits of their seconds and summed fixed-update seconds, the later tree's
+ratio to the first, the kernel-1 launches a fixed update and whether every
+run published the same coefficients.
 """
 
 from __future__ import annotations
@@ -313,6 +341,10 @@ STATIONARY_RATIO = 1e-2  # a fit's float64 pseudo- (or projected-) gradient norm
 EN_BOX_FEATURES = 8  # glmix2-en-box: per-user features 0-7 bounded to [0, inf)
 BOX_BIND_SHARE = 0.01  # at least this share of the bounded coefficients at 0
 BOX_NEG_SLACK = 1e-6  # a bounded published coefficient w = f·w' >= -1e-6·f
+AB_EN_BOX_L1 = 100.0  # glmix2-en-box's fixed L1 in the A/B: the weight phase 18's
+# CPU fits choose
+AB_REPEATS = 3  # fits of each cell in one A/B process: host times vary by tens of
+# percent from fit to fit on one machine
 FOLD_SEED = 8  # 17(b): the per-user shifts and each user's unobserved columns
 GRID_HELD_OUT_PER_USER = 8  # glmix_chip-grid: the last rows of every user (of 64)
 # are the validation data (1,048,576 rows); the rest train
@@ -930,19 +962,114 @@ def _fit_and_score(data, device, config, normalization=None):
     return res, scores, auc, t_fit, t_score
 
 
+class _ObjectiveEvaluations:
+    """``GLMObjective.value_and_grad`` calls on kernel 1's path (a dense
+    batch on the card at a storage width the kernel takes): the fixed
+    effect's objective evaluations, 1 + its line searches' a solve, counted
+    beside the kernels' launches (``_count_objective_evaluations``)."""
+
+    launches = 0
+
+
+def _count_objective_evaluations() -> None:
+    """Wrap ``GLMObjective.value_and_grad``, once for the run, to count
+    its calls on kernel 1's path in ``_ObjectiveEvaluations``."""
+    from photon_ml_tpu_torch.core.batch import DenseBatch
+    from photon_ml_tpu_torch.core.objective import GLMObjective
+    from photon_ml_tpu_torch.ops.fused_glm import storage_narrowing_ok
+
+    real = GLMObjective.value_and_grad
+    if getattr(real, "counts_evaluations", False):
+        return
+
+    def value_and_grad(self, w, batch):
+        if (isinstance(batch, DenseBatch) and batch.x.is_cuda
+                and storage_narrowing_ok(batch.x.dtype, w.dtype)):
+            _ObjectiveEvaluations.launches += 1
+        return real(self, w, batch)
+
+    value_and_grad.counts_evaluations = True
+    GLMObjective.value_and_grad = value_and_grad
+
+
+class _SolverEvaluations:
+    """Per single L-BFGS solve (``opt/solve.py``'s fixed-effect L-BFGS):
+    kernel 1's launches in it and the solver's own count of its objective
+    evaluations, 1 and each line search's from the search's state on the
+    card (kept there until a path is recorded), so that a solve that
+    evaluates outside its searches, or twice for one, shows
+    (``_count_solver_evaluations``)."""
+
+    solves: list = []  # (kernel-1 launches, [each search's evaluations, 0-d])
+
+
+def _count_solver_evaluations() -> None:
+    """Wrap ``opt/solve.py``'s ``minimize_lbfgs`` and ``opt/lbfgs.py``'s
+    ``replay``, once for the run, to keep each single solve's counts in
+    ``_SolverEvaluations``: the search state an iteration ends with is
+    copied on the card as the iteration's end is replayed."""
+    import photon_ml_tpu_torch.opt.lbfgs as lbfgs
+    import photon_ml_tpu_torch.opt.linesearch as linesearch
+    import photon_ml_tpu_torch.opt.solve as solve
+    from photon_ml_tpu_torch.ops.fused_glm import fused_value_and_grad
+
+    real_solve, real_replay = solve.minimize_lbfgs, lbfgs.replay
+    if getattr(real_solve, "counts_evaluations", False):
+        return
+    open_solves: list = []
+
+    def replay(fn, *args):
+        if fn is lbfgs._finish and open_solves:
+            open_solves[-1].append(args[1].s[..., linesearch._EVALS].clone())
+        return real_replay(fn, *args)
+
+    def minimize_lbfgs(*args, **kwargs):
+        before = fused_value_and_grad.launches
+        open_solves.append([])
+        try:
+            res = real_solve(*args, **kwargs)
+        finally:
+            evals = open_solves.pop()
+        _SolverEvaluations.solves.append((fused_value_and_grad.launches - before, evals))
+        return res
+
+    minimize_lbfgs.counts_evaluations = True
+    solve.minimize_lbfgs = minimize_lbfgs
+    lbfgs.replay = replay
+
+
+def _check_solver_evaluations(path: str) -> int:
+    """Every single L-BFGS solve kept since the last check that ran on
+    kernel 1's path launched it once an evaluation the solver counted: 1
+    and its searches'.  Returns the solves checked."""
+    solves = [(k1, evals) for k1, evals in _SolverEvaluations.solves if k1 > 0]
+    _SolverEvaluations.solves = []
+    for k1, evals in solves:
+        counted = 1 + sum(int(e) for e in evals)
+        if k1 != counted:
+            raise AssertionError(f"{path}: a fixed-effect L-BFGS solve launched kernel 1 {k1} "
+                                 f"times for {counted} objective evaluations (1 + its line "
+                                 f"searches' {[int(e) for e in evals]})")
+    return len(solves)
+
+
 def _counted_kernels() -> dict:
+    """The four kernels' wrappers, whose ``launches`` count their launches,
+    and the objective evaluations that should launch kernel 1."""
     from photon_ml_tpu_torch.ops.compact_score import match_dot
     from photon_ml_tpu_torch.ops.fused_glm import fused_hvp, fused_value_and_grad
     from photon_ml_tpu_torch.ops.soa_newton import newton_step
 
     return {"fused_value_and_grad": fused_value_and_grad, "fused_hvp": fused_hvp,
-            "newton_step": newton_step, "match_dot": match_dot}
+            "newton_step": newton_step, "match_dot": match_dot,
+            "objective_evaluations": _ObjectiveEvaluations}
 
 
 def _zero_launches() -> dict:
     kernels = _counted_kernels()
     for k in kernels.values():
         k.launches = 0
+    _SolverEvaluations.solves = []
     return kernels
 
 
@@ -2556,12 +2683,41 @@ def _launches_since(kernels: dict, before: dict) -> dict:
     return {name: k.launches - before[name] for name, k in kernels.items()}
 
 
+# kernel 1's launches by path under the fixed effect's scalar host-loop
+# L-BFGS, which the solvers' loop form replaced (PERF.md section 6; each
+# equal to the objective evaluations): the loop form evaluates as often on every path
+SCALAR_LOOP_KERNEL1 = {
+    "glmix_chip": 13, "glmix_chip_grid_0": 12, "glmix_chip_grid_1": 12,
+    "glmix_chip_grid_2": 13, "glmix_chip_grid_3": 11, "glmix_chip_grid_4": 10,
+    "glmix_chip_reg_path_1e+06": 6, "glmix_chip_reg_path_100000": 7,
+    "glmix_chip_reg_path_10000": 6, "glmix_chip_reg_path_1000": 6, "glmix_chip_retrain_a": 0,
+    "glmix_chip_retrain_b": 37, "glmix_chip_retrain_b_resume": 13, "glmix2_tron": 12,
+    "glmix3": 11, "sparse1m": 0, "glmix_sparse": 0, "glmix_sparse_held_out": 0,
+    "glmix2_norm_var": 9, "glmix2_norm_var_reduced": 11, "sparse1m_norm_var": 0,
+    "glmix_chip_var_reduced": 16, "glmix_sparse_var": 0, "glmix_sparse_norm_en": 0,
+    "fold_reduced": 12, "glmix2_en_box": 13, "glmix2_en_box_reduced": 12,
+    "glmix_chip_bf16": 38, "glmix2_tron_bf16": 9}
+
+
 def _record_path_launches(path: str, launches: dict, stats: dict, required) -> None:
     """``launches`` of one part of a main path, recorded under ``path``;
-    each kernel in ``required`` must have launched."""
+    each kernel in ``required`` must have launched; kernel 1 once an
+    objective evaluation on its path, where they were counted, once an
+    evaluation each fixed-effect L-BFGS solve counted itself, and as often
+    as under the scalar loop (``SCALAR_LOOP_KERNEL1``)."""
     for name in required:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the {path} path")
+    k1 = launches["fused_value_and_grad"]
+    evals = launches.get("objective_evaluations")
+    if evals is not None and k1 != evals:
+        raise AssertionError(f"{path}: kernel 1 launched {k1} times for {evals} objective "
+                             f"evaluations")
+    solves = _check_solver_evaluations(path)
+    if path in SCALAR_LOOP_KERNEL1 and k1 != SCALAR_LOOP_KERNEL1[path]:
+        raise AssertionError(f"{path}: kernel 1 launched {k1} times, the scalar loop "
+                             f"{SCALAR_LOOP_KERNEL1[path]}")
+    stats.setdefault("lbfgs_solves_checked", {})[path] = solves
     for name, v in launches.items():
         stats.setdefault(name, {}).setdefault("launches_by_path", {})[path] = v
 
@@ -3731,6 +3887,8 @@ def phase_narrow_card_vs_cpu(host: dict, xg):
 # -- phase 25: host syncs and device idle share per fit -----------------------
 
 SYNC_TOP_SITES = 8  # sync sites listed per cell, most frequent first
+LOOP_FORM_BEFORE_SYNCS = 1552  # the four cells' update syncs before the solvers'
+# loop form (PERF.md section 5)
 SYNC_MESSAGE = "synchroniz"  # what torch's sync debug mode puts in each warning
 MARK_KERNEL, MARK_CYCLES = "spin_kernel", 1000  # torch.cuda._sleep's kernel marks
 # where the descent starts and ends on the card's timeline
@@ -3824,6 +3982,32 @@ def _site(frame) -> str:
     return f"{path[len(pkg):] if path.startswith(pkg) else path}:{line}"
 
 
+def _helper_site() -> tuple:
+    """(file, line) of ``opt/loop.while_loop``'s host read, the one host
+    read of every solver loop."""
+    import inspect
+    import os
+
+    from photon_ml_tpu_torch.opt import loop
+
+    src, start = inspect.getsourcelines(loop.while_loop)
+    line = start + next(i for i, text in enumerate(src) if "bool(cond(state))" in text)
+    return os.path.realpath(inspect.getsourcefile(loop.while_loop)), line
+
+
+def _upload_lines() -> set:
+    """(file, line) of the coordinates' host-array upload helper
+    (``game/coordinate._as_device``), which no update may reach."""
+    import inspect
+    import os
+
+    import photon_ml_tpu_torch.game.coordinate as coord_mod
+
+    src, start = inspect.getsourcelines(coord_mod._as_device)
+    path = os.path.realpath(inspect.getsourcefile(coord_mod._as_device))
+    return {(path, start + i) for i in range(len(src))}
+
+
 def _solve_trips(coord, results) -> list:
     """Per solve of one update: (valid lanes, loop trips = the most
     iterations of any valid lane, [(num_states, iterations)] of its valid
@@ -3857,6 +4041,7 @@ def _counted_fit(data, config) -> dict:
     (``DescentHistory.add``) and keep each update's coordinate and solver
     results; all are restored, with the debug mode and the warning
     filters, in a ``finally``."""
+    import collections
     import warnings
 
     import torch
@@ -3864,11 +4049,28 @@ def _counted_fit(data, config) -> dict:
     import photon_ml_tpu_torch.game.coordinate as coord_mod
     import photon_ml_tpu_torch.game.descent as descent
     from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.opt import lbfgs, linesearch, loop, newton_soa, tron
 
     syncs, marks, updates = [], [], []
     real = dict(run=descent.CoordinateDescent.run, add=descent.DescentHistory.add,
                 fixed=coord_mod.FixedEffectCoordinate.update,
                 random=coord_mod.RandomEffectCoordinate.update)
+    solver_modules = (linesearch, lbfgs, tron, newton_soa)
+    # per solver loop, by the line that runs it: loops entered, trips, and
+    # the qualified name of its body
+    loops = collections.defaultdict(collections.Counter)
+    bodies = {}
+
+    def counted_loop(cond, body, state):
+        site = _site(_port_frames()[0])
+        loops[site]["loops"] += 1
+        bodies[site] = body.__qualname__
+
+        def trip(st):
+            loops[site]["trips"] += 1
+            return body(st)
+
+        return loop.while_loop(cond, trip, state)
 
     def keep_results(update):
         def wrapped(self, *args, **kwargs):
@@ -3897,6 +4099,8 @@ def _counted_fit(data, config) -> dict:
         descent.DescentHistory.add = add
         coord_mod.FixedEffectCoordinate.update = keep_results(real["fixed"])
         coord_mod.RandomEffectCoordinate.update = keep_results(real["random"])
+        for mod in solver_modules:
+            mod.while_loop = counted_loop
         try:
             torch.cuda.set_sync_debug_mode("warn")
             res = GameEstimator(device="cuda").fit(data, [config])[0]
@@ -3906,12 +4110,52 @@ def _counted_fit(data, config) -> dict:
             descent.DescentHistory.add = real["add"]
             coord_mod.FixedEffectCoordinate.update = real["fixed"]
             coord_mod.RandomEffectCoordinate.update = real["random"]
+            for mod in solver_modules:
+                mod.while_loop = loop.while_loop
     torch.cuda.synchronize()
     parts = {"construction": marks[0][1],
              "updates": {label: pos - marks[k][1]
                          for k, (label, pos) in enumerate(marks[1:])},
              "after": len(syncs) - marks[-1][1]}
-    return dict(res=res, syncs=syncs, parts=parts, updates=updates)
+    return dict(res=res, syncs=syncs, parts=parts, updates=updates,
+                update_syncs=syncs[marks[0][1]:marks[-1][1]], loops=loops, bodies=bodies)
+
+
+def _loop_syncs(cell: str, counted: dict) -> dict:
+    """Gates on a counted fit's update syncs: each one whose innermost
+    port frame is in ``opt/`` is the loop helper's read, no update uploads
+    through ``game/coordinate._as_device``, and each solver loop reads once
+    a trip and once where it ends.  Returns per loop (by the line that runs
+    it) its syncs, trips, loops and syncs a trip."""
+    import collections
+    import os
+
+    helper = _helper_site()
+    opt_dir = os.path.dirname(helper[0]) + os.sep
+    upd = counted["update_syncs"]
+    off_helper = collections.Counter(_site(s[0]) for s in upd
+                                     if s and s[0][0].startswith(opt_dir) and s[0] != helper)
+    if off_helper:
+        raise AssertionError(f"{cell}: update syncs in opt/ off the loop helper: "
+                             f"{dict(off_helper)}")
+    uploads = [s for s in upd if s and s[0] in _upload_lines()]
+    if uploads:
+        raise AssertionError(f"{cell}: {len(uploads)} update syncs upload through "
+                             f"game/coordinate._as_device, from "
+                             f"{sorted(set(' < '.join(map(_site, s[:3])) for s in uploads))}")
+    by_loop = collections.Counter(_site(s[1]) if len(s) > 1 else "outside the package"
+                                  for s in upd if s and s[0] == helper)
+    levels = {}
+    for site, c in counted["loops"].items():
+        n = by_loop.pop(site, 0)
+        levels[site] = dict(body=counted["bodies"][site], syncs=n, trips=c["trips"],
+                            loops=c["loops"], syncs_per_trip=n / max(c["trips"], 1))
+        if n != c["trips"] + c["loops"]:
+            raise AssertionError(f"{cell}: the loop at {site} read {n} times in "
+                                 f"{c['trips']} trips of {c['loops']} loops")
+    if by_loop:
+        raise AssertionError(f"{cell}: helper reads from loops not counted: {dict(by_loop)}")
+    return levels
 
 
 def _busy_ns(intervals, lo: int, hi: int) -> int:
@@ -4129,6 +4373,12 @@ def phase_sync_counts(stats: dict, host: dict):
         if in_tracker:
             raise AssertionError(f"{cell}: {len(in_tracker)} syncs in tracker code, from "
                                  f"{sorted(set(_site(s[0]) for s in in_tracker))}")
+        levels = _loop_syncs(cell, counted)
+        log(f"{cell}: update syncs by solver loop (the line running it: syncs / trips, "
+            f"loops): " + "; ".join(
+                f"{site} {v['body']}: {v['syncs']} / {v['trips']} = "
+                f"{v['syncs_per_trip']:.3f} a trip, {v['loops']} loops"
+                for site, v in sorted(levels.items())))
 
         trips, tracked = [], 0
         for coord, results in counted["updates"]:
@@ -4153,8 +4403,8 @@ def phase_sync_counts(stats: dict, host: dict):
                                   for s in syncs).most_common(SYNC_TOP_SITES)
         chains = collections.Counter(" < ".join(_site(f) for f in s[:3])
                                      for s in syncs).most_common(SYNC_TOP_SITES)
-        dropped = {k: (traced["records"][k], v) for k, v in traced["launches"].items()
-                   if traced["records"][k] < v}
+        dropped = {k: (traced["records"][k], traced["launches"][k]) for k in TRACED_KERNELS
+                   if traced["records"][k] < traced["launches"][k]}
         lost = bool(dropped) or traced["unrecorded"] > 0 or traced["marks"] != 2
         sh = traced["shares"]
         # the same device busy time over the untraced fit's wall times: the
@@ -4177,7 +4427,7 @@ def phase_sync_counts(stats: dict, host: dict):
                    launches=traced["launches"], launch_calls=traced["launch_calls"],
                    kernel_records=traced["kernel_records"],
                    unrecorded_launches=traced["unrecorded"], marks=traced["marks"],
-                   idle_is_upper_bound=lost, tracking=tracking,
+                   idle_is_upper_bound=lost, tracking=tracking, loops=levels,
                    seconds=dict(data=t_data, timed=t_timed, counted=t_counted,
                                 traced=t_traced, tracking=t_tracking))
         log(f"{cell}: {len(syncs)} host syncs a fit: construction {parts['construction']}, "
@@ -4202,12 +4452,17 @@ def phase_sync_counts(stats: dict, host: dict):
             f"{traced['launch_calls']} kernel launch calls, {traced['kernel_records']} "
             f"device kernel records, {traced['unrecorded']} calls unrecorded; kernel "
             f"records / launches "
-            f"{ {k: (traced['records'][k], v) for k, v in traced['launches'].items()} }; "
+            f"{ {k: (traced['records'][k], traced['launches'][k]) for k in TRACED_KERNELS} }; "
             f"seconds: data {t_data:.2f}, timed fit {t_timed:.2f}, counted fit "
             f"{t_counted:.2f}, profiled fit and its trace {t_traced:.2f}, tracking "
             f"on / off {t_tracking:.2f}")
         out[cell] = row
     stats["sync_counts"] = out
+    total = sum(sum(row["updates"].values()) for row in out.values())
+    solver = sum(v["syncs"] for row in out.values() for v in row["loops"].values())
+    log(f"phase 25: {total} update syncs over {', '.join(out)} (before the loop "
+        f"form: {LOOP_FORM_BEFORE_SYNCS}), {solver} of them the solver loops' reads at "
+        f"{_site(_helper_site())}; no update sync elsewhere in opt/ or in an upload")
     log("phase 25: " + json.dumps(out))
 
 
@@ -4253,6 +4508,7 @@ def run_ab(tree: Path) -> int:
         _, _, smi = phase_device()
     with Phase("2 kernel build"):
         phase_build()
+    _count_objective_evaluations()
     with Phase("ab kernels"):
         torch.backends.cuda.matmul.allow_tf32 = False
         gen = torch.Generator(device="cuda")
@@ -4272,14 +4528,65 @@ def run_ab(tree: Path) -> int:
             _time_fused(stats, n, d, w, v, b, shift, v_shift, gen)
             del w, v, b
             torch.cuda.empty_cache()
-    fits, fixed = {}, {}
+    import hashlib
+
+    import numpy as np
+
+    import photon_ml_tpu_torch.game.coordinate as coord_mod
+
+    fits, fixed, digests = {}, {}, {}
 
     def ab_fit(key, *args):
-        res, _, _, fits[key], _ = _fit_and_score(*args)
-        # the fixed effect's updates: (seconds, solver iterations) per sweep
-        fixed[key] = [(st["seconds"], st["solver_iterations"]) for st in res.history.steps
-                      if st["coordinate"] == "fixed"]
+        real = coord_mod.FixedEffectCoordinate.update
+        fits[key], fixed[key] = [], []
+        for _ in range(AB_REPEATS):
+            counts = []
 
+            def update(self, *a, **kw):
+                before = (fused_value_and_grad.launches, _ObjectiveEvaluations.launches)
+                out = real(self, *a, **kw)
+                counts.append((fused_value_and_grad.launches - before[0],
+                               _ObjectiveEvaluations.launches - before[1]))
+                return out
+
+            coord_mod.FixedEffectCoordinate.update = update
+            try:
+                res, _, _, fit_s, _ = _fit_and_score(*args)
+            finally:
+                coord_mod.FixedEffectCoordinate.update = real
+            # the published coefficients' bytes, to hold the two trees bitwise
+            coefs = _coefficients(res.model)
+            digest = {cid: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+                      for cid, a in sorted(coefs.items())}
+            if digests.setdefault(key, digest) != digest:
+                raise AssertionError(f"{key}: a repeated fit published other coefficients")
+            # the fixed effect's updates: seconds, solver iterations, kernel-1
+            # launches and objective evaluations, per sweep
+            steps = [st for st in res.history.steps if st["coordinate"] == "fixed"]
+            updates = [dict(seconds=st["seconds"], iterations=st["solver_iterations"],
+                            kernel1=k1, evaluations=ev)
+                       for st, (k1, ev) in zip(steps, counts)]
+            for u in updates:
+                if u["kernel1"] != u["evaluations"]:
+                    raise AssertionError(f"{key}: a fixed update launched kernel 1 "
+                                         f"{u['kernel1']} times for {u['evaluations']} "
+                                         f"objective evaluations")
+            fits[key].append(fit_s)
+            fixed[key].append(updates)
+            log(f"{key}: fit {fit_s:.3f} s; fixed updates " + ", ".join(
+                f"{u['seconds'] * 1e3:.2f} ms ({u['iterations']} iterations, {u['kernel1']} "
+                f"kernel-1 launches)" for u in updates))
+
+    with Phase("ab warm-up"):
+        # every solver path once at a reduced scale, so that no timed update
+        # below pays for a kernel's first load
+        small = synth_glmix(REDUCED_GLMIX2_SCALE, three=False)
+        _fit_and_score(_baseline_data(small), "cuda", _baseline_config(False, OptimizerType.TRON))
+        _fit_and_score(_baseline_data(synth_glmix(REDUCED_GLMIX2_SCALE, three=True)), "cuda",
+                       _baseline_config(True, OptimizerType.LBFGS))
+        data, xg, xu = _norm_var_data(_with_intercept(small), "cuda")
+        _fit_and_score(data, "cuda", _en_box_config(AB_EN_BOX_L1), _norm_var_contexts(xg, xu)[0])
+        del small, data, xg, xu
     with Phase("ab fits"):
         host = synth_glmix_chip()
         xg = chip_design(host["n"], "cuda")
@@ -4297,19 +4604,64 @@ def run_ab(tree: Path) -> int:
         data, xg, xu = _norm_var_data(host, "cuda")
         norms, _ = _norm_var_contexts(xg, xu)
         ab_fit("glmix2_norm_var", data, "cuda", _norm_var_config(), norms)
-        log("fit seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in fits.items()))
+        ab_fit("glmix2_en_box", data, "cuda", _en_box_config(AB_EN_BOX_L1), norms)
+        log("fit seconds: " + ", ".join(f"{k} {v}" for k, v in fits.items()))
     kernels = {k: stats[k]["by_shape"] for k in ("fused_value_and_grad", "fused_hvp")}
     log(json.dumps({"ab": str(tree), "card": smi, "kernels": kernels, "fit_s": fits,
-                    "fixed_updates": fixed}))
+                    "fixed_updates": fixed, "coefficient_digests": digests}))
+    return 0
+
+
+def ab_summary(logs) -> int:
+    """Medians over the ``--ab`` runs whose logs are given: per tree (the
+    base name of its directory) and cell, the fit's seconds, the fixed
+    effect's update seconds summed over its sweeps, and each update's
+    kernel-1 launches; the ratio of the later tree to the first named; and
+    whether every run of a cell published the same coefficients."""
+    import statistics
+
+    runs = []
+    for path in logs:
+        lines = [ln for ln in Path(path).read_text().splitlines() if ln.startswith('{"ab"')]
+        if not lines:
+            print(f"chip_smoke: no A/B result in {path}", file=sys.stderr)
+            return 1
+        runs.append(json.loads(lines[-1]))
+    trees = list(dict.fromkeys(Path(r["ab"]).name for r in runs))
+    out = {}
+    for cell in runs[0]["fit_s"]:
+        row = {}
+        for tree in trees:
+            mine = [r for r in runs if Path(r["ab"]).name == tree]
+            fit_s = [s for r in mine for s in r["fit_s"][cell]]
+            fits = [f for r in mine for f in r["fixed_updates"][cell]]
+            fixed = [sum(u["seconds"] for u in f) for f in fits]
+            row[tree] = dict(fit_s=statistics.median(fit_s), fit_s_each=fit_s,
+                             fixed_s=statistics.median(fixed), fixed_s_each=fixed,
+                             kernel1=sorted({tuple(u["kernel1"] for u in f) for f in fits}))
+        first, last = row[trees[0]], row[trees[-1]]
+        row["ratio"] = dict(fit=last["fit_s"] / first["fit_s"],
+                            fixed=last["fixed_s"] / first["fixed_s"])
+        row["same_coefficients"] = len({json.dumps(r["coefficient_digests"][cell],
+                                                   sort_keys=True) for r in runs}) == 1
+        out[cell] = row
+        print(f"{cell}: fit median {first['fit_s']:.3f} / {last['fit_s']:.3f} s "
+              f"({row['ratio']['fit']:.3f}x); fixed updates median {first['fixed_s'] * 1e3:.2f} / "
+              f"{last['fixed_s'] * 1e3:.2f} ms ({row['ratio']['fixed']:.3f}x); kernel-1 launches "
+              f"a fixed update {first['kernel1']} / {last['kernel1']}; the same coefficients "
+              f"in every run: {row['same_coefficients']}  [{trees[0]} / {trees[-1]}]")
+    print(json.dumps({"ab_summary": out, "trees": trees, "runs": len(runs)}))
     return 0
 
 
 def main() -> int:
     root = Path(__file__).resolve().parent
     ab = None
+    if sys.argv[1:2] == ["--ab-summary"]:
+        return ab_summary(sys.argv[2:])
     if sys.argv[1:2] == ["--ab"]:
         if len(sys.argv) != 3:
-            print("usage: chip_smoke.py [--ab TREE]", file=sys.stderr)
+            print("usage: chip_smoke.py [--ab TREE | --ab-summary LOG...]", file=sys.stderr)
             return 2
         ab = root = Path(sys.argv[2]).resolve()
         while str(Path(__file__).resolve().parent) in sys.path:  # only TREE's package
@@ -4337,6 +4689,8 @@ def main() -> int:
         name, count, _ = phase_device()
     with Phase("2 kernel build"):
         phase_build()
+    _count_objective_evaluations()
+    _count_solver_evaluations()
     with Phase("3 fused_value_and_grad and fused_hvp vs plain"):
         phase_fused_glm(stats)
     with Phase("4 newton_step vs plain"):
@@ -4395,6 +4749,17 @@ def main() -> int:
         phase_sync_counts(stats, host)
     del host
     with Phase("14 kernels"):
+        checked = stats.get("lbfgs_solves_checked", {})
+        log(f"fixed-effect L-BFGS solves on kernel 1's path held against their own "
+            f"evaluation counts: {sum(checked.values())} on "
+            f"{sum(1 for v in checked.values() if v)} paths; kernel-1 launches equal the "
+            f"scalar loop's on all {len(SCALAR_LOOP_KERNEL1)} of its paths")
+        if not sum(checked.values()):
+            raise AssertionError("no fixed-effect L-BFGS solve was held against its own "
+                                 "evaluation count")
+        unrun = set(SCALAR_LOOP_KERNEL1) - set(stats["fused_value_and_grad"]["launches_by_path"])
+        if unrun:
+            raise AssertionError(f"paths of the scalar loop's counts not run: {sorted(unrun)}")
         kernels = []
         for kname, meta in KERNELS.items():
             s = stats[kname]

@@ -196,6 +196,15 @@ def _as_device(a, dtype: Optional[torch.dtype], device: torch.device) -> Tensor:
     return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
 
 
+def _upload_without_wait(a: np.ndarray, device: torch.device) -> Tensor:
+    """A host array on ``device``; to a card it goes from pinned memory
+    without a blocking copy."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _storage(config: CoordinateConfig, dtype: torch.dtype) -> torch.dtype:
     """The design's dtype on the device: ``config.storage_dtype``, else the
     compute dtype."""
@@ -276,11 +285,11 @@ class FixedEffectCoordinate(Coordinate):
         box = _box_from_constraints(config.constraints, self.dim, self._dtype, self._device,
                                     self._norm, config.constraint_space)
         self._solve = make_solver(self._objective, config.optimizer, config.solver, box=box)
-        # the binary down-sampling rule's positives, on the host; None where
-        # no rule needs them
+        # the binary down-sampling rule's positives, on the device; None
+        # where no rule needs them
         self._positive = None
         if config.down_sampling_rate < 1.0 and self.task in _BINARY_TASKS:
-            self._positive = (self._batch.y > 0.5).cpu().numpy()
+            self._positive = self._batch.y > 0.5
 
     def rebind(self, config: FixedEffectConfig) -> "FixedEffectCoordinate":
         """A shallow copy over the same device batch under ``config``'s
@@ -307,24 +316,25 @@ class FixedEffectCoordinate(Coordinate):
         prefix)."""
         return np.random.default_rng(seed).random(self._n) < self.config.down_sampling_rate
 
-    def _down_sample_mult(self, keep: np.ndarray) -> np.ndarray:
+    def _down_sample_mult(self, keep: Tensor) -> Tensor:
         """Per-row weight multipliers of a draw (reference
         DownSamplerHelper.scala:33-40): binary tasks keep every positive and
         reweight kept negatives by 1 / rate; linear and Poisson tasks keep
         the drawn rows, unweighted."""
-        dtype = _numpy_dtype(self._dtype)
+        mult = keep.to(self._dtype)
         if self.task in _BINARY_TASKS:
-            mult = np.where(keep, 1.0 / self.config.down_sampling_rate, 0.0)
-            return np.where(self._positive, 1.0, mult).astype(dtype)
-        return keep.astype(dtype)
+            return torch.where(self._positive, 1.0,
+                               mult * (1.0 / self.config.down_sampling_rate))
+        return mult
 
     def _down_sample_weights(self, seed: int) -> Tensor:
         """The update's row weights: the data's, times the multipliers of a
-        fresh draw when the rate is below 1."""
+        fresh draw when the rate is below 1.  The draw is the host's; its
+        [n] mask crosses to the device without a wait."""
         if self.config.down_sampling_rate >= 1.0:
             return self._batch.weight
-        mult = self._down_sample_mult(self._down_sample_keep(seed))
-        return self._batch.weight * _as_device(mult, None, self._device)
+        keep = _upload_without_wait(self._down_sample_keep(seed), self._device)
+        return self._batch.weight * self._down_sample_mult(keep)
 
     def update(self, total_offsets: Tensor, seed: int = 0,
                init: Optional[FixedEffectModel] = None
@@ -334,8 +344,7 @@ class FixedEffectCoordinate(Coordinate):
         variances in original space."""
         ii = self.config.intercept_index
         if init is not None:
-            w0 = self._norm.model_to_transformed_space(
-                _as_device(init.coefficients.means, self._dtype, self._device), ii)
+            w0 = self._norm.model_to_transformed_space(self._device_means(init), ii)
         else:
             w0 = torch.zeros(self.dim, dtype=self._dtype, device=self._device)
         offs = _as_device(total_offsets, self._dtype, self._device)
@@ -344,16 +353,25 @@ class FixedEffectCoordinate(Coordinate):
         v = compute_variances(self._objective, res.w, batch, self.config.variance)
         variances = None if v is None else self._norm.model_to_original_space(v, ii)
         means = self._norm.model_to_original_space(res.w, ii)
+        host_means = means.detach().cpu().numpy()
         model = FixedEffectModel(
             coefficients=Coefficients(
-                means=means.detach().cpu().numpy(),
+                means=host_means,
                 variances=None if variances is None else variances.cpu().numpy()),
             feature_shard=self.config.feature_shard, task=self.task)
+        # the published means stay on the device for the next warm start and
+        # for scoring
+        seed_device_copies(model, (host_means,), (means.detach(),))
         return model, res
 
+    def _device_means(self, model: FixedEffectModel) -> Tensor:
+        """A model's means on the device at the compute dtype: the copy an
+        update published with them, or one made once per model."""
+        (w,) = cached_device_copies(model, self._device, model.coefficients.means)
+        return w.to(self._dtype)
+
     def score(self, model: FixedEffectModel) -> Tensor:
-        w = _as_device(model.coefficients.means, self._dtype, self._device)
-        return self._batch.margins(w)
+        return self._batch.margins(self._device_means(model))
 
     def tracker_summary(self, result: SolverResult) -> dict:
         """The update's solver statistics for the job log."""
@@ -618,27 +636,33 @@ class RandomEffectCoordinate(Coordinate):
                     else self._box_lanes[bucket_index])
 
     def _warm_start(self, bucket_index: int, init: RandomEffectModel) -> Tensor:
-        """[L, d_solve] start from a prior model's rows, gathered at each
-        lane's compact columns where the bucket is compact (zeros for unknown
-        entities and padding columns)."""
-        b = self.buckets.buckets[bucket_index]
-        slots = slots_from(init.slot_of, b.entity_lanes)
-        known = slots >= 0
-        rows = np.where(known, slots, 0)
-        w_stack = np.asarray(init.w_stack, _numpy_dtype(self._dtype))
-        if self._projections is None:
-            w0 = np.where(known[:, None], w_stack[rows], 0.0)
+        """[L, d_solve] start from a prior model's rows, gathered on the
+        device at each lane's compact columns where the bucket is compact
+        (zeros for unknown entities and padding columns).  A model this
+        coordinate published keeps its stack and slots on the device; any
+        other crosses once."""
+        (w_stack,) = cached_device_copies(init, self._device, init.w_stack)
+        w_stack = w_stack.to(self._dtype)
+        if init.slot_of == self._slot_of:
+            slots = self._lane_slots[bucket_index]
         else:
-            idx = self._projections[bucket_index].indices
-            w0 = np.where(known[:, None] & (idx >= 0),
-                          w_stack[rows[:, None], np.where(idx >= 0, idx, 0)], 0.0)
+            slots = torch.as_tensor(slots_from(init.slot_of,
+                                               self.buckets.buckets[bucket_index].entity_lanes),
+                                    device=self._device)
+        known = slots >= 0
+        rows = torch.where(known, slots, 0)
+        if self._proj_idx is None:
+            w0 = torch.where(known[:, None], w_stack[rows], 0.0)
+        else:
+            idx = self._proj_idx[bucket_index]
+            w0 = torch.where(known[:, None] & (idx >= 0),
+                             w_stack[rows[:, None], torch.where(idx >= 0, idx, 0)], 0.0)
         # models are original-space, solves transformed; under per-lane
         # contexts the shift dot is the compact one (observed columns only),
         # the exact inverse of the publish fold: the compact objective has no
         # data term at the unobserved columns to cancel a full-width dot
         norm, ii = self._bucket_norm(bucket_index)
-        return norm.model_to_transformed_space(_as_device(w0, self._dtype, self._device),
-                                               ii)
+        return norm.model_to_transformed_space(w0, ii)
 
     def _lanes_to_original(self, lanes: Tensor, bucket_index: int) -> Tensor:
         """A bucket's transformed-space lane vectors [L, d] in original space."""

@@ -49,10 +49,12 @@ class DescentHistory:
 
 def _solver_iterations(results) -> int:
     """Iterations of one update's solver results: a SolverResult or a list
-    of them (one per bucket), each an int or a tensor over lanes."""
+    of them (one per bucket), each a number or a tensor over lanes.  The
+    most of them, read on the host at this one site an update."""
     if not isinstance(results, (list, tuple)):
         results = [results]
-    return max((int(torch.as_tensor(r.iterations).max()) for r in results), default=0)
+    its = [torch.as_tensor(r.iterations).reshape(-1) for r in results]
+    return int(torch.cat(its).max()) if its else 0
 
 
 class CoordinateDescent:

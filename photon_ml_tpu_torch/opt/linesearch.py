@@ -1,265 +1,262 @@
-"""Strong-Wolfe line search (bracket + zoom) as a host loop.
+"""Strong-Wolfe line search (bracket + zoom) as one ``while_loop`` state
+machine.
 
 Port of photon_ml_tpu/opt/linesearch.py: the same state machine (Nocedal &
 Wright Algorithms 3.5 / 3.6 with a safeguarded quadratic zoom step), the same
-approximate-Wolfe slack and the same bound on evaluations.  The JAX version is
-one ``lax.while_loop``; here each trial point's value and directional
-derivative come to the host (one sync per evaluation) and the scalar logic
-runs in numpy scalars of the working dtype, so its rounding matches the
-device-side scalars of the reference.  The accepted point's gradient stays
-on the device and rides along, so the optimizer never re-evaluates it.
+approximate-Wolfe slack and the same bound on evaluations.  As in the
+reference, it is one ``cond`` / ``body`` pair (``opt/loop.while_loop``):
+the body evaluates the trial point and takes the next state in tensors,
+and the accepted point's gradient rides along, so the optimizer never
+re-evaluates it.
 
-``strong_wolfe_lanes`` is the same state machine over a leading lane axis,
-as the JAX search runs under ``jax.vmap`` for the random-effect lanes: the
-state lives in [L] tensors, both stage transitions are computed for every
-lane and selected by its stage (vmap's form of ``lax.cond``), and a lane's
-state freezes once its own search has ended.  The host reads one flag per
-evaluation.
+``strong_wolfe`` is a single search, with the reference's signature: 0-d
+scalars and [d] vectors.  The solvers run the same search (``start``,
+``step``) over a leading lane axis, as the JAX search runs under
+``jax.vmap`` for the random-effect lanes; a lane's state freezes once its
+own search has ended.
+
+Layout: a search's scalars lie in one tensor [..., _FIELDS] of the working
+dtype (the fields below; the stage, the Wolfe flag and the evaluations as
+whole numbers), its constants in another ([..., 10]).  Each evaluation
+makes the reference's eight tests at once and falls into one of the nine
+cases of its two steps; each case is a whole next state, as the
+reference's ``_replace``s are: a row naming, for every field, the field or
+evaluated quantity it takes (``_CASES``).  The body looks the row up by the
+tests' bits and gathers it, so a trip costs the same few launches whatever
+the case.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
-from photon_ml_tpu_torch.core.objective import lane_dot
+from photon_ml_tpu_torch.opt.loop import while_loop
 from photon_ml_tpu_torch.opt.types import PLATEAU_ULPS
 
 Tensor = torch.Tensor
 
-_BRACKET, _ZOOM, _DONE, _FAILED = 0, 1, 2, 3
+_ZOOM, _DONE = 1, 2  # the stages after bracketing (0)
+
+# the fields of the packed state
+(_ALPHA, _STAGE, _ALPHA_PREV, _PHI_PREV, _LO, _HI, _PHI_LO, _DPHI_LO, _PHI_HI,
+ _BEST_ALPHA, _BEST_PHI, _WOLFE, _EVALS) = range(13)
+_FIELDS = 13
+# the columns a next state draws on after the fields: the evaluation's value
+# and slope, the doubled step and the evaluations with this one; then the
+# search's constants: the slope at 0, the stage codes, 1, 0 and the collapse
+# tolerances (1e-12 where a case shrinks the zoom interval, -1 where not)
+(_PHI, _DPHI, _DOUBLED, _COUNTED) = range(_FIELDS, _FIELDS + 4)
+(_DPHI0, _ZOOM_C, _DONE_C, _ONE, _ZERO, _SHRINKS, _KEEPS) = range(_FIELDS + 4, _FIELDS + 11)
+_COLUMN_CONSTS = (_ZOOM, _DONE, 1.0, 0.0, 1e-12, -1.0)
+# the constants' tensor: the columns' seven, then phi0, the slack and the
+# curvature bound
+_K_PHI0, _K_SLACK, _K_CURV = range(7, 10)
+# a next state is its fields, its collapse tolerance and whether the point
+# is the best so far
+_TOL, _TAKE = _FIELDS, _FIELDS + 1
+
+# the cases
+(_B1_LATER, _B1_FIRST, _B2, _B3, _B4, _Z1, _Z2, _Z3_FLIP, _Z3) = range(9)
+_BEST = {_BEST_ALPHA: _ALPHA, _BEST_PHI: _PHI, _TAKE: _ONE}
+_CASES = {
+    # bracketing (1): Armijo fails, or no decrease after a first
+    # evaluation -> zoom between alpha_prev and alpha
+    _B1_LATER: {_STAGE: _ZOOM_C, _LO: _ALPHA_PREV, _HI: _ALPHA, _PHI_LO: _PHI_PREV,
+                _PHI_HI: _PHI},
+    _B1_FIRST: {_STAGE: _ZOOM_C, _LO: _ALPHA_PREV, _HI: _ALPHA, _PHI_LO: _PHI_PREV,
+                _PHI_HI: _PHI, _DPHI_LO: _DPHI0},
+    # (2) strong Wolfe -> done
+    _B2: {_STAGE: _DONE_C, _WOLFE: _ONE, **_BEST},
+    # (3) dphi >= 0 -> zoom between alpha and alpha_prev
+    _B3: {_STAGE: _ZOOM_C, _LO: _ALPHA, _HI: _ALPHA_PREV, _PHI_LO: _PHI, _DPHI_LO: _DPHI,
+          _PHI_HI: _PHI_PREV, **_BEST},
+    # (4) expand
+    _B4: {_ALPHA: _DOUBLED, _ALPHA_PREV: _ALPHA, _PHI_PREV: _PHI, _DPHI_LO: _DPHI, **_BEST},
+    # zoom (1): Armijo fails or no decrease on lo -> shrink from hi
+    _Z1: {_HI: _ALPHA, _PHI_HI: _PHI, _TOL: _SHRINKS},
+    # (2) strong Wolfe -> done
+    _Z2: {_STAGE: _DONE_C, _WOLFE: _ONE, **_BEST},
+    # (3) a new lo; hi flips to the old lo where the slope points back
+    _Z3_FLIP: {_LO: _ALPHA, _PHI_LO: _PHI, _DPHI_LO: _DPHI, _HI: _LO, _PHI_HI: _PHI_LO,
+               _TOL: _SHRINKS, **_BEST},
+    _Z3: {_LO: _ALPHA, _PHI_LO: _PHI, _DPHI_LO: _DPHI, _TOL: _SHRINKS, **_BEST},
+}
+
+
+def _case(armijo, above_prev, curved, rising, above_lo, flips, later, bracketing) -> int:
+    """The reference's two steps as a decision over the eight tests."""
+    if bracketing:
+        if not armijo or (later and above_prev):
+            return _B1_LATER if later else _B1_FIRST
+        return _B2 if curved else (_B3 if rising else _B4)
+    if not armijo or above_lo:
+        return _Z1
+    return _Z2 if curved else (_Z3_FLIP if flips else _Z3)
+
+
+def _row(case: int) -> list:
+    """A case's next state as columns: every field keeps its own unless the
+    case names another; the collapse tolerance never holds; not the best."""
+    row = list(range(_FIELDS)) + [_KEEPS, _ZERO]
+    row[_EVALS] = _COUNTED
+    for target, column in _CASES[case].items():
+        row[target] = column
+    return row
+
+
+_TESTS = 8
+# the rows by the tests' bits (test k adds 2**k)
+_TABLE = [_row(_case(*((i >> k) & 1 for k in range(_TESTS)))) for i in range(2 ** _TESTS)]
 
 
 class LineSearchResult(NamedTuple):
-    alpha: np.floating  # accepted step (0 on failure)
-    phi: np.floating  # f(w + alpha d)
+    alpha: Tensor  # accepted step (0 on failure)
+    phi: Tensor  # f(w + alpha d)
     g: Tensor  # grad f(w + alpha d)
-    success: bool  # some Armijo-satisfying step found
-    wolfe: bool  # strong Wolfe conditions met
-    num_evals: int
+    success: Tensor  # bool: some Armijo-satisfying step found
+    wolfe: Tensor  # bool: strong Wolfe conditions met
+    num_evals: Tensor  # int32
 
 
-def numpy_scalar_type(dtype: torch.dtype):
-    return {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+class Search(NamedTuple):
+    s: Tensor  # [..., _FIELDS]
+    best_g: Tensor  # [..., d]
+    run: Tensor  # bool: the search goes on
 
 
-def _next_zoom_alpha(lo, hi, phi_lo, dphi_lo, phi_hi):
-    """Safeguarded quadratic interpolation using (phi_lo, dphi_lo, phi_hi)."""
-    with np.errstate(all="ignore"):
-        dx = hi - lo
-        denom = 2.0 * (phi_hi - phi_lo - dphi_lo * dx)
-        quad = lo - dphi_lo * dx * dx / (denom if denom != 0 else 1.0)
-        bad = denom == 0 or not np.isfinite(quad)
-        mid = lo + 0.5 * dx
-        a_min = lo + 0.1 * dx
-        a_max = lo + 0.9 * dx
-        safe = np.clip(quad, min(a_min, a_max), max(a_min, a_max))
-    return mid if bad else safe
+class Tables(NamedTuple):
+    """The search's tables on a device (``tables``)."""
+
+    rows: Tensor  # [2**_TESTS, _FIELDS + 2] int64
+    bits: Tensor  # [_TESTS] int64: 2**k
+    consts: Tensor  # [6]: the column constants after the slope at 0
+    fracs: Tensor  # [3]: the zoom's midpoint and safeguards, as fractions
 
 
-def strong_wolfe(phi_fn: Callable[[float], Tuple[Tensor, Tensor]], phi0, g0: Tensor,
-                 d: Tensor, alpha0, c1: float = 1e-4, c2: float = 0.9,
+_TABLES: dict = {}
+
+
+def tables(like: Tensor) -> Tables:
+    """The search's tables on ``like``'s device, the constants at its dtype:
+    copied there (without a wait) on a first call, kept for later ones."""
+    key = (like.device, like.dtype)
+    tabs = _TABLES.get(key)
+    if tabs is None:
+        def put(values, dtype):
+            return torch.tensor(values, dtype=dtype).to(like.device, non_blocking=True)
+
+        tabs = _TABLES[key] = Tables(
+            put(_TABLE, torch.int64), put([1 << k for k in range(_TESTS)], torch.int64),
+            put(_COLUMN_CONSTS, like.dtype), put((0.5, 0.1, 0.9), like.dtype))
+    return tabs
+
+
+def _next_zoom_alpha(lo, dx, phi_lo, dphi_lo, phi_hi, fracs):
+    """Safeguarded quadratic interpolation on [lo, lo + dx] using (phi_lo,
+    dphi_lo, phi_hi): the minimiser of the quadratic, clipped to the
+    interval's 10%-90%, or its midpoint where the quadratic is flat or not
+    finite."""
+    slope = dphi_lo * dx
+    quad = lo - slope * dx / (2.0 * (phi_hi - phi_lo - slope))
+    # lo + [0.5, 0.1, 0.9] dx: the midpoint, then the safeguards
+    points = lo[..., None] + fracs * dx[..., None]
+    low, high = points[..., 1:].aminmax(dim=-1)
+    return torch.where(torch.isfinite(quad), torch.clamp(quad, low, high), points[..., 0])
+
+
+def start(phi0: Tensor, g0: Tensor, d: Tensor, alpha0: Tensor, active: Optional[Tensor],
+          c2: float, max_evals: int, dot) -> Tuple[Search, Tensor]:
+    """A search's first state and its constants, from f and its gradient at
+    alpha = 0 and the first trial step; ``active`` None for 0-d scalars,
+    else the [L] lanes that search."""
+    tabs = tables(phi0)
+    dphi0 = dot(g0, d)
+    # approximate-Wolfe slack: accept decrease up to PLATEAU_ULPS ulps of phi0
+    # (the convergence check floors its function tolerance at the same width)
+    slack = PLATEAU_ULPS * torch.finfo(phi0.dtype).eps * phi0.abs()
+    k = torch.cat([dphi0[..., None], tabs.consts.expand(phi0.shape + (6,)),
+                   torch.stack([phi0, slack, -c2 * dphi0], -1)], -1)
+    zero = k[..., _ZERO - _DPHI0]
+    s0 = torch.stack([alpha0, zero, zero, phi0, zero, zero, phi0, dphi0, phi0, zero, phi0,
+                      zero, zero], -1)
+    run0 = (dphi0 < 0) & (max_evals > 0)  # a descent direction
+    if active is not None:
+        run0 = run0 & active
+    return Search(s0, g0, run0), k
+
+
+def trial(st: Search) -> Tensor:
+    """The step a search evaluates next."""
+    return st.s[..., _ALPHA]
+
+
+def step(st: Search, phi: Tensor, g: Tensor, d: Tensor, k: Tensor, lanes: bool, c1: float,
+         max_evals: int, max_alpha: float, dot) -> Search:
+    """The next state after evaluating f (``phi``) and its gradient (``g``)
+    at the trial step; ``k`` the search's constants."""
+    tabs = tables(phi)
+    s, best_g, run = st
+    f = s.unbind(-1)
+    c = k.unbind(-1)
+    dphi0, zero, one = c[0], c[_ZERO - _DPHI0], c[_ONE - _DPHI0]
+    phi0, slack, curv_bound = c[_K_PHI0], c[_K_SLACK], c[_K_CURV]
+    alpha = f[_ALPHA]
+    dphi = dot(g, d)
+    # the eight tests, each a >= b: Armijo (NaN failing), phi >= phi_prev,
+    # the curvature condition, dphi >= 0, phi >= phi_lo, the slope pointing
+    # back across the zoom interval, a later evaluation, the bracketing stage
+    a = torch.stack([phi0 + c1 * alpha * dphi0 + slack, phi, curv_bound, dphi, phi,
+                     dphi * (f[_HI] - f[_LO]), f[_EVALS], zero], -1)
+    b = torch.stack([phi, f[_PHI_PREV], dphi.abs(), zero, f[_PHI_LO], zero, one, f[_STAGE]],
+                    -1)
+    index = ((a >= b) * tabs.bits).sum(-1)
+    # (the row by index_select: a 0-d index would be read on the host)
+    rows = tabs.rows.index_select(0, index.reshape(-1)).view(index.shape + (_FIELDS + 2,))
+    counted = f[_EVALS] + 1
+    columns = torch.cat([s, torch.stack([phi, dphi, torch.clamp(2.0 * alpha, max=max_alpha),
+                                         counted], -1), k[..., :_KEEPS - _DPHI0 + 1]], -1)
+    nxt = columns.gather(-1, rows).unbind(-1)
+    lo, hi = nxt[_LO], nxt[_HI]
+    dx = hi - lo
+    # zoom: an interval collapsed stops the search at the best point
+    stage = torch.where(dx.abs() <= nxt[_TOL] * torch.clamp(hi.abs(), min=1.0), float(_DONE),
+                        nxt[_STAGE])
+    alpha_next = torch.where(stage == _ZOOM, _next_zoom_alpha(
+        lo, dx, nxt[_PHI_LO], nxt[_DPHI_LO], nxt[_PHI_HI], tabs.fracs), nxt[_ALPHA])
+    s_next = torch.stack((alpha_next, stage) + nxt[_ALPHA_PREV:_FIELDS], -1)
+    take = nxt[_TAKE] > 0
+    run_next = (stage < _DONE) & (counted < max_evals)
+    if lanes:  # finished lanes keep their state
+        s_next = torch.where(run[..., None], s_next, s)
+        take = run & take
+        run_next = run & run_next
+        take = take[..., None]
+    return Search(s_next, torch.where(take, g, best_g), run_next)
+
+
+def result(final: Search) -> LineSearchResult:
+    """The search's outcome: the best point found, or a step of 0."""
+    s = final.s
+    best_alpha = s[..., _BEST_ALPHA]
+    return LineSearchResult(alpha=best_alpha, phi=s[..., _BEST_PHI], g=final.best_g,
+                            success=best_alpha > 0, wolfe=s[..., _WOLFE] > 0,
+                            num_evals=s[..., _EVALS].to(torch.int32))
+
+
+def strong_wolfe(phi_fn: Callable[[Tensor], Tuple[Tensor, Tensor]], phi0: Tensor,
+                 g0: Tensor, d: Tensor, alpha0, c1: float = 1e-4, c2: float = 0.9,
                  max_evals: int = 25, max_alpha: float = 1e10) -> LineSearchResult:
     """Find alpha satisfying the strong Wolfe conditions along d.
 
-    ``phi_fn(alpha) -> (f(w + alpha d), grad f(w + alpha d))`` as tensors;
-    ``phi0`` is f at alpha = 0 as a numpy scalar of the working dtype,
-    ``g0`` its gradient."""
-    T = numpy_scalar_type(g0.dtype)
-    phi0 = T(phi0)
-    dphi0 = T(torch.dot(g0, d).item())
-    # approximate-Wolfe slack: accept decrease up to PLATEAU_ULPS ulps of phi0
-    # (the convergence check floors its function tolerance at the same width)
-    slack = T(PLATEAU_ULPS) * T(np.finfo(T).eps) * abs(phi0)
+    ``phi_fn(alpha) -> (f(w + alpha d), grad f(w + alpha d))`` for a 0-d
+    ``alpha``; ``phi0`` / ``g0`` are f and its gradient at alpha = 0."""
+    alpha0 = alpha0 if isinstance(alpha0, Tensor) else torch.full_like(phi0, alpha0)
+    st, k = start(phi0, g0, d, alpha0, None, c2, max_evals, torch.dot)
 
-    def armijo_ok(alpha, phi):
-        return phi <= phi0 + c1 * alpha * dphi0 + slack
+    def body(st: Search) -> Search:
+        phi, g = phi_fn(trial(st))
+        return step(st, phi, g, d, k, False, c1, max_evals, max_alpha, torch.dot)
 
-    def curvature_ok(dphi):
-        return abs(dphi) <= -c2 * dphi0
-
-    zero = T(0)
-    stage, i = _BRACKET, 0
-    alpha, alpha_prev, phi_prev = T(alpha0), zero, phi0
-    lo = hi = zero
-    phi_lo, dphi_lo, phi_hi = phi0, dphi0, phi0
-    best_alpha, best_phi, best_g, wolfe = zero, phi0, g0, False
-    if dphi0 >= 0:  # not a descent direction: the caller restarts with -g
-        stage = _FAILED
-
-    with np.errstate(all="ignore"):
-        while stage < _DONE and i < max_evals:
-            phi_t, g = phi_fn(float(alpha))
-            phi = T(phi_t.item())
-            dphi = T(torch.dot(g, d).item())
-            if stage == _BRACKET:
-                if not armijo_ok(alpha, phi) or (i > 0 and phi >= phi_prev):
-                    # zoom(alpha_prev, alpha)
-                    stage = _ZOOM
-                    lo, hi = alpha_prev, alpha
-                    phi_lo, phi_hi = phi_prev, phi
-                    dphi_lo = dphi_lo if i > 0 else dphi0
-                elif curvature_ok(dphi):
-                    stage = _DONE
-                    best_alpha, best_phi, best_g, wolfe = alpha, phi, g, True
-                elif dphi >= 0:
-                    # zoom(alpha, alpha_prev); alpha is the best point so far
-                    stage = _ZOOM
-                    lo, hi = alpha, alpha_prev
-                    phi_lo, dphi_lo, phi_hi = phi, dphi, phi_prev
-                    best_alpha, best_phi, best_g = alpha, phi, g
-                else:
-                    # keep expanding; alpha satisfies Armijo and decreases
-                    best_alpha, best_phi, best_g = alpha, phi, g
-                    alpha_prev, phi_prev, dphi_lo = alpha, phi, dphi
-                    alpha = T(min(T(2.0) * alpha, T(max_alpha)))
-            else:
-                if not armijo_ok(alpha, phi) or phi >= phi_lo:
-                    hi, phi_hi = alpha, phi
-                elif curvature_ok(dphi):
-                    stage = _DONE
-                    best_alpha, best_phi, best_g, wolfe = alpha, phi, g, True
-                else:
-                    if dphi * (hi - lo) >= 0:
-                        hi, phi_hi = lo, phi_lo
-                    lo, phi_lo, dphi_lo = alpha, phi, dphi
-                    best_alpha, best_phi, best_g = alpha, phi, g
-                if stage == _ZOOM and abs(hi - lo) <= 1e-12 * max(T(1.0), abs(hi)):
-                    stage = _DONE  # interval collapsed: stop at the best point
-            i += 1
-            if stage == _ZOOM:
-                alpha = T(_next_zoom_alpha(lo, hi, phi_lo, dphi_lo, phi_hi))
-
-    return LineSearchResult(alpha=best_alpha, phi=best_phi, g=best_g,
-                            success=bool(best_alpha > 0), wolfe=wolfe, num_evals=i)
-
-
-class LaneLineSearchResult(NamedTuple):
-    alpha: Tensor  # [L] accepted steps (0 where the search failed)
-    phi: Tensor  # [L]
-    g: Tensor  # [L, d]
-    success: Tensor  # [L] bool
-    wolfe: Tensor  # [L] bool
-    num_evals: Tensor  # [L] int32
-
-
-def _next_zoom_alpha_lanes(lo, hi, phi_lo, dphi_lo, phi_hi):
-    dx = hi - lo
-    denom = 2.0 * (phi_hi - phi_lo - dphi_lo * dx)
-    quad = lo - dphi_lo * dx * dx / torch.where(denom == 0, 1.0, denom)
-    bad = (denom == 0) | ~torch.isfinite(quad)
-    mid = lo + 0.5 * dx
-    a_min = lo + 0.1 * dx
-    a_max = lo + 0.9 * dx
-    safe = torch.clamp(quad, torch.minimum(a_min, a_max), torch.maximum(a_min, a_max))
-    return torch.where(bad, mid, safe)
-
-
-def strong_wolfe_lanes(phi_fn: Callable[[Tensor], Tuple[Tensor, Tensor]], phi0: Tensor,
-                       g0: Tensor, d: Tensor, alpha0: Tensor, active: Tensor,
-                       c1: float = 1e-4, c2: float = 0.9, max_evals: int = 25,
-                       max_alpha: float = 1e10) -> LaneLineSearchResult:
-    """Per-lane strong-Wolfe search along d [L, d].
-
-    ``phi_fn(alpha)`` takes the [L] trial steps and gives ([L] values,
-    [L, d] gradients) at w + alpha d; ``phi0``/``g0`` are the values and
-    gradients at alpha = 0.  Lanes with ``active`` False do not search."""
-    dphi0 = lane_dot(g0, d)
-    slack = PLATEAU_ULPS * torch.finfo(phi0.dtype).eps * phi0.abs()
-    zero = torch.zeros_like(phi0)
-
-    def col(t):
-        return t[:, None]
-
-    stage = torch.where(dphi0 >= 0, _FAILED, _BRACKET).to(torch.int32)
-    i = torch.zeros_like(stage)
-    alpha = alpha0
-    alpha_prev, phi_prev = zero, phi0
-    lo, hi = zero, zero
-    phi_lo, dphi_lo, phi_hi = phi0, dphi0, phi0
-    best_alpha, best_phi, best_g = zero, phi0, g0
-    wolfe = torch.zeros_like(active)
-
-    while True:
-        run = active & (stage < _DONE) & (i < max_evals)
-        if not bool(run.any()):
-            break
-        phi, g = phi_fn(alpha)
-        dphi = lane_dot(g, d)
-        armijo = phi <= phi0 + c1 * alpha * dphi0 + slack
-        curv = dphi.abs() <= -c2 * dphi0
-        in_bracket = stage == _BRACKET
-
-        # bracketing: (1) Armijo fails or no decrease -> zoom(alpha_prev,
-        # alpha); (2) strong Wolfe -> done; (3) dphi >= 0 -> zoom(alpha,
-        # alpha_prev); (4) expand
-        b1 = ~armijo | ((i > 0) & (phi >= phi_prev))
-        b2 = ~b1 & curv
-        b3 = ~b1 & ~curv & (dphi >= 0)
-        b4 = ~b1 & ~curv & ~b3
-        b_stage = torch.where(b1 | b3, _ZOOM, torch.where(b2, _DONE, stage)).to(torch.int32)
-        b_alpha = torch.where(b4, torch.clamp(2.0 * alpha, max=max_alpha), alpha)
-        b_alpha_prev = torch.where(b4, alpha, alpha_prev)
-        b_phi_prev = torch.where(b4, phi, phi_prev)
-        b_lo = torch.where(b1, alpha_prev, torch.where(b3, alpha, lo))
-        b_hi = torch.where(b1, alpha, torch.where(b3, alpha_prev, hi))
-        b_phi_lo = torch.where(b1, phi_prev, torch.where(b3, phi, phi_lo))
-        b_dphi_lo = torch.where(b1, torch.where(i > 0, dphi_lo, dphi0),
-                                torch.where(b3 | b4, dphi, dphi_lo))
-        b_phi_hi = torch.where(b1, phi, torch.where(b3, phi_prev, phi_hi))
-        b_best = ~b1
-
-        # zoom: (1) Armijo fails or no decrease on lo -> shrink from hi;
-        # (2) strong Wolfe -> done; (3) new lo, hi flips to the old lo when
-        # the slope says so
-        z1 = ~armijo | (phi >= phi_lo)
-        z2 = ~z1 & curv
-        z3 = ~z1 & ~curv
-        flip = dphi * (hi - lo) >= 0
-        z_hi = torch.where(z1, alpha, torch.where(z3 & flip, lo, hi))
-        z_phi_hi = torch.where(z1, phi, torch.where(z3 & flip, phi_lo, phi_hi))
-        z_lo = torch.where(z3, alpha, lo)
-        z_phi_lo = torch.where(z3, phi, phi_lo)
-        z_dphi_lo = torch.where(z3, dphi, dphi_lo)
-        z_stage = torch.where(z2, _DONE, stage).to(torch.int32)
-        # interval collapse: stop at the best point
-        tiny = (z_hi - z_lo).abs() <= 1e-12 * torch.clamp(z_hi.abs(), min=1.0)
-        z_stage = torch.where((z_stage == _ZOOM) & tiny, _DONE, z_stage).to(torch.int32)
-        z_best = ~z1
-
-        n_stage = torch.where(in_bracket, b_stage, z_stage)
-        n_alpha = torch.where(in_bracket, b_alpha, alpha)
-        n_alpha_prev = torch.where(in_bracket, b_alpha_prev, alpha_prev)
-        n_phi_prev = torch.where(in_bracket, b_phi_prev, phi_prev)
-        n_lo = torch.where(in_bracket, b_lo, z_lo)
-        n_hi = torch.where(in_bracket, b_hi, z_hi)
-        n_phi_lo = torch.where(in_bracket, b_phi_lo, z_phi_lo)
-        n_dphi_lo = torch.where(in_bracket, b_dphi_lo, z_dphi_lo)
-        n_phi_hi = torch.where(in_bracket, b_phi_hi, z_phi_hi)
-        take = torch.where(in_bracket, b_best, z_best)
-        n_wolfe = wolfe | torch.where(in_bracket, b2, z2)
-        # the next zoom trial point
-        n_alpha = torch.where(n_stage == _ZOOM,
-                              _next_zoom_alpha_lanes(n_lo, n_hi, n_phi_lo, n_dphi_lo,
-                                                     n_phi_hi), n_alpha)
-
-        take = run & take
-        best_alpha = torch.where(take, alpha, best_alpha)
-        best_phi = torch.where(take, phi, best_phi)
-        best_g = torch.where(col(take), g, best_g)
-        stage = torch.where(run, n_stage, stage)
-        i = torch.where(run, i + 1, i)
-        alpha = torch.where(run, n_alpha, alpha)
-        alpha_prev = torch.where(run, n_alpha_prev, alpha_prev)
-        phi_prev = torch.where(run, n_phi_prev, phi_prev)
-        lo = torch.where(run, n_lo, lo)
-        hi = torch.where(run, n_hi, hi)
-        phi_lo = torch.where(run, n_phi_lo, phi_lo)
-        dphi_lo = torch.where(run, n_dphi_lo, dphi_lo)
-        phi_hi = torch.where(run, n_phi_hi, phi_hi)
-        wolfe = torch.where(run, n_wolfe, wolfe)
-
-    return LaneLineSearchResult(alpha=best_alpha, phi=best_phi, g=best_g,
-                                success=best_alpha > 0, wolfe=wolfe, num_evals=i)
+    return result(while_loop(lambda st: st.run, body, st))

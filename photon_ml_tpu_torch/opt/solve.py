@@ -4,8 +4,11 @@
 Port of ``make_solver`` in photon_ml_tpu/opt/solve.py, with the default
 configuration chosen by optimizer.  As in the reference, OWLQN runs for
 ``OptimizerType.OWLQN`` and for L-BFGS with an L1 weight; TRON refuses L1,
-and TRON and the L1 regime refuse box constraints (ValueErrors).  OWLQN is
-written once, in the lane form: a single solve runs it as one lane.
+and TRON and the L1 regime refuse box constraints (ValueErrors).  L-BFGS,
+OWLQN and TRON are each written once, in the lane form: a single solve runs
+L-BFGS as ``minimize_lbfgs`` (the lane solver over one lane held without
+the lane axis), OWLQN and TRON as one lane.  A solve's result holds 0-d
+tensors, as the reference's does; nothing here reads them on the host.
 
 ``make_lane_solver`` is the random-effect form: the JAX package ``vmap``s the
 same solve over a bucket's lanes; here the lane-batched solvers take the
@@ -69,10 +72,10 @@ def default_config(optimizer: OptimizerType) -> SolverConfig:
 
 
 def _one_lane(res: SolverResult) -> SolverResult:
-    """A one-lane solve's result, its tracker included, as a single solve's."""
-    return SolverResult(w=res.w[0], value=res.value[0].item(),
-                        grad_norm=res.grad_norm[0].item(),
-                        iterations=int(res.iterations[0]), reason=int(res.reason[0]),
+    """A one-lane solve's result, its tracker included, as a single solve's:
+    0-d tensors, read nowhere here."""
+    return SolverResult(w=res.w[0], value=res.value[0], grad_norm=res.grad_norm[0],
+                        iterations=res.iterations[0], reason=res.reason[0],
                         tracker=None if res.tracker is None else res.tracker.lane(0))
 
 

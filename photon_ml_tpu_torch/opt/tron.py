@@ -11,22 +11,24 @@ The JAX solver is two nested ``lax.while_loop``s, which the random effects
 run under ``jax.vmap``.  Here one solver serves both: every state tensor
 carries a leading lane axis [L, ...], and per-lane masks reproduce the
 vmapped loops exactly.  A lane's carry freezes once its own loop condition is
-false; each loop runs while any lane's condition holds.  The host reads one
-flag per CG step and one per outer iteration.  The fixed effect runs it with
-one lane, its Hessian-vector products from the fused CUDA kernel.  Each
-lane's states go to a ``StateTracker``, the reference's record: the initial
-state, then the value and gradient norm after every outer iteration it runs.
+false; each loop is a ``cond`` / ``body`` pair over ``opt/loop.while_loop``
+and runs while any lane's condition holds, read once a CG step and once an
+outer iteration.  The fixed effect runs it with one lane, its
+Hessian-vector products from the fused CUDA kernel.  Each lane's states go
+to a ``StateTracker``, the reference's record: the initial state, then the
+value and gradient norm after every outer iteration it runs.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
 from photon_ml_tpu_torch.core.objective import lane_dot, lane_norm
-from photon_ml_tpu_torch.opt.types import (SolverConfig, SolverResult, convergence_check,
-                                          new_tracker)
+from photon_ml_tpu_torch.opt.loop import while_loop
+from photon_ml_tpu_torch.opt.types import (SolverConfig, SolverResult, converged,
+                                          convergence_tolerances, new_tracker)
 from photon_ml_tpu_torch.types import ConvergenceReason
 
 Tensor = torch.Tensor
@@ -36,13 +38,21 @@ SIGMA1, SIGMA2, SIGMA3 = 0.25, 0.5, 4.0
 XI = 0.1  # CG forcing tolerance
 MAX_IMPROVEMENT_FAILURES = 5
 
+_NOT_CONVERGED = int(ConvergenceReason.NOT_CONVERGED)
+
 
 def _col(t: Tensor) -> Tensor:
     return t[:, None]
 
 
-def _code(reason: ConvergenceReason, like: Tensor) -> Tensor:
-    return torch.tensor(int(reason), dtype=torch.int32, device=like.device)
+class _Cg(NamedTuple):
+    p: Tensor
+    r: Tensor  # residual -g - Hp
+    d: Tensor
+    rr: Tensor
+    it: Tensor  # int32
+    done: Tensor
+    run: Tensor  # the lane's CG goes on
 
 
 def _truncated_cg(hvp: Callable[[Tensor], Tensor], g: Tensor, delta: Tensor,
@@ -51,45 +61,54 @@ def _truncated_cg(hvp: Callable[[Tensor], Tensor], g: Tensor, delta: Tensor,
     with ``active`` False are left at p = 0.  Returns (p, Hp)."""
     gnorm = lane_norm(g)
     tol = XI * gnorm
-    p = torch.zeros_like(g)
-    r = -g
-    d = r
-    rr = lane_dot(r, r)
-    it = torch.zeros(g.shape[0], dtype=torch.int32, device=g.device)
-    done = gnorm <= tol
-    inf = torch.tensor(float("inf"), dtype=g.dtype, device=g.device)
-    while True:
-        run = active & ~done & (it < max_cg)
-        if not bool(run.any()):
-            break
-        hd = hvp(d)
-        dhd = lane_dot(d, hd)
+
+    def body(c: _Cg) -> _Cg:
+        run = c.run
+        hd = hvp(c.d)
+        dhd = lane_dot(c.d, hd)
         # non-positive curvature along d: march to the boundary
-        alpha = torch.where(dhd > 0, rr / torch.where(dhd == 0, 1.0, dhd), inf)
-        p_try = p + _col(torch.where(torch.isfinite(alpha), alpha, 0.0)) * d
+        alpha = torch.where(dhd > 0, c.rr / torch.where(dhd == 0, 1.0, dhd), float("inf"))
+        p_try = c.p + _col(torch.where(torch.isfinite(alpha), alpha, 0.0)) * c.d
         crosses = (lane_norm(p_try) >= delta) | ~torch.isfinite(alpha) | (dhd <= 0)
 
         # tau >= 0 solving ||p + tau d|| = delta (boundary intersection)
-        pd, dd, pp = lane_dot(p, d), lane_dot(d, d), lane_dot(p, p)
+        pd, dd, pp = lane_dot(c.p, c.d), lane_dot(c.d, c.d), lane_dot(c.p, c.p)
         disc = pd * pd + dd * (delta * delta - pp)
         tau = (-pd + torch.sqrt(torch.clamp(disc, min=0.0))) / torch.where(dd == 0, 1.0, dd)
-        p_bound = p + _col(tau) * d
+        p_bound = c.p + _col(tau) * c.d
 
         p_new = torch.where(_col(crosses), p_bound, p_try)
-        r_new = r - _col(torch.where(crosses, tau, alpha)) * hd
+        r_new = c.r - _col(torch.where(crosses, tau, alpha)) * hd
         rr_new = lane_dot(r_new, r_new)
-        beta = rr_new / torch.where(rr == 0, 1.0, rr)
-        d_new = r_new + _col(beta) * d
+        beta = rr_new / torch.where(c.rr == 0, 1.0, c.rr)
+        d_new = r_new + _col(beta) * c.d
         done_new = crosses | (torch.sqrt(rr_new) <= tol)
 
-        p = torch.where(_col(run), p_new, p)
-        r = torch.where(_col(run), r_new, r)
-        d = torch.where(_col(run), d_new, d)
-        rr = torch.where(run, rr_new, rr)
-        done = torch.where(run, done_new, done)
-        it = torch.where(run, it + 1, it)
+        done = torch.where(run, done_new, c.done)
+        it = torch.where(run, c.it + 1, c.it)
+        return _Cg(torch.where(_col(run), p_new, c.p), torch.where(_col(run), r_new, c.r),
+                   torch.where(_col(run), d_new, c.d), torch.where(run, rr_new, c.rr),
+                   it, done, active & ~done & (it < max_cg))
+
+    r0 = -g
+    it0 = torch.zeros(g.shape[0], dtype=torch.int32, device=g.device)
+    done0 = gnorm <= tol
+    final = while_loop(lambda c: c.run.any(), body,
+                       _Cg(torch.zeros_like(g), r0, r0, lane_dot(r0, r0), it0, done0,
+                           active & ~done0 & (it0 < max_cg)))
     # Hp = -g - r (CG invariant r = -g - Hp)
-    return p, -g - r
+    return final.p, -g - final.r
+
+
+class _Tron(NamedTuple):
+    w: Tensor
+    f: Tensor
+    g: Tensor
+    delta: Tensor  # trust-region radius
+    it: Tensor  # int32
+    failures: Tensor  # consecutive rejected steps
+    reason: Tensor  # int32
+    active: Tensor  # reason == NOT_CONVERGED
 
 
 def minimize_tron(value_and_grad: Callable[[Tensor], Tuple[Tensor, Tensor]],
@@ -103,25 +122,17 @@ def minimize_tron(value_and_grad: Callable[[Tensor], Tuple[Tensor, Tensor]],
     holds w [L, d] and [L] values, gradient norms, iterations and reasons."""
     f0, g0 = value_and_grad(w0)
     g0norm = lane_norm(g0)
-    w, f, g = w0, f0, g0
-    delta = g0norm
     num_l = w0.shape[0]
     tracker = new_tracker(config, w0, num_l)
     if tracker is not None:
         tracker.record(f0, g0norm)
-    it = torch.zeros(num_l, dtype=torch.int32, device=w0.device)
-    failures = torch.zeros_like(it)
-    reason = torch.where(g0norm == 0.0,
-                         _code(ConvergenceReason.GRADIENT_CONVERGED, w0),
-                         _code(ConvergenceReason.NOT_CONVERGED, w0))
-    not_improving = _code(ConvergenceReason.OBJECTIVE_NOT_IMPROVING, w0)
-    max_iterations = _code(ConvergenceReason.MAX_ITERATIONS, w0)
-    not_converged = _code(ConvergenceReason.NOT_CONVERGED, w0)
+    it0 = torch.zeros(num_l, dtype=torch.int32, device=w0.device)
+    reason0 = (g0norm == 0.0).to(torch.int32) * int(ConvergenceReason.GRADIENT_CONVERGED)
+    tols = convergence_tolerances(f0, g0norm, config.tolerance)
 
-    while True:
-        active = reason == ConvergenceReason.NOT_CONVERGED
-        if not bool(active.any()):
-            break
+    def body(c: _Tron) -> _Tron:
+        active = c.active
+        w, f, g, delta = c.w, c.f, c.g, c.delta
         p, hp = _truncated_cg(lambda v: hvp_at(w, v), g, delta, config.max_cg, active)
 
         w_try = w + p
@@ -153,30 +164,33 @@ def minimize_tron(value_and_grad: Callable[[Tensor], Tuple[Tensor, Tensor]],
         w_new = torch.where(_col(accept), w_try, w)
         f_new = torch.where(accept, f_try, f)
         g_new = torch.where(_col(accept), g_try, g)
-        failures_new = torch.where(accept, 0, failures + 1).to(torch.int32)
+        failures_new = torch.where(accept, 0, c.failures + 1).to(torch.int32)
 
-        it_new = it + 1
+        it_new = c.it + 1
         g_new_norm = lane_norm(g_new)
-        r_new = convergence_check(f_new, f, f0, g_new_norm, g0norm, it_new,
-                                  config.max_iters, config.tolerance)
+        r_new = converged(f_new, f, g_new_norm, it_new, config.max_iters, *tols)
         # only accepted steps can claim convergence (a rejected step has
         # f_new == f trivially); rejected steps retry, or give up after
         # MAX_IMPROVEMENT_FAILURES in a row
         r_new = torch.where(
             accept, r_new,
-            torch.where(failures_new >= MAX_IMPROVEMENT_FAILURES, not_improving,
-                        torch.where(it_new >= config.max_iters, max_iterations,
-                                    not_converged)))
+            torch.where(failures_new >= MAX_IMPROVEMENT_FAILURES,
+                        int(ConvergenceReason.OBJECTIVE_NOT_IMPROVING),
+                        (it_new >= config.max_iters).to(torch.int32)
+                        * int(ConvergenceReason.MAX_ITERATIONS)))
 
-        w = torch.where(_col(active), w_new, w)
-        f = torch.where(active, f_new, f)
-        g = torch.where(_col(active), g_new, g)
-        delta = torch.where(active, delta_new, delta)
-        it = torch.where(active, it_new, it)
-        failures = torch.where(active, failures_new, failures)
-        reason = torch.where(active, r_new, reason)
         if tracker is not None:
             tracker.record(f_new, g_new_norm, active)
+        reason = torch.where(active, r_new, c.reason)
+        return _Tron(torch.where(_col(active), w_new, w), torch.where(active, f_new, f),
+                     torch.where(_col(active), g_new, g),
+                     torch.where(active, delta_new, delta),
+                     torch.where(active, it_new, c.it),
+                     torch.where(active, failures_new, c.failures), reason,
+                     reason == _NOT_CONVERGED)
 
-    return SolverResult(w=w, value=f, grad_norm=lane_norm(g), iterations=it, reason=reason,
-                        tracker=tracker)
+    final = while_loop(lambda c: c.active.any(), body,
+                       _Tron(w0, f0, g0, g0norm, it0, torch.zeros_like(it0), reason0,
+                             reason0 == _NOT_CONVERGED))
+    return SolverResult(w=final.w, value=final.f, grad_norm=lane_norm(final.g),
+                        iterations=final.it, reason=final.reason, tracker=tracker)

@@ -1,8 +1,8 @@
 """Solver configuration, result, state tracking and the convergence contract.
 
-Port of photon_ml_tpu/opt/types.py.  The JAX solvers run inside
-``lax.while_loop``; the port's solvers are host loops, so the result is a
-plain dataclass of tensors and Python numbers.
+Port of photon_ml_tpu/opt/types.py.  The solvers run as ``cond`` / ``body``
+loops over tensors (``opt/loop.while_loop``), as the reference's run inside
+``lax.while_loop``; the result is a plain dataclass of tensors.
 
 ``StateTracker`` is the per-iteration history (the reference's
 OptimizationStatesTracker): values and gradient norms in device tensors of
@@ -15,7 +15,7 @@ solver loop that records pays no synchronisation for it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,8 +115,8 @@ def new_tracker(config: "SolverConfig", like: Tensor,
 
 @dataclasses.dataclass
 class SolverResult:
-    """Final solver output.  ``reason`` is the ConvergenceReason code: an int
-    for a single solve, an int32 tensor over lanes for batched solves.
+    """Final solver output.  ``reason`` is the ConvergenceReason code, an
+    int32 tensor: 0-d for a single solve, over lanes for batched solves.
     ``tracker`` is the solve's StateTracker (None when states are not
     tracked, and for the SoA Newton solver)."""
 
@@ -143,24 +143,35 @@ def convergence_check(value: Tensor, prev_value: Tensor, init_value: Tensor,
       - GradientConverged:       ||g_k|| <= tol * max(||g_0||, tiny)
       - MaxIterations:           k >= max_iters
     Returns int32 reasons (0 = not converged), checked in that order.
+    ``iteration`` is an integer tensor (the solvers' counters) or an int.
     """
-    fi = torch.finfo(value.dtype)
-    ulp = fi.eps * torch.maximum(value.abs(), prev_value.abs())
-    f_tol = torch.maximum(tolerance * torch.clamp(init_value.abs(), min=fi.tiny),
-                          PLATEAU_ULPS * ulp)
-    g_tol = tolerance * torch.clamp(init_grad_norm, min=fi.tiny)
-    func_conv = (value - prev_value).abs() <= f_tol
-    grad_conv = grad_norm <= g_tol
-    max_iter = torch.as_tensor(iteration, device=value.device) >= max_iters
+    tols = convergence_tolerances(init_value, init_grad_norm, tolerance)
+    if not isinstance(iteration, Tensor):
+        iteration = torch.full(value.shape, iteration, dtype=torch.int32, device=value.device)
+    return converged(value, prev_value, grad_norm, iteration, max_iters, *tols)
 
-    def code(r):
-        return torch.tensor(int(r), dtype=torch.int32, device=value.device)
 
-    return torch.where(
-        func_conv, code(ConvergenceReason.FUNCTION_VALUES_CONVERGED),
-        torch.where(grad_conv, code(ConvergenceReason.GRADIENT_CONVERGED),
-                    torch.where(max_iter, code(ConvergenceReason.MAX_ITERATIONS),
-                                code(ConvergenceReason.NOT_CONVERGED))))
+def convergence_tolerances(init_value: Tensor, init_grad_norm: Tensor,
+                           tolerance: float) -> Tuple[Tensor, Tensor]:
+    """The solve's fixed tolerances: (tol * max(|f_0|, tiny), the floor of
+    the function tolerance; tol * max(||g_0||, tiny), the gradient's)."""
+    tiny = torch.finfo(init_value.dtype).tiny
+    return (tolerance * torch.clamp(init_value.abs(), min=tiny),
+            tolerance * torch.clamp(init_grad_norm, min=tiny))
+
+
+def converged(value: Tensor, prev_value: Tensor, grad_norm: Tensor, iteration: Tensor,
+              max_iters: int, f_floor: Tensor, g_tol: Tensor) -> Tensor:
+    """``convergence_check`` with the solve's ``convergence_tolerances``: the
+    reason codes go in as numbers, so no call makes a tensor from a host
+    number."""
+    ulp = torch.finfo(value.dtype).eps * torch.maximum(value.abs(), prev_value.abs())
+    f_tol = torch.maximum(f_floor, PLATEAU_ULPS * ulp)
+    last = (iteration >= max_iters).to(torch.int32) * int(ConvergenceReason.MAX_ITERATIONS)
+    return torch.where((value - prev_value).abs() <= f_tol,
+                       int(ConvergenceReason.FUNCTION_VALUES_CONVERGED),
+                       torch.where(grad_norm <= g_tol,
+                                   int(ConvergenceReason.GRADIENT_CONVERGED), last))
 
 
 def _host(a) -> np.ndarray:
