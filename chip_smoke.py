@@ -216,7 +216,28 @@ Phases, each printing its result and wall time on its own line:
     level are printed), and no update may upload through
     ``game/coordinate._as_device``; the update syncs of the four cells are
     printed against the 1,552 before the solvers' loop form;
-14. printed last, after phases 15-18, 24 and 25: one JSON line describing each
+26. after phase 25, the fused sweep (``game/fused.FusedSweep``, the
+    default ``GameEstimator()`` path for fits without per-update host
+    work): glmix_chip, glmix2-TRON, glmix3, glmix_sparse and
+    glmix2-norm-var at full width, each cell's coordinates built once and
+    run through the host loop (``CoordinateDescent.run``) and
+    ``FusedSweep.run``.  Gates: coefficients, variances and final scores
+    bitwise the host loop's; kernels 1, 2 and 3 launched as often; the
+    fused run's host syncs (counted as phase 25 counts them) fewer than
+    the host loop's and than the loop form's update syncs
+    (LOOP_FORM_UPDATE_SYNCS), each a solver loop's read at
+    ``opt/loop.while_loop`` but the one export in ``game/fused.py``.
+    Reported: graphs captured by each run, the descents' untraced seconds
+    (the median of five each, interleaved), and the card's idle share over
+    them: 1 - the device's busy time in one traced descent each (the union
+    of its kernel, memcpy and memset records) over the untraced median.  Then glmix_chip-grid's five
+    points through ``GameEstimator()``: every point fused and bitwise the
+    host loop's, one sweep per sweep key (the down-sampled point is a key
+    of its own, as in the reference), no graph captured after the first
+    point.  Phases whose gates or logs read the host loop's per-update
+    history (11, 12, 17, 19, 23, 25 and ``--ab``) pin ``fused=False``; the
+    paths that ``_drive`` runs (5, 7, 8, 15, 18, 24) take the default;
+14. printed last, after phases 15-18 and 24-26: one JSON line describing each
     kernel, with its launches on each path and its device time alone
     (``device_ms``) beside the event time (``ms``); the storage-width shapes
     sit under ``by_shape`` with the launches of the path that runs them.
@@ -241,19 +262,22 @@ both fused kernels at the four main-path shapes (after one parity check
 each against the plain version), fits glmix2-TRON, glmix3 and
 glmix2-en-box at scale 8 once untimed (every solver path's first launches),
 and fits glmix_chip, glmix2-TRON, glmix3, glmix2-norm-var and glmix2-en-box
-at full width, each AB_REPEATS times, printing per fit each
+at full width, each AB_REPEATS times through the host loop
+(``fused=False``, whose history times each update), printing per fit each
 fixed-effect update's seconds, solver iterations and kernel-1 launches
-(which must equal its objective evaluations), and one JSON line of device
-times, fit times, those updates and a digest of each fit's published
-coefficients last.  To compare two trees on one
+(which must equal its objective evaluations) and each random-effect
+update's seconds and iterations, and one JSON line of device times, fit
+times, those updates and a digest of each fit's published coefficients
+last.  To compare two trees on one
 card, unpack both into git-ignored directories and run one process per
 tree in the order A B B A.
 
     python3 chip_smoke.py --ab-summary LOG...  # medians of --ab runs' logs
 
 reads the last JSON line of each log and prints, per cell, the medians over
-each tree's fits of their seconds and summed fixed-update seconds, the later tree's
-ratio to the first, the kernel-1 launches a fixed update and whether every
+each tree's fits of their seconds and summed fixed- and random-effect
+update seconds, the later tree's ratios to the first, the kernel-1
+launches a fixed update and whether every
 run published the same coefficients.
 """
 
@@ -343,8 +367,8 @@ BOX_BIND_SHARE = 0.01  # at least this share of the bounded coefficients at 0
 BOX_NEG_SLACK = 1e-6  # a bounded published coefficient w = f·w' >= -1e-6·f
 AB_EN_BOX_L1 = 100.0  # glmix2-en-box's fixed L1 in the A/B: the weight phase 18's
 # CPU fits choose
-AB_REPEATS = 3  # fits of each cell in one A/B process: host times vary by tens of
-# percent from fit to fit on one machine
+AB_REPEATS = 6  # fits of each cell in one A/B process: host times vary by tens of
+# percent from fit to fit on one machine, and by ~10% from process to process
 FOLD_SEED = 8  # 17(b): the per-user shifts and each user's unobserved columns
 GRID_HELD_OUT_PER_USER = 8  # glmix_chip-grid: the last rows of every user (of 64)
 # are the validation data (1,048,576 rows); the rest train
@@ -942,14 +966,17 @@ def _baseline_data(host: dict):
     return GameData(y=host["y"], features=feats, id_tags=tags)
 
 
-def _fit_and_score(data, device, config, normalization=None):
+def _fit_and_score(data, device, config, normalization=None, fused="auto"):
+    """fit -> score -> AUC through ``GameEstimator(fused=fused)``: (result,
+    scores, AUC, fit seconds, score seconds)."""
     import torch
 
     from photon_ml_tpu_torch.evaluation.metrics import auc_roc
     from photon_ml_tpu_torch.game import GameEstimator
 
     t0 = time.perf_counter()
-    res = GameEstimator(device=device, normalization=normalization).fit(data, [config])[0]
+    res = GameEstimator(device=device, normalization=normalization, fused=fused).fit(
+        data, [config])[0]
     if device == "cuda":
         torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
@@ -1091,16 +1118,14 @@ def _drive(path: str, data, config, stats: dict, required, normalization=None):
     torch.cuda.reset_peak_memory_stats()
     res, scores, auc, t_fit, t_score = _fit_and_score(data, "cuda", config, normalization)
     launches = _record_launches(path, kernels, stats, required)
-    upd = ", ".join(f"it{s['iteration']} {s['coordinate']} {s['seconds']:.3f} s"
-                    for s in res.history.steps)
-    t_upd = sum(s["seconds"] for s in res.history.steps)
-    log(f"{path}: fit {t_fit:.2f} s (coordinates built, bucketing included, in "
-        f"{t_fit - t_upd:.2f} s; updates {upd}), score + AUC {t_score:.2f} s, "
-        f"AUC {auc:.4f}, launches {launches}, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"{path}: fit {t_fit:.2f} s through GameEstimator's default (the fused sweep, no "
+        f"per-update history), score + AUC {t_score:.2f} s, AUC {auc:.4f}, launches "
+        f"{launches}, peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if res.history.steps:
+        raise AssertionError(f"{path}: the default fit ran the host loop")
     if not bool(torch.isfinite(scores).all()) or scores.shape != (data.num_samples,):
         raise AssertionError(f"{path} scores are not finite of shape [n]")
-    stats[path] = dict(fit_s=t_fit, build_s=t_fit - t_upd, score_s=t_score, auc=auc)
+    stats[path] = dict(fit_s=t_fit, score_s=t_score, auc=auc)
     return res, scores, auc
 
 
@@ -1532,7 +1557,7 @@ def phase_sparse1m(stats: dict):
     fits = {}
     for where, device in (("card", "cuda"), ("card again", "cuda"), ("cpu", "cpu")):
         t0 = time.perf_counter()
-        res = GameEstimator(device=device).fit(data, [cfg])[0]
+        res = GameEstimator(device=device, fused=False).fit(data, [cfg])[0]
         if where == "card":
             torch.cuda.synchronize()
             launches = {name: kern.launches for name, kern in kernels.items()}
@@ -1636,7 +1661,7 @@ def phase_glmix_sparse(stats: dict):
         kern.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = GameEstimator(device="cuda").fit(data, [_glmix_sparse_config()])[0]
+    res = GameEstimator(device="cuda", fused=False).fit(data, [_glmix_sparse_config()])[0]
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2280,7 +2305,8 @@ def phase_glmix_sparse_norm_en(stats: dict):
     kernels = _zero_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = GameEstimator(device="cuda", normalization={"u": ctx}).fit(data, [cfg])[0]
+    res = GameEstimator(device="cuda", normalization={"u": ctx}, fused=False).fit(
+        data, [cfg])[0]
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
     dense_re = res.model["per-user"]
@@ -2961,8 +2987,8 @@ def _observed_fit(device: str, data, configs, specs=None, **kw) -> dict:
     try:
         sync()
         t0 = time.perf_counter()
-        results = GameEstimator(device=device, validation_suite=suite).fit(data, configs,
-                                                                           **kw)
+        results = GameEstimator(device=device, validation_suite=suite, fused=False).fit(
+            data, configs, **kw)
         sync()
         total = time.perf_counter() - t0
     finally:
@@ -3813,8 +3839,7 @@ def phase_glmix_chip_bf16(stats: dict, host: dict):
     stats["glmix_chip_bf16"].update(peak_gb=peak / 1e9, **_bf16_vs_f32(
         "glmix_chip-bf16", res.model, f32["model"], auc, f32["auc"]))
     log(f"glmix_chip-bf16 vs glmix_chip on this card: fit {stats['glmix_chip_bf16']['fit_s']:.2f}"
-        f" s vs {f32['fit_s']:.2f} s (construction {stats['glmix_chip_bf16']['build_s']:.2f} s "
-        f"vs {f32['build_s']:.2f} s)")
+        f" s vs {f32['fit_s']:.2f} s")
     return xg
 
 
@@ -4031,20 +4056,43 @@ def _solve_trips(coord, results) -> list:
     return out
 
 
-def _counted_fit(data, config) -> dict:
-    """One ``GameEstimator.fit`` under ``torch.cuda.set_sync_debug_mode("warn")``
-    inside ``warnings.catch_warnings(record=True)`` with every warning let
-    through: each sync's warning is kept with the port's frames on the stack
-    when it was raised, innermost first, so a sync names the Python line
-    that made the card wait and the lines that called it.  Wrappers mark
-    where the descent starts and where each update ends
-    (``DescentHistory.add``) and keep each update's coordinate and solver
-    results; all are restored, with the debug mode and the warning
-    filters, in a ``finally``."""
-    import collections
+def _syncs_during(fn, syncs=None):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")`` inside
+    ``warnings.catch_warnings(record=True)`` with every warning let through:
+    each sync's warning is kept (appended to ``syncs`` as it happens) with
+    the port's frames on the stack when it was raised, innermost first, so
+    a sync names the Python line that made the card wait and the lines that
+    called it.  The debug mode and the warning filters are restored in a
+    ``finally``.  Returns (its result, the syncs)."""
     import warnings
 
     import torch
+
+    syncs = [] if syncs is None else syncs
+
+    def shown(message, *args, **kwargs):
+        if SYNC_MESSAGE in str(message):
+            syncs.append(_port_frames())
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        warnings.showwarning = shown  # restored by catch_warnings
+        try:
+            torch.cuda.set_sync_debug_mode("warn")
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, syncs
+
+
+def _counted_fit(data, config) -> dict:
+    """One host-loop ``GameEstimator.fit`` with its syncs kept
+    (``_syncs_during``).  Wrappers mark where the descent starts and where
+    each update ends (``DescentHistory.add``) and keep each update's
+    coordinate and solver results; all are restored in a ``finally``."""
+    import collections
 
     import photon_ml_tpu_torch.game.coordinate as coord_mod
     import photon_ml_tpu_torch.game.descent as descent
@@ -4087,32 +4135,22 @@ def _counted_fit(data, config) -> dict:
         marks.append((f"it{iteration} {coordinate_id}", len(syncs)))
         return real["add"](self, iteration, coordinate_id, *args, **kwargs)
 
-    def shown(message, *args, **kwargs):
-        if SYNC_MESSAGE in str(message):
-            syncs.append(_port_frames())
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True):
-        warnings.simplefilter("always")
-        warnings.showwarning = shown  # restored by catch_warnings
-        descent.CoordinateDescent.run = run
-        descent.DescentHistory.add = add
-        coord_mod.FixedEffectCoordinate.update = keep_results(real["fixed"])
-        coord_mod.RandomEffectCoordinate.update = keep_results(real["random"])
+    descent.CoordinateDescent.run = run
+    descent.DescentHistory.add = add
+    coord_mod.FixedEffectCoordinate.update = keep_results(real["fixed"])
+    coord_mod.RandomEffectCoordinate.update = keep_results(real["random"])
+    for mod in solver_modules:
+        mod.while_loop = counted_loop
+    try:
+        res, _ = _syncs_during(
+            lambda: GameEstimator(device="cuda", fused=False).fit(data, [config])[0], syncs)
+    finally:
+        descent.CoordinateDescent.run = real["run"]
+        descent.DescentHistory.add = real["add"]
+        coord_mod.FixedEffectCoordinate.update = real["fixed"]
+        coord_mod.RandomEffectCoordinate.update = real["random"]
         for mod in solver_modules:
-            mod.while_loop = counted_loop
-        try:
-            torch.cuda.set_sync_debug_mode("warn")
-            res = GameEstimator(device="cuda").fit(data, [config])[0]
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-            descent.CoordinateDescent.run = real["run"]
-            descent.DescentHistory.add = real["add"]
-            coord_mod.FixedEffectCoordinate.update = real["fixed"]
-            coord_mod.RandomEffectCoordinate.update = real["random"]
-            for mod in solver_modules:
-                mod.while_loop = loop.while_loop
-    torch.cuda.synchronize()
+            mod.while_loop = loop.while_loop
     parts = {"construction": marks[0][1],
              "updates": {label: pos - marks[k][1]
                          for k, (label, pos) in enumerate(marks[1:])},
@@ -4210,7 +4248,7 @@ def _profiled_fit(data, config) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_PAD_S)
             t0 = time.perf_counter()
-            res = GameEstimator(device="cuda").fit(data, [config])[0]
+            res = GameEstimator(device="cuda", fused=False).fit(data, [config])[0]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             time.sleep(PROFILE_PAD_S)
@@ -4275,7 +4313,7 @@ def _timed_fit(data, config) -> dict:
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = GameEstimator(device="cuda").fit(data, [config])[0]
+        res = GameEstimator(device="cuda", fused=False).fit(data, [config])[0]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -4466,6 +4504,247 @@ def phase_sync_counts(stats: dict, host: dict):
     log("phase 25: " + json.dumps(out))
 
 
+# -- phase 26: the fused sweep ------------------------------------------------
+
+# the four cells' update syncs a fit in the host loop after the solvers' loop
+# form (PERF.md section 5); the fused sweep's must lie below them
+LOOP_FORM_UPDATE_SYNCS = {"glmix_chip": 169, "glmix2_tron": 108, "glmix3": 302,
+                          "glmix_sparse": 302}
+FUSED_TIMING_ORDER = ("host", "fused", "fused", "host", "host", "fused", "fused", "host",
+                      "host", "fused")  # untraced descents, five each, in this order
+FUSED_KERNELS = ("fused_value_and_grad", "fused_hvp", "newton_step")
+GRID_SWEEP_KEYS = 2  # glmix_chip-grid: its four λ points share a sweep key; the
+# down-sampled point has a key of its own (the rate is a config field)
+
+
+def _profiled_busy(fn) -> dict:
+    """``fn()`` under ``torch.profiler``, between syncs: its host wall time
+    and the union of the device's kernel, memcpy and memset intervals in
+    the trace (a trace that lost records makes an idle share from it an
+    upper bound)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(PROFILE_PAD_S)
+    device = [(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    return dict(wall_ms=wall * 1e3, busy_ms=_busy_ns(device, -(1 << 62), 1 << 62) / 1e6,
+                records=len(device))
+
+
+def _fused_cells(host: dict):
+    """Phase 26's cells: phase 25's four (``_sync_cells``) and
+    glmix2-norm-var, each as (cell, a function making (data,
+    normalization), config)."""
+    from photon_ml_tpu_torch.data.synthetic import synth_glmix
+
+    def norm_var():
+        data, xg, xu = _norm_var_data(_with_intercept(synth_glmix(1, three=False)), "cuda")
+        return data, _norm_var_contexts(xg, xu)[0]
+
+    cells = [(cell, (lambda make=make: (make(), None)), config)
+             for cell, make, config in _sync_cells(host)]
+    return cells + [("glmix2_norm_var", norm_var, _norm_var_config())]
+
+
+def _published(model) -> dict:
+    """Each coordinate's published coefficients and variances, on the host."""
+    out = {}
+    for cid, m in model.models.items():
+        if hasattr(m, "coefficients"):
+            out[cid] = (m.coefficients.means, m.coefficients.variances)
+        else:
+            out[cid] = (m.w_stack, m.variances)
+    return out
+
+
+def _fused_equal_host(cell: str, fused, host) -> None:
+    """Gate: the fused model's coefficients and variances bitwise the host
+    loop's, the same entities."""
+    import numpy as np
+
+    a, b = _published(fused), _published(host)
+    for cid in b:
+        if hasattr(host[cid], "slot_of") and fused[cid].slot_of != host[cid].slot_of:
+            raise AssertionError(f"{cell} {cid}: the fused and host models' entities differ")
+        for kind, x, y in zip(("coefficients", "variances"), a[cid], b[cid]):
+            if (x is None) != (y is None) or (x is not None and not np.array_equal(x, y)):
+                diff = (None if x is None or y is None else
+                        float(np.abs(np.asarray(x, np.float64) - y).max()))
+                raise AssertionError(f"{cell} {cid}: fused {kind} differ from the host "
+                                     f"loop's (max |diff| {diff})")
+
+
+def phase_fused_sweep(stats: dict, host: dict):
+    """Phase 26 (module docstring): per cell, the host loop and
+    ``FusedSweep.run`` over the same coordinates; then glmix_chip-grid's
+    five points through ``GameEstimator()``."""
+    import statistics
+
+    import torch
+
+    import photon_ml_tpu_torch.game.estimator as est_mod
+    from photon_ml_tpu_torch.data.synthetic import chip_design
+    from photon_ml_tpu_torch.game import FusedSweep, GameEstimator
+    from photon_ml_tpu_torch.game.descent import CoordinateDescent
+    from photon_ml_tpu_torch.opt import loop
+
+    helper = _helper_site()
+    fused_file = str(Path(__file__).resolve().parent / "photon_ml_tpu_torch" / "game" /
+                     "fused.py")
+    dev = torch.device("cuda")
+    out = {}
+    for cell, make, config in _fused_cells(host):
+        t_cell = time.perf_counter()
+        data, norms = make()
+        est = GameEstimator(device="cuda", normalization=norms)
+        order = list(config.coordinates)
+        coords = {cid: est.build_one_coordinate(cid, data, c, config.task)
+                  for cid, c in config.coordinates.items()}
+        iters = config.num_outer_iterations
+        host_run = lambda: CoordinateDescent(coords, order, iters).run(dev)[0]
+        fused_run = lambda: FusedSweep(coords, order, iters).run()
+
+        # counted runs: syncs, kernel launches and graphs captured
+        kernels = _zero_launches()
+        graphs = loop.captured()
+        host_model, host_syncs = _syncs_during(host_run)
+        host_launches = {k: kernels[k].launches for k in FUSED_KERNELS}
+        host_graphs = loop.captured() - graphs
+        kernels = _zero_launches()
+        graphs = loop.captured()
+        (fused_model, scores), fused_syncs = _syncs_during(fused_run)
+        fused_graphs = loop.captured() - graphs
+        launches = _record_launches(f"fused_{cell}", kernels, stats, ())
+        fused_launches = {k: launches[k] for k in FUSED_KERNELS}
+
+        # gates: the same model and scores, the same launches, fewer syncs,
+        # each a loop read or the one export
+        _fused_equal_host(cell, fused_model, host_model)
+        for cid, coord in coords.items():
+            if not torch.equal(scores[cid], coord.score(host_model[cid]).double()):
+                raise AssertionError(f"{cell} {cid}: the fused final scores differ from the "
+                                     f"host model's")
+        if fused_launches != host_launches:
+            raise AssertionError(f"{cell}: fused launches {fused_launches} != the host "
+                                 f"loop's {host_launches}")
+        reads = sum(1 for s in fused_syncs if s and s[0] == helper)
+        export = sum(1 for s in fused_syncs if s and s[0][0] == fused_file)
+        if reads + export != len(fused_syncs) or export != 1:
+            others = sorted({_site(s[0]) if s else "outside the package" for s in fused_syncs
+                             if not s or (s[0] != helper and s[0][0] != fused_file)})
+            raise AssertionError(f"{cell}: fused syncs {len(fused_syncs)}: {reads} loop reads, "
+                                 f"{export} at the export, others at {others}")
+        bound = LOOP_FORM_UPDATE_SYNCS.get(cell)
+        if len(fused_syncs) >= len(host_syncs) or (bound is not None
+                                                   and len(fused_syncs) >= bound):
+            raise AssertionError(f"{cell}: {len(fused_syncs)} fused syncs, the host loop "
+                                 f"{len(host_syncs)}, the loop form's {bound}")
+        host_reads = sum(1 for s in host_syncs if s and s[0] == helper)
+
+        # reported: untraced descents, medians of five each; the card's busy
+        # time of one traced descent each, over the untraced median
+        seconds = {"host": [], "fused": []}
+        for side in FUSED_TIMING_ORDER:
+            run = host_run if side == "host" else fused_run
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            seconds[side].append(time.perf_counter() - t0)
+        median = {side: statistics.median(v) for side, v in seconds.items()}
+        busy = {"host": _profiled_busy(host_run), "fused": _profiled_busy(fused_run)}
+        idle = {side: 1.0 - b["busy_ms"] / (median[side] * 1e3) for side, b in busy.items()}
+        row = dict(syncs=dict(host=len(host_syncs), fused=len(fused_syncs),
+                              host_loop_reads=host_reads, fused_loop_reads=reads,
+                              loop_form=bound),
+                   launches=fused_launches, graphs=dict(host=host_graphs, fused=fused_graphs),
+                   seconds=seconds, median_s=median, busy=busy, idle_untraced=idle,
+                   cell_s=time.perf_counter() - t_cell)
+        out[cell] = row
+        log(f"{cell}: fused equals the host loop bitwise (coefficients, variances, final "
+            f"scores); launches {fused_launches} both; syncs {len(fused_syncs)} fused "
+            f"({reads} loop reads + {export} export) against {len(host_syncs)} in the host "
+            f"loop ({host_reads} loop reads) and {bound} after the loop form; graphs "
+            f"captured host {host_graphs}, fused {fused_graphs}; descent median of 5 "
+            f"{median['host'] * 1e3:.1f} ms host, {median['fused'] * 1e3:.1f} ms fused "
+            f"({median['fused'] / median['host']:.3f}x); untraced idle share host "
+            f"{idle['host']:.4f}, fused {idle['fused']:.4f} (device busy "
+            f"{busy['host']['busy_ms']:.1f} / {busy['fused']['busy_ms']:.1f} ms in traced "
+            f"descents of {busy['host']['wall_ms']:.1f} / {busy['fused']['wall_ms']:.1f} ms); "
+            f"{row['cell_s']:.1f} s")
+        del data, coords, norms, est
+        torch.cuda.empty_cache()
+
+    # glmix_chip-grid's five points through GameEstimator() at its default:
+    # a sweep per sweep key, graphs per point, each point the host loop's
+    t_grid = time.perf_counter()
+    xg = chip_design(host["n"], "cuda")
+    train, _ = _per_user_split(host, xg)
+    del xg
+    torch.cuda.empty_cache()
+    data = _part_data(train)
+    configs = _grid_configs()
+    real_sweep, real_run = est_mod.FusedSweep, FusedSweep.run
+    sweeps, per_point = [], []
+
+    def counted_sweep(*args, **kwargs):
+        sweeps.append(real_sweep(*args, **kwargs))
+        return sweeps[-1]
+
+    def counted_run(self, *args, **kwargs):
+        before = loop.captured()
+        try:
+            return real_run(self, *args, **kwargs)
+        finally:
+            per_point.append(loop.captured() - before)
+
+    est_mod.FusedSweep, FusedSweep.run = counted_sweep, counted_run
+    try:
+        kernels = _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused = GameEstimator(device="cuda").fit(data, configs)
+        torch.cuda.synchronize()
+        t_fused = time.perf_counter() - t0
+        _record_launches("fused_glmix_chip_grid", kernels, stats,
+                         ("fused_value_and_grad", "newton_step"))
+    finally:
+        est_mod.FusedSweep, FusedSweep.run = real_sweep, real_run
+    t0 = time.perf_counter()
+    host_fit = GameEstimator(device="cuda", fused=False).fit(data, configs)
+    torch.cuda.synchronize()
+    t_host = time.perf_counter() - t0
+    if len(per_point) != len(configs) or any(r.history.steps for r in fused):
+        raise AssertionError("glmix_chip-grid: not every point ran the fused sweep")
+    if len(sweeps) != GRID_SWEEP_KEYS:
+        raise AssertionError(f"glmix_chip-grid: {len(sweeps)} sweeps for {GRID_SWEEP_KEYS} "
+                             f"sweep keys")
+    if any(per_point[1:]):
+        raise AssertionError(f"glmix_chip-grid: graphs captured after the first point: "
+                             f"{per_point}")
+    for k, (f, h) in enumerate(zip(fused, host_fit)):
+        _fused_equal_host(f"glmix_chip-grid point {k}", f.model, h.model)
+    out["glmix_chip_grid"] = dict(sweeps=len(sweeps), sweep_keys=GRID_SWEEP_KEYS,
+                                  graphs_per_point=per_point, fit_s=dict(fused=t_fused,
+                                                                         host=t_host),
+                                  seconds=time.perf_counter() - t_grid)
+    log(f"glmix_chip-grid: {len(configs)} points through GameEstimator() in {t_fused:.2f} s "
+        f"(host loop {t_host:.2f} s), {len(sweeps)} sweeps for {GRID_SWEEP_KEYS} sweep keys (the "
+        f"down-sampled point is a key of its own, as in the reference), graphs captured per "
+        f"point {per_point}; every point bitwise the host loop's")
+    stats["fused_sweep"] = out
+    log("phase 26: " + json.dumps(out))
+
+
 KERNELS = {
     "fused_value_and_grad": dict(
         source="photon_ml_tpu_torch/csrc/fused_glm.cu",
@@ -4534,11 +4813,11 @@ def run_ab(tree: Path) -> int:
 
     import photon_ml_tpu_torch.game.coordinate as coord_mod
 
-    fits, fixed, digests = {}, {}, {}
+    fits, fixed, random, digests = {}, {}, {}, {}
 
     def ab_fit(key, *args):
         real = coord_mod.FixedEffectCoordinate.update
-        fits[key], fixed[key] = [], []
+        fits[key], fixed[key], random[key] = [], [], []
         for _ in range(AB_REPEATS):
             counts = []
 
@@ -4551,7 +4830,7 @@ def run_ab(tree: Path) -> int:
 
             coord_mod.FixedEffectCoordinate.update = update
             try:
-                res, _, _, fit_s, _ = _fit_and_score(*args)
+                res, _, _, fit_s, _ = _fit_and_score(*args, fused=False)
             finally:
                 coord_mod.FixedEffectCoordinate.update = real
             # the published coefficients' bytes, to hold the two trees bitwise
@@ -4571,21 +4850,30 @@ def run_ab(tree: Path) -> int:
                     raise AssertionError(f"{key}: a fixed update launched kernel 1 "
                                          f"{u['kernel1']} times for {u['evaluations']} "
                                          f"objective evaluations")
+            # the random effects' updates: seconds and solver iterations
+            others = [dict(coordinate=st["coordinate"], seconds=st["seconds"],
+                           iterations=st["solver_iterations"])
+                      for st in res.history.steps if st["coordinate"] != "fixed"]
             fits[key].append(fit_s)
             fixed[key].append(updates)
+            random[key].append(others)
             log(f"{key}: fit {fit_s:.3f} s; fixed updates " + ", ".join(
                 f"{u['seconds'] * 1e3:.2f} ms ({u['iterations']} iterations, {u['kernel1']} "
-                f"kernel-1 launches)" for u in updates))
+                f"kernel-1 launches)" for u in updates) + "; random-effect updates " +
+                ", ".join(f"{u['coordinate']} {u['seconds'] * 1e3:.2f} ms "
+                          f"({u['iterations']} iterations)" for u in others))
 
     with Phase("ab warm-up"):
         # every solver path once at a reduced scale, so that no timed update
         # below pays for a kernel's first load
         small = synth_glmix(REDUCED_GLMIX2_SCALE, three=False)
-        _fit_and_score(_baseline_data(small), "cuda", _baseline_config(False, OptimizerType.TRON))
+        _fit_and_score(_baseline_data(small), "cuda", _baseline_config(False, OptimizerType.TRON),
+                       fused=False)
         _fit_and_score(_baseline_data(synth_glmix(REDUCED_GLMIX2_SCALE, three=True)), "cuda",
-                       _baseline_config(True, OptimizerType.LBFGS))
+                       _baseline_config(True, OptimizerType.LBFGS), fused=False)
         data, xg, xu = _norm_var_data(_with_intercept(small), "cuda")
-        _fit_and_score(data, "cuda", _en_box_config(AB_EN_BOX_L1), _norm_var_contexts(xg, xu)[0])
+        _fit_and_score(data, "cuda", _en_box_config(AB_EN_BOX_L1), _norm_var_contexts(xg, xu)[0],
+                       fused=False)
         del small, data, xg, xu
     with Phase("ab fits"):
         host = synth_glmix_chip()
@@ -4608,8 +4896,17 @@ def run_ab(tree: Path) -> int:
         log("fit seconds: " + ", ".join(f"{k} {v}" for k, v in fits.items()))
     kernels = {k: stats[k]["by_shape"] for k in ("fused_value_and_grad", "fused_hvp")}
     log(json.dumps({"ab": str(tree), "card": smi, "kernels": kernels, "fit_s": fits,
-                    "fixed_updates": fixed, "coefficient_digests": digests}))
+                    "fixed_updates": fixed, "random_updates": random,
+                    "coefficient_digests": digests}))
     return 0
+
+
+def _ms(seconds) -> str:
+    return "n/a" if seconds is None else f"{seconds * 1e3:.2f}"
+
+
+def _ratio(r) -> str:
+    return "n/a" if r is None else f"{r:.3f}x"
 
 
 def ab_summary(logs) -> int:
@@ -4636,18 +4933,26 @@ def ab_summary(logs) -> int:
             fit_s = [s for r in mine for s in r["fit_s"][cell]]
             fits = [f for r in mine for f in r["fixed_updates"][cell]]
             fixed = [sum(u["seconds"] for u in f) for f in fits]
+            others = [sum(u["seconds"] for u in f)
+                      for r in mine for f in r.get("random_updates", {}).get(cell, [])]
             row[tree] = dict(fit_s=statistics.median(fit_s), fit_s_each=fit_s,
                              fixed_s=statistics.median(fixed), fixed_s_each=fixed,
+                             random_s=statistics.median(others) if others else None,
+                             random_s_each=others,
                              kernel1=sorted({tuple(u["kernel1"] for u in f) for f in fits}))
         first, last = row[trees[0]], row[trees[-1]]
         row["ratio"] = dict(fit=last["fit_s"] / first["fit_s"],
-                            fixed=last["fixed_s"] / first["fixed_s"])
+                            fixed=last["fixed_s"] / first["fixed_s"],
+                            random=(last["random_s"] / first["random_s"]
+                                    if first["random_s"] and last["random_s"] else None))
         row["same_coefficients"] = len({json.dumps(r["coefficient_digests"][cell],
                                                    sort_keys=True) for r in runs}) == 1
         out[cell] = row
         print(f"{cell}: fit median {first['fit_s']:.3f} / {last['fit_s']:.3f} s "
               f"({row['ratio']['fit']:.3f}x); fixed updates median {first['fixed_s'] * 1e3:.2f} / "
-              f"{last['fixed_s'] * 1e3:.2f} ms ({row['ratio']['fixed']:.3f}x); kernel-1 launches "
+              f"{last['fixed_s'] * 1e3:.2f} ms ({row['ratio']['fixed']:.3f}x); random-effect "
+              f"updates median {_ms(first['random_s'])} / {_ms(last['random_s'])} ms "
+              f"({_ratio(row['ratio']['random'])}); kernel-1 launches "
               f"a fixed update {first['kernel1']} / {last['kernel1']}; the same coefficients "
               f"in every run: {row['same_coefficients']}  [{trees[0]} / {trees[-1]}]")
     print(json.dumps({"ab_summary": out, "trees": trees, "runs": len(runs)}))
@@ -4747,6 +5052,8 @@ def main() -> int:
         phase_narrow_kernels(stats)
     with Phase("25 host syncs and device idle share per fit"):
         phase_sync_counts(stats, host)
+    with Phase("26 fused sweep"):
+        phase_fused_sweep(stats, host)
     del host
     with Phase("14 kernels"):
         checked = stats.get("lbfgs_solves_checked", {})

@@ -5,6 +5,7 @@ from photon_ml_tpu_torch.game.config import (FixedEffectConfig, GameConfig,
 from photon_ml_tpu_torch.game.data import GameData, SparseShard
 from photon_ml_tpu_torch.game.estimator import (GameEstimator, GameFitResult,
                                                 GameTransformer)
+from photon_ml_tpu_torch.game.fused import FusedSweep
 
-__all__ = ["FixedEffectConfig", "GameConfig", "GameData", "GameEstimator",
+__all__ = ["FixedEffectConfig", "FusedSweep", "GameConfig", "GameData", "GameEstimator",
            "GameFitResult", "GameTransformer", "RandomEffectConfig", "SparseShard"]

@@ -75,6 +75,16 @@ device tensor at a narrower one (scoring widens it).  The published
 coefficients keep the compute dtype.  A change of ``storage_dtype`` is a
 new layout: ``rebind`` refuses it, so ``GameEstimator.fit`` rebuilds.
 
+The sweep interface (``init_sweep_state``, ``trace_update``,
+``trace_publish``, ``trace_variances``, ``export_model``,
+``carry_through_scores``, ``sweep_key``) is what ``game/fused.FusedSweep``
+runs: the same solve as ``update`` on the same offsets and weights
+(``_solve_update``), its state, scores and published coefficients left on
+the device and nothing copied to the host, so that a fused descent is
+bitwise the host loop's.  Publishing, the compact variances and the FULL
+variances' Cholesky read nothing on the host either (sink rows and columns
+in place of boolean masks; ``cholesky_ex``).
+
 The RANDOM projector, which the port does not carry yet, raises
 NotImplementedError naming the ROADMAP item that brings it.
 """
@@ -211,7 +221,11 @@ def _storage(config: CoordinateConfig, dtype: torch.dtype) -> torch.dtype:
     return storage_torch_dtype(config.storage_dtype) or dtype
 
 class Coordinate:
-    """update/score contract (reference Coordinate.scala:28-81)."""
+    """update/score contract (reference Coordinate.scala:28-81), and the
+    sweep interface that ``game/fused.FusedSweep`` runs (module docstring
+    of ``game/fused.py``): ``init_sweep_state``, ``trace_update``,
+    ``trace_publish``, ``trace_variances``, ``export_model``,
+    ``carry_through_scores`` and ``sweep_key``."""
 
     coordinate_id: str
     config: CoordinateConfig
@@ -239,6 +253,62 @@ class Coordinate:
         """This coordinate's device data under ``config``'s optimization
         settings; ValueError where ``config`` needs other data."""
         raise NotImplementedError
+
+    # -- the sweep interface: every update on the device, nothing read on the
+    # host; ``update`` runs the same solve on the same inputs
+
+    def sweep_data(self):
+        """The device data a sweep update reads.  The port's coordinates keep
+        it themselves (the reference passes it into its compiled program as
+        arguments), so None."""
+        return None
+
+    def init_sweep_state(self, init: Optional[DatumScoringModel] = None):
+        """A sweep's starting state: cold, or the warm start ``init``."""
+        raise NotImplementedError
+
+    def trace_update(self, state, offsets: Tensor, key: Optional[Tensor] = None,
+                     carried: Optional[Tensor] = None) -> Tuple[object, Tensor]:
+        """One update against the residual-folded ``offsets`` [n] (float64 on
+        the device): (the next state, this coordinate's score [n] at the
+        compute dtype), as ``update`` followed by ``score`` gives them.
+        ``key``: the update's down-sampling draw ([n] bool on the device),
+        None for none.  ``carried``: the scores of the warm start's entities
+        that this coordinate does not retrain (``carry_through_scores``)."""
+        raise NotImplementedError
+
+    def trace_publish(self, state) -> Tensor:
+        """The state's published coefficients on the device."""
+        raise NotImplementedError
+
+    def trace_variances(self, state, offsets: Tensor,
+                        key: Optional[Tensor] = None) -> Optional[Tensor]:
+        """The published variances at the state's optimum, on the offsets and
+        draw that its update solved with; None without variances."""
+        raise NotImplementedError
+
+    def export_model(self, published: np.ndarray) -> DatumScoringModel:
+        """The model of a published array brought to the host."""
+        raise NotImplementedError
+
+    def carry_through_scores(self, init: Optional[DatumScoringModel]
+                             ) -> Optional[Tensor]:
+        """[n] scores of the warm start's part that an update passes through
+        untrained (``merge_carry_through``), None where nothing is carried."""
+        return None
+
+    def data_key(self) -> tuple:
+        """The identity of the device data an update reads."""
+        raise NotImplementedError
+
+    def sweep_key(self) -> tuple:
+        """What a sweep over this coordinate is built for: the device data
+        and every config field except the regularization values, which a
+        sweep takes per run.  The L1 regime stays in the key (OWLQN against
+        a smooth solver), as the reference keeps it."""
+        regime = dataclasses.replace(self.config.reg, l1=1.0 if self.config.reg.l1 > 0 else 0.0,
+                                     l2=0.0)
+        return self.data_key(), dataclasses.replace(self.config, reg=regime)
 
 
 # tasks whose down-sampling keeps every positive (DownSamplerHelper.scala)
@@ -327,14 +397,47 @@ class FixedEffectCoordinate(Coordinate):
                                mult * (1.0 / self.config.down_sampling_rate))
         return mult
 
+    def _down_sample_draw(self, seed: int) -> Optional[Tensor]:
+        """The update's [n] draw on the device, None at a rate of 1 or more.
+        The draw is the host's; its mask crosses without a wait."""
+        if self.config.down_sampling_rate >= 1.0:
+            return None
+        return _upload_without_wait(self._down_sample_keep(seed), self._device)
+
     def _down_sample_weights(self, seed: int) -> Tensor:
         """The update's row weights: the data's, times the multipliers of a
-        fresh draw when the rate is below 1.  The draw is the host's; its
-        [n] mask crosses to the device without a wait."""
-        if self.config.down_sampling_rate >= 1.0:
-            return self._batch.weight
-        keep = _upload_without_wait(self._down_sample_keep(seed), self._device)
-        return self._batch.weight * self._down_sample_mult(keep)
+        fresh draw when the rate is below 1."""
+        return self._update_batch(self._batch.offset, self._down_sample_draw(seed)).weight
+
+    def _update_batch(self, offsets: Tensor, keep: Optional[Tensor]):
+        """What an update solves on: the kept batch with ``offsets`` and the
+        weights of the draw ``keep`` (None: the data's).  The one definition
+        for ``update``, ``trace_update`` and ``trace_variances``."""
+        weight = self._batch.weight
+        if keep is not None:
+            weight = weight * self._down_sample_mult(keep)
+        return self._batch.replace(offset=_as_device(offsets, self._dtype, self._device),
+                                   weight=weight)
+
+    def _solve_update(self, start: Optional[Tensor], offsets: Tensor,
+                      keep: Optional[Tensor]):
+        """(solver result, published means, the batch solved on): a solve in
+        transformed space from the original-space means ``start`` (None:
+        zeros) mapped in, published in original space."""
+        ii = self.config.intercept_index
+        if start is not None:
+            w0 = self._norm.model_to_transformed_space(start, ii)
+        else:
+            w0 = torch.zeros(self.dim, dtype=self._dtype, device=self._device)
+        batch = self._update_batch(offsets, keep)
+        res = self._solve(w0, batch)
+        return res, self._norm.model_to_original_space(res.w, ii), batch
+
+    def _variances(self, w: Tensor, batch) -> Optional[Tensor]:
+        """Original-space variances at the transformed-space optimum ``w``."""
+        v = compute_variances(self._objective, w, batch, self.config.variance)
+        return (None if v is None else
+                self._norm.model_to_original_space(v, self.config.intercept_index))
 
     def update(self, total_offsets: Tensor, seed: int = 0,
                init: Optional[FixedEffectModel] = None
@@ -342,17 +445,10 @@ class FixedEffectCoordinate(Coordinate):
         """Solve in transformed space from the (original-space) warm start
         mapped in, on this update's (down-sampled) weights; publish means and
         variances in original space."""
-        ii = self.config.intercept_index
-        if init is not None:
-            w0 = self._norm.model_to_transformed_space(self._device_means(init), ii)
-        else:
-            w0 = torch.zeros(self.dim, dtype=self._dtype, device=self._device)
-        offs = _as_device(total_offsets, self._dtype, self._device)
-        batch = self._batch.replace(offset=offs, weight=self._down_sample_weights(seed))
-        res = self._solve(w0, batch)
-        v = compute_variances(self._objective, res.w, batch, self.config.variance)
-        variances = None if v is None else self._norm.model_to_original_space(v, ii)
-        means = self._norm.model_to_original_space(res.w, ii)
+        start = None if init is None else self._device_means(init)
+        res, means, batch = self._solve_update(start, total_offsets,
+                                               self._down_sample_draw(seed))
+        variances = self._variances(res.w, batch)
         host_means = means.detach().cpu().numpy()
         model = FixedEffectModel(
             coefficients=Coefficients(
@@ -363,6 +459,31 @@ class FixedEffectCoordinate(Coordinate):
         # for scoring
         seed_device_copies(model, (host_means,), (means.detach(),))
         return model, res
+
+    # -- the sweep interface.  State: (the transformed-space optimum, the
+    # published means), either None before the first update
+
+    def init_sweep_state(self, init: Optional[FixedEffectModel] = None):
+        return None, None if init is None else self._device_means(init)
+
+    def trace_update(self, state, offsets: Tensor, key: Optional[Tensor] = None,
+                     carried: Optional[Tensor] = None):
+        res, means, _ = self._solve_update(state[1], offsets, key)
+        return (res.w, means), self._batch.margins(means)
+
+    def trace_publish(self, state) -> Tensor:
+        return state[1]
+
+    def trace_variances(self, state, offsets: Tensor,
+                        key: Optional[Tensor] = None) -> Optional[Tensor]:
+        return self._variances(state[0], self._update_batch(offsets, key))
+
+    def export_model(self, published: np.ndarray) -> FixedEffectModel:
+        return FixedEffectModel(coefficients=Coefficients(means=published),
+                                feature_shard=self.config.feature_shard, task=self.task)
+
+    def data_key(self) -> tuple:
+        return "fixed", id(self._batch), id(self.norm_source)
 
     def _device_means(self, model: FixedEffectModel) -> Tensor:
         """A model's means on the device at the compute dtype: the copy an
@@ -443,14 +564,14 @@ class RandomEffectCoordinate(Coordinate):
 
         # solve_buckets: the buckets in the space the solvers see (compact
         # for sparse shards and INDEX_MAP); projections map them back
-        self._projections = None
+        projections = None
         if self._sparse:
             # full-sample scoring stays sparse: [n, k] arrays on the device
             self._x_idx = _as_device(shard.indices, torch.int64, device)
             self._x_val = _as_device(shard.values, dtype, device)
             ratio = (config.features_to_samples_ratio
                      if config.projector == ProjectorType.INDEX_MAP else None)
-            self.buckets, self._projections = bucket_by_entity_sparse(
+            self.buckets, projections = bucket_by_entity_sparse(
                 entity_ids, shard.indices, shard.values, self.dim,
                 features_to_samples_ratio=ratio,
                 intercept_index=config.intercept_index, **rows)
@@ -467,13 +588,12 @@ class RandomEffectCoordinate(Coordinate):
                 proj = project_buckets(self.buckets, config.projector,
                                        config.features_to_samples_ratio,
                                        config.intercept_index)
-                solve_buckets, self._projections = proj.buckets, proj.projections
+                solve_buckets, projections = proj.buckets, proj.projections
 
         # compact lanes' column ids on the device: they gather the per-lane
-        # contexts and bounds and expand the variances
-        self._proj_idx = (None if self._projections is None else
-                          [_as_device(p.indices, torch.int64, device)
-                           for p in self._projections])
+        # contexts and bounds, publish the lanes and expand the variances
+        self._proj_idx = (None if projections is None else
+                          [_as_device(p.indices, torch.int64, device) for p in projections])
         self._lane_norms = None
         if per_lane:
             self._lane_norms = [self._lane_context(idx, b.entity_lanes)
@@ -635,20 +755,22 @@ class RandomEffectCoordinate(Coordinate):
                     box=self._box if self._box_lanes is None
                     else self._box_lanes[bucket_index])
 
-    def _warm_start(self, bucket_index: int, init: RandomEffectModel) -> Tensor:
-        """[L, d_solve] start from a prior model's rows, gathered on the
-        device at each lane's compact columns where the bucket is compact
-        (zeros for unknown entities and padding columns).  A model this
-        coordinate published keeps its stack and slots on the device; any
-        other crosses once."""
+    def _start_rows(self, init: RandomEffectModel) -> Tuple[Tensor, List[Tensor]]:
+        """A prior model's stack on the device at the compute dtype, and each
+        bucket's lanes' rows in it (-1: unknown).  A model this coordinate
+        published keeps its stack and slots on the device; any other crosses
+        once."""
         (w_stack,) = cached_device_copies(init, self._device, init.w_stack)
-        w_stack = w_stack.to(self._dtype)
         if init.slot_of == self._slot_of:
-            slots = self._lane_slots[bucket_index]
-        else:
-            slots = torch.as_tensor(slots_from(init.slot_of,
-                                               self.buckets.buckets[bucket_index].entity_lanes),
-                                    device=self._device)
+            return w_stack.to(self._dtype), self._lane_slots
+        return w_stack.to(self._dtype), [
+            torch.as_tensor(slots_from(init.slot_of, b.entity_lanes), device=self._device)
+            for b in self.buckets.buckets]
+
+    def _warm_start(self, bucket_index: int, w_stack: Tensor, slots: Tensor) -> Tensor:
+        """[L, d_solve] start from the rows ``slots`` of ``w_stack``, gathered
+        on the device at each lane's compact columns where the bucket is
+        compact (zeros for unknown entities and padding columns)."""
         known = slots >= 0
         rows = torch.where(known, slots, 0)
         if self._proj_idx is None:
@@ -676,73 +798,148 @@ class RandomEffectCoordinate(Coordinate):
         entity's multiplier included); padded compact slots are dropped."""
         idx = self._proj_idx[bucket_index]
         fill = 1.0 / torch.clamp(l2, min=1e-30)
-        out = fill[:, None].expand(v.shape[0], self.dim).clone()
-        keep = idx >= 0
+        # padded slots write to a sink column past the last, dropped (no
+        # boolean mask: its count would be read on the host)
+        out = torch.cat([fill[:, None].expand(v.shape[0], self.dim),
+                         fill.new_zeros(v.shape[0], 1)], 1)
         rows = torch.arange(v.shape[0], device=v.device)[:, None].expand_as(idx)
-        out[rows[keep], idx[keep]] = v[keep]
-        return out
+        out[rows, torch.where(idx >= 0, idx, self.dim)] = v
+        return out[:, :self.dim]
+
+    def _solve_update(self, offsets: Tensor, start: Optional[Tuple[Tensor, List[Tensor]]]
+                      ) -> Tuple[List[SolverResult], Tensor]:
+        """Every bucket's solve from the rows ``start`` (a stack and each
+        bucket's slots in it; None: zeros) against ``offsets``: (the solver
+        results, the published [E, d] stack on the device: lanes
+        back-projected where compact, unobserved features at the box fill,
+        scattered into the stack)."""
+        offs = _as_device(offsets, self._dtype, self._device)
+        coeffs, results = [], []
+        for bi, (b, dev, l2) in enumerate(zip(self.buckets.buckets, self._dev, self._l2)):
+            if start is not None:
+                w0 = self._warm_start(bi, start[0], start[1][bi])
+            else:
+                solve_dim = dev["x"].shape[1 if self.use_soa else 2]
+                w0 = torch.zeros((b.num_lanes, solve_dim), dtype=self._dtype,
+                                 device=self._device)
+            off = self._bucket_offsets(bi, offs)
+            if self.use_soa:
+                res = solve_newton_soa(self._loss, w0.T.contiguous(), dev["x"], dev["y"],
+                                       off, dev["wt"], l2, self._solver_config)
+                w_lanes = res.w.T
+            else:
+                batch = DenseBatch(x=dev["x"], y=dev["y"], offset=off, weight=dev["wt"])
+                res = self._solve_lanes(w0, batch, l2, **self._solve_extras(bi))
+                w_lanes = res.w
+            coeffs.append(self._lanes_to_original(w_lanes, bi))
+            results.append(res)
+        w_dev = publish_stack(coeffs, self._lane_slots, len(self._slot_of), self.dim,
+                              self._proj_idx, fill=self._box_fill)
+        return results, w_dev
+
+    def _bucket_offsets(self, bucket_index: int, offs: Tensor) -> Tensor:
+        """The residual offsets gathered into a bucket's layout."""
+        dev = self._dev[bucket_index]
+        return torch.where(dev["valid"], offs[dev["rows"]], 0.0)
+
+    def _variance_stack(self, lanes: List[Tensor], offsets: Tensor) -> Optional[Tensor]:
+        """The published [E, d] variances at each bucket's optimum ``lanes``
+        (the solvers' layout) against ``offsets``, full width; None without
+        variances."""
+        kind = self.config.variance
+        if kind == VarianceComputationType.NONE:
+            return None
+        offs = _as_device(offsets, self._dtype, self._device)
+        variances = []
+        for bi, (w, dev, l2) in enumerate(zip(lanes, self._dev, self._l2)):
+            off = self._bucket_offsets(bi, offs)
+            if self.use_soa:
+                v = compute_soa_variances(self._loss, w, dev["x"], dev["y"], off,
+                                          dev["wt"], l2, kind)
+            else:
+                batch = DenseBatch(x=dev["x"], y=dev["y"], offset=off, weight=dev["wt"])
+                v = compute_variances(LaneObjective(self._loss, l2, self._norm), w, batch,
+                                      kind)
+            if self._proj_idx is not None:
+                v = self._expand_compact_variances(v, bi, l2)
+            variances.append(self._lanes_to_original(v, bi))
+        return publish_stack(variances, self._lane_slots, len(self._slot_of), self.dim)
 
     def update(self, total_offsets: Tensor, seed: int = 0,
                init: Optional[RandomEffectModel] = None
                ) -> Tuple[RandomEffectModel, List[SolverResult]]:
         init = None if init is None else dense_random_effect(init)
-        offs = _as_device(total_offsets, self._dtype, self._device)
-        kind = self.config.variance
-        coeffs, variances, results = [], [], []
-        for bi, (b, dev, l2) in enumerate(zip(self.buckets.buckets, self._dev, self._l2)):
-            if init is not None:
-                w0 = self._warm_start(bi, init)
-            else:
-                solve_dim = dev["x"].shape[1 if self.use_soa else 2]
-                w0 = torch.zeros((b.num_lanes, solve_dim), dtype=self._dtype,
-                                 device=self._device)
-            # residual offsets gathered into the bucket layout
-            off = torch.where(dev["valid"], offs[dev["rows"]], 0.0)
-            if self.use_soa:
-                res = solve_newton_soa(self._loss, w0.T.contiguous(), dev["x"], dev["y"],
-                                       off, dev["wt"], l2, self._solver_config)
-                w_lanes = res.w.T
-                v = compute_soa_variances(self._loss, res.w, dev["x"], dev["y"], off,
-                                          dev["wt"], l2, kind)
-            else:
-                batch = DenseBatch(x=dev["x"], y=dev["y"], offset=off, weight=dev["wt"])
-                res = self._solve_lanes(w0, batch, l2, **self._solve_extras(bi))
-                w_lanes = res.w
-                v = compute_variances(LaneObjective(self._loss, l2, self._norm),
-                                      res.w, batch, kind)
-            coeffs.append(self._lanes_to_original(w_lanes, bi))
-            if v is not None:
-                if self._proj_idx is not None:
-                    v = self._expand_compact_variances(v, bi, l2)
-                variances.append(self._lanes_to_original(v, bi))
-            results.append(res)
-        # publish: lanes (back-projected where compact, unobserved features
-        # at the box fill) scattered into the [E, d] stack on the device; the
-        # host copy is the model's, and the device stack becomes its scoring
-        # copy.  Variances are full width.
-        num_e = len(self._slot_of)
-        w_dev = publish_stack(coeffs, self._lane_slots, num_e, self.dim,
-                              self._projections, fill=self._box_fill)
+        results, w_dev = self._solve_update(
+            total_offsets, None if init is None else self._start_rows(init))
+        var_dev = self._variance_stack([r.w for r in results], total_offsets)
+        # the host copy is the model's, and the device stack becomes its
+        # scoring copy
         w_stack = w_dev.cpu().numpy()
-        var_stack = (publish_stack(variances, self._lane_slots, num_e, self.dim)
-                     .cpu().numpy() if variances else None)
         model = RandomEffectModel(
             w_stack=w_stack, slot_of=dict(self._slot_of),
             random_effect_type=self.config.random_effect_type,
             feature_shard=self.config.feature_shard, task=self.task,
-            variances=var_stack)
+            variances=None if var_dev is None else var_dev.cpu().numpy())
         seed_device_copies(model, (w_stack,), (w_dev,))
         return merge_carry_through(model, init), results
+
+    # -- the sweep interface.  State: (each bucket's optimum in the solvers'
+    # layout, the stack the next update starts from, each bucket's rows in
+    # it); the optima None before the first update, the stack None for a
+    # cold start
+
+    def init_sweep_state(self, init: Optional[RandomEffectModel] = None):
+        if init is None:
+            return None, None, None
+        return (None,) + self._start_rows(dense_random_effect(init))
+
+    def trace_update(self, state, offsets: Tensor, key: Optional[Tensor] = None,
+                     carried: Optional[Tensor] = None):
+        results, w_dev = self._solve_update(offsets, None if state[1] is None else state[1:])
+        score = self._score_stack(w_dev, self._sample_slots)
+        if carried is not None:  # a sample is one entity's: one side is 0
+            score = score + carried
+        return ([r.w for r in results], w_dev, self._lane_slots), score
+
+    def trace_publish(self, state) -> Tensor:
+        return state[1]
+
+    def trace_variances(self, state, offsets: Tensor,
+                        key: Optional[Tensor] = None) -> Optional[Tensor]:
+        return self._variance_stack(state[0], offsets)
+
+    def export_model(self, published: np.ndarray) -> RandomEffectModel:
+        return RandomEffectModel(w_stack=published, slot_of=dict(self._slot_of),
+                                 random_effect_type=self.config.random_effect_type,
+                                 feature_shard=self.config.feature_shard, task=self.task)
+
+    def carry_through_scores(self, init: Optional[RandomEffectModel]) -> Optional[Tensor]:
+        if init is None:
+            return None
+        init = dense_random_effect(init)
+        carried = [eid for eid in init.slot_of if eid not in self._slot_of]
+        if not carried:
+            return None
+        slots = np.where(np.isin(self._entity_ids, carried),
+                         slots_from(init.slot_of, self._entity_ids), -1)
+        (w,) = cached_device_copies(init, self._device, init.w_stack)
+        return self._score_stack(w.to(self._dtype), torch.as_tensor(slots, device=self._device))
+
+    def data_key(self) -> tuple:
+        return "random", id(self.buckets), id(self.norm_source)
 
     def score(self, model: RandomEffectModel) -> Tensor:
         model = dense_random_effect(model)
         (w,) = cached_device_copies(model, self._device, model.w_stack)
-        w = w.to(self._dtype)
         if model.slot_of == self._slot_of:
             slots = self._sample_slots
         else:
             slots = torch.as_tensor(slots_from(model.slot_of, self._entity_ids),
                                     device=self._device)
+        return self._score_stack(w.to(self._dtype), slots)
+
+    def _score_stack(self, w: Tensor, slots: Tensor) -> Tensor:
+        """Every sample's score against the rows ``slots`` of ``w``."""
         if self._sparse:
             return score_samples_sparse(w, slots, self._x_idx, self._x_val)
         return score_samples(w, slots, self._x_full)

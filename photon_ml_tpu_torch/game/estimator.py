@@ -1,9 +1,19 @@
 """GameEstimator: the top-level fit API.
 
-Port of photon_ml_tpu/game/estimator.py along its host-paced path
-(``GameEstimator(fused=False)``, the parity target): build the coordinates
-on the device once, run coordinate descent per configuration, and warm-start
-each configuration from the previous one's model.  Over a grid of
+Port of photon_ml_tpu/game/estimator.py: build the coordinates on the
+device once, run coordinate descent per configuration, and warm-start each
+configuration from the previous one's model.  ``fused`` picks the descent
+as the reference does (``photon_ml_tpu/game/estimator.py:160-215``): by
+default (``"auto"``) a configuration with no per-update host work (no
+checkpoint hook, locked coordinate, resume or validation suite) runs as
+one ``game/fused.FusedSweep`` whose result carries an empty
+``DescentHistory``, and one that has such work runs the host-paced
+``CoordinateDescent``; ``False`` always runs the host loop, and ``True``
+requires the sweep (ValueError on per-update host work; a validation suite,
+whose fused form is ROADMAP item 8(d), NotImplementedError).  Consecutive
+configurations whose coordinates differ only in regularization values
+reuse one sweep (``Coordinate.sweep_key``); one that crosses the L1 regime
+builds another.  Over a grid of
 configurations each coordinate's device data is built once: a later
 configuration that changes only optimization settings rebinds the previous
 coordinate (``Coordinate.rebind``), and one that changes the data layout
@@ -15,8 +25,7 @@ configuration, and its random-effect entity ids feed the lower bound
 (an under-bound entity the prior covers keeps its model); locked coordinates
 keep their initial model and are only scored; a checkpoint hook sees every
 update with its cursor, and a resume skips the work before the cursor.
-``GameTransformer`` scores, predicts and evaluates a fitted model.  The
-whole-sweep fused program (``FusedSweep``) is a later slice.
+``GameTransformer`` scores, predicts and evaluates a fitted model.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from photon_ml_tpu_torch.game.config import GameConfig
 from photon_ml_tpu_torch.game.coordinate import Coordinate, build_coordinate
 from photon_ml_tpu_torch.game.data import GameData
 from photon_ml_tpu_torch.game.descent import CoordinateDescent, DescentHistory
+from photon_ml_tpu_torch.game.fused import PART_D_REFUSAL, FusedSweep
 from photon_ml_tpu_torch.game.scoring import raw_scores
 from photon_ml_tpu_torch.models.game import GameModel
 from photon_ml_tpu_torch.types import TaskType
@@ -57,24 +67,19 @@ class GameEstimator:
     (float32 on the card; float64 for reference-precision runs).
     ``normalization``: feature shard -> ``NormalizationContext``, applied to
     every coordinate on that shard, fixed and random alike.  ``mesh``: only
-    None (one device).  ``fused``: False or "auto" run the host-paced loop
-    ("auto" means that loop until the whole-sweep program is ported);
-    True, which requires that program, raises."""
+    None (one device).  ``fused``: "auto" (the default), True or False
+    (module docstring)."""
 
     def __init__(self, device: "str | torch.device" = DEFAULT_DEVICE,
                  validation_suite: Optional[EvaluationSuite] = None,
                  dtype=torch.float32,
                  normalization: Optional[Dict[str, NormalizationContext]] = None,
-                 mesh=None, fused: "bool | str" = False):
+                 mesh=None, fused: "bool | str" = "auto"):
         if mesh is not None:
             raise NotImplementedError(
                 "GameEstimator(mesh=...) is not ported yet (ROADMAP.md 'Modules still "
                 "to port', item 11, multi-GPU)")
-        if fused is True:
-            raise NotImplementedError(
-                "GameEstimator(fused=True) is not ported yet (ROADMAP.md 'Modules still "
-                "to port', item 8, whole-sweep programs); fused=False or 'auto' run the "
-                "host-paced loop")
+        self.fused = fused
         self.device = resolve_device(device)
         self.validation_suite = validation_suite
         self.dtype = torch_dtype(dtype)
@@ -118,6 +123,7 @@ class GameEstimator:
         left out of the results); ``resume_best`` seeds the best-model
         tracking of the configuration resumed."""
         results: List[GameFitResult] = []
+        prev_sweep = None  # (sweep key, FusedSweep)
         warm = initial_model
         # only a warm start feeds the lower bound: on a resume, initial_model
         # is the checkpoint, and an under-bound entity that the run left out
@@ -148,6 +154,32 @@ class GameEstimator:
             validation = None
             if validation_data is not None and self.validation_suite is not None:
                 validation = (validation_data, self.validation_suite)
+            # per-update host work keeps the host-paced loop
+            fused_ok = (self.fused is not False and checkpoint_hook is None
+                        and not locked_coordinates and resume_cursor is None)
+            if fused_ok and validation is not None:
+                if self.fused is True:
+                    raise NotImplementedError("GameEstimator(fused=True) with a validation "
+                                              "suite " + PART_D_REFUSAL)
+                fused_ok = False
+            if fused_ok:
+                # regularization values are a run's inputs: a λ grid over the
+                # same data and solvers reuses one sweep
+                key = (tuple((cid, coordinates[cid].sweep_key()) for cid in config.coordinates),
+                       config.num_outer_iterations)
+                if prev_sweep is None or prev_sweep[0] != key:
+                    prev_sweep = (key, FusedSweep(coordinates, order=list(config.coordinates),
+                                                  num_iterations=config.num_outer_iterations))
+                model, _ = prev_sweep[1].run(
+                    initial=warm, regs=[coordinates[cid].config.reg
+                                        for cid in config.coordinates], seed=seed)
+                results.append(GameFitResult(model=model, config=config, evaluation=None,
+                                             history=DescentHistory()))
+                warm = model
+                continue
+            if self.fused is True:
+                raise ValueError("fused=True needs a fit with no per-update host work "
+                                 "(no checkpoint hook, locked coordinates, or resume)")
             descent = CoordinateDescent(coordinates, order=list(config.coordinates),
                                         num_iterations=config.num_outer_iterations,
                                         validation=validation, locked=locked_coordinates)

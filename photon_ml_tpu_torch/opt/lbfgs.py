@@ -205,12 +205,13 @@ def _finish(c: _Lbfgs, st: Search, dvec: Tensor, tols: Tuple[Tensor, Tensor], bo
 
 def _lbfgs(value_and_grad: ValueAndGrad, w0: Tensor, config: SolverConfig, box: Box,
            single: bool) -> SolverResult:
-    """L-BFGS over one solve (w0 [d], ``single``) or lanes (w0 [L, d]).  A
-    single solve on the card replays its bookkeeping (``loop.replay``)."""
+    """L-BFGS over one solve (w0 [d], ``single``) or lanes (w0 [L, d]).  On
+    the card its bookkeeping is replayed (``loop.replay``): an iteration's
+    direction and search start, each search step and the iteration's end
+    are a graph each, per shape; the objective runs eagerly between them."""
     lanes = not single
     dot, norm = (lane_dot, lane_norm) if lanes else (torch.dot, torch.linalg.vector_norm)
     col = (lambda t: t[..., None]) if lanes else (lambda t: t)
-    call = (lambda fn, *args: fn(*args)) if lanes else replay
     if box is not None:
         w0 = torch.clamp(w0, *box)
     f0, g0 = value_and_grad(w0)
@@ -225,23 +226,25 @@ def _lbfgs(value_and_grad: ValueAndGrad, w0: Tensor, config: SolverConfig, box: 
                   torch.zeros_like(reason0), reason0, reason0 == _NOT_CONVERGED)
 
     def body(c: _Lbfgs) -> _Lbfgs:
-        dvec, st, k = call(_prepare, c, box, lanes, config.c2, config.max_linesearch, dot)
+        dvec, st, k = replay(_prepare, c, box, lanes, config.c2, config.max_linesearch, dot)
 
         def search(st: Search) -> Search:
             wt = c.w + col(linesearch.trial(st)) * dvec
             phi, g = value_and_grad(wt if box is None else torch.clamp(wt, *box))
-            return call(linesearch.step, st, phi, g, dvec, k, lanes, config.c1,
-                        config.max_linesearch, _MAX_ALPHA, dot)
+            return replay(linesearch.step, st, phi, g, dvec, k, lanes, config.c1,
+                          config.max_linesearch, _MAX_ALPHA, dot)
 
         st = while_loop(lambda st: st.run.any() if lanes else st.run, search, st)
-        nxt = call(_finish, c, st, dvec, tols, box, lanes, config.max_iters, dot, norm)
+        # (c is the last iteration's graph output, which the replay below
+        # overwrites: the lanes that ran are kept apart first)
+        ran = c.active.clone() if lanes and tracker is not None else None
+        nxt = replay(_finish, c, st, dvec, tols, box, lanes, config.max_iters, dot, norm)
         if tracker is not None:
-            tracker.record(nxt.f, nxt.gnorm, c.active if lanes else None)
+            tracker.record(nxt.f, nxt.gnorm, ran)
         return nxt
 
     final = while_loop(lambda c: c.active.any() if lanes else c.active, body, init)
-    if single:  # the replayed graphs' buffers are theirs
-        final = _Lbfgs(*(t.clone() for t in final))
+    final = _Lbfgs(*(t.clone() for t in final))  # the replayed graphs' buffers are theirs
     return SolverResult(w=final.w, value=final.f, grad_norm=final.gnorm,
                         iterations=final.it, reason=final.reason, tracker=tracker)
 
@@ -300,6 +303,72 @@ class _Backtrack(NamedTuple):
     k: Tensor  # trials, int32
 
 
+def _composite(w: Tensor, f_smooth: Tensor, l1: Tensor) -> Tensor:
+    """The OWLQN objective: the smooth part plus l1·||w||₁, per lane."""
+    return f_smooth + (l1 * w.abs()).sum(-1)
+
+
+def _orthant_trial(w: Tensor, alpha: Tensor, dvec: Tensor, xi: Tensor) -> Tensor:
+    """The trial point w + alpha·d projected onto the orthant ``xi``."""
+    wt = w + alpha[:, None] * dvec
+    return torch.where(wt * xi >= 0, wt, 0.0)
+
+
+def _owlqn_prepare(c: _Owlqn, l1: Tensor, max_linesearch: int):
+    """An iteration's direction, its slope, the orthant of its trial region,
+    its backtracking search's first state and first trial point."""
+    pg = pseudo_gradient(c.w, c.g, l1)
+    dvec = _direction(pg, c.s_hist, c.y_hist, c.rho, c.gamma, lane_dot)
+    # align: drop the components that leave the pseudo-gradient's orthant
+    dvec = torch.where(dvec * -pg > 0, dvec, 0.0)
+    dphi0 = lane_dot(pg, dvec)
+    bad = dphi0 >= 0
+    dvec = torch.where(bad[:, None], -pg, dvec)
+    dphi0 = torch.where(bad, -lane_dot(pg, pg), dphi0)
+    # the orthant of the trial region: sign(w), or the steepest one at 0
+    xi = torch.where(c.w != 0, torch.sign(c.w), torch.sign(-pg))
+    k0 = torch.zeros((), dtype=torch.int32, device=c.w.device)
+    b = _Backtrack(_first_step(c.pgnorm, c.rho), torch.zeros_like(c.w), c.f, c.g,
+                   torch.zeros_like(c.active), c.active & (k0 < max_linesearch), k0)
+    return dvec, dphi0, xi, b, _orthant_trial(c.w, b.alpha, dvec, xi)
+
+
+def _owlqn_trial(b: _Backtrack, wt: Tensor, ft: Tensor, gt: Tensor, w: Tensor,
+                 full_f: Tensor, dvec: Tensor, dphi0: Tensor, xi: Tensor, l1: Tensor,
+                 c1: float, max_linesearch: int):
+    """The backtracking search's next state after evaluating the trial
+    point ``wt``, and its next trial point.  A lane's last trial is kept
+    whether or not it succeeded, and ``ok`` selects."""
+    ok = _composite(wt, ft, l1) <= full_f + c1 * b.alpha * dphi0
+    k = b.k + 1
+    nxt = _Backtrack(torch.where(b.searching, b.alpha * 0.5, b.alpha),
+                     torch.where(b.searching[:, None], wt, b.w),
+                     torch.where(b.searching, ft, b.f),
+                     torch.where(b.searching[:, None], gt, b.g),
+                     torch.where(b.searching, ok, b.ok),
+                     b.searching & ~ok & (k < max_linesearch), k)
+    return nxt, _orthant_trial(w, nxt.alpha, dvec, xi)
+
+
+def _owlqn_finish(c: _Owlqn, ls: _Backtrack, l1: Tensor, tols: Tuple[Tensor, Tensor],
+                  max_iters: int) -> _Owlqn:
+    """The next state from an iteration's finished search."""
+    active = c.active
+    hist = _admit(c.s_hist, c.y_hist, c.rho, c.gamma, ls.w - c.w, ls.g - c.g,
+                  active & ls.ok, lane_dot)
+    ff_new = _composite(ls.w, ls.f, l1)
+    it_new = c.it + 1
+    pg_new_norm = lane_norm(pseudo_gradient(ls.w, ls.g, l1))
+    r_new = converged(ff_new, c.full_f, pg_new_norm, it_new, max_iters, *tols)
+    r_new = torch.where(ls.ok, r_new, _NOT_IMPROVING)
+    keep = active & ls.ok
+    reason = torch.where(active, r_new, c.reason)
+    return _Owlqn(torch.where(keep[:, None], ls.w, c.w), torch.where(keep, ls.f, c.f),
+                  torch.where(keep[:, None], ls.g, c.g),
+                  torch.where(keep, ff_new, c.full_f), torch.where(keep, pg_new_norm, c.pgnorm),
+                  *hist, torch.where(active, it_new, c.it), reason, reason == _NOT_CONVERGED)
+
+
 def minimize_owlqn_lanes(value_and_grad: ValueAndGrad, w0: Tensor, l1,
                          config: SolverConfig = SolverConfig()) -> SolverResult:
     """One OWLQN solve of smooth(w) + l1·||w||₁ per lane.
@@ -310,18 +379,19 @@ def minimize_owlqn_lanes(value_and_grad: ValueAndGrad, w0: Tensor, l1,
     until the composite objective meets Armijo's condition; the curvature
     history takes smooth gradients.  A lane whose search finds no such point
     keeps its point and stops with OBJECTIVE_NOT_IMPROVING.  The result's
-    values are composite and its gradient norms the pseudo-gradients'."""
+    values are composite and its gradient norms the pseudo-gradients'.  On
+    the card the bookkeeping is replayed as ``_lbfgs``'s is; a number ``l1``
+    enters it as a 0-d tensor, so a λ grid replays the same graphs."""
     if isinstance(l1, Tensor):
         l1 = l1.to(dtype=w0.dtype, device=w0.device)
         if l1.dim() == 1:
             l1 = l1[:, None]
-
-    def composite(w, f_smooth):
-        return f_smooth + (l1 * w.abs()).sum(-1)
+    else:
+        l1 = torch.full((), l1, dtype=w0.dtype, device=w0.device)
 
     f0, g0 = value_and_grad(w0)
     pg0norm = lane_norm(pseudo_gradient(w0, g0, l1))
-    ff0 = composite(w0, f0)
+    ff0 = _composite(w0, f0, l1)
     tracker = new_tracker(config, w0, w0.shape[0])
     if tracker is not None:
         tracker.record(ff0, pg0norm)
@@ -331,56 +401,22 @@ def minimize_owlqn_lanes(value_and_grad: ValueAndGrad, w0: Tensor, l1,
                   torch.zeros_like(reason0), reason0, reason0 == _NOT_CONVERGED)
 
     def body(c: _Owlqn) -> _Owlqn:
-        active = c.active
-        pg = pseudo_gradient(c.w, c.g, l1)
-        dvec = _direction(pg, c.s_hist, c.y_hist, c.rho, c.gamma, lane_dot)
-        # align: drop the components that leave the pseudo-gradient's orthant
-        dvec = torch.where(dvec * -pg > 0, dvec, 0.0)
-        dphi0 = lane_dot(pg, dvec)
-        bad = dphi0 >= 0
-        dvec = torch.where(bad[:, None], -pg, dvec)
-        dphi0 = torch.where(bad, -lane_dot(pg, pg), dphi0)
-        # the orthant of the trial region: sign(w), or the steepest one at 0
-        xi = torch.where(c.w != 0, torch.sign(c.w), torch.sign(-pg))
+        dvec, dphi0, xi, b, wt = replay(_owlqn_prepare, c, l1, config.max_linesearch)
 
-        # backtracking Armijo search on the composite objective; a lane's
-        # last trial is kept whether or not it succeeded, and ``ok`` selects
-        def trial(b: _Backtrack) -> _Backtrack:
-            wt = c.w + b.alpha[:, None] * dvec
-            wt = torch.where(wt * xi >= 0, wt, 0.0)  # orthant projection
+        def trial(state):
+            b, wt = state
             ft, gt = value_and_grad(wt)
-            ok = composite(wt, ft) <= c.full_f + config.c1 * b.alpha * dphi0
-            k = b.k + 1
-            return _Backtrack(torch.where(b.searching, b.alpha * 0.5, b.alpha),
-                              torch.where(b.searching[:, None], wt, b.w),
-                              torch.where(b.searching, ft, b.f),
-                              torch.where(b.searching[:, None], gt, b.g),
-                              torch.where(b.searching, ok, b.ok),
-                              b.searching & ~ok & (k < config.max_linesearch), k)
+            return replay(_owlqn_trial, b, wt, ft, gt, c.w, c.full_f, dvec, dphi0, xi, l1,
+                          config.c1, config.max_linesearch)
 
-        k0 = torch.zeros((), dtype=torch.int32, device=w0.device)
-        ls = while_loop(lambda b: b.searching.any(), trial,
-                        _Backtrack(_first_step(c.pgnorm, c.rho), torch.zeros_like(c.w),
-                                   c.f, c.g, torch.zeros_like(active),
-                                   active & (k0 < config.max_linesearch), k0))
-
-        hist = _admit(c.s_hist, c.y_hist, c.rho, c.gamma, ls.w - c.w, ls.g - c.g,
-                      active & ls.ok, lane_dot)
-        ff_new = composite(ls.w, ls.f)
-        it_new = c.it + 1
-        pg_new_norm = lane_norm(pseudo_gradient(ls.w, ls.g, l1))
-        r_new = converged(ff_new, c.full_f, pg_new_norm, it_new, config.max_iters, *tols)
-        r_new = torch.where(ls.ok, r_new, _NOT_IMPROVING)
-        keep = active & ls.ok
-        full_f = torch.where(keep, ff_new, c.full_f)
-        pgnorm = torch.where(keep, pg_new_norm, c.pgnorm)
+        ls, _ = while_loop(lambda state: state[0].searching.any(), trial, (b, wt))
+        ran = c.active.clone() if tracker is not None else None
+        nxt = replay(_owlqn_finish, c, ls, l1, tols, config.max_iters)
         if tracker is not None:
-            tracker.record(full_f, pgnorm, active)
-        reason = torch.where(active, r_new, c.reason)
-        return _Owlqn(torch.where(keep[:, None], ls.w, c.w), torch.where(keep, ls.f, c.f),
-                      torch.where(keep[:, None], ls.g, c.g), full_f, pgnorm, *hist,
-                      torch.where(active, it_new, c.it), reason, reason == _NOT_CONVERGED)
+            tracker.record(nxt.full_f, nxt.pgnorm, ran)
+        return nxt
 
     final = while_loop(lambda c: c.active.any(), body, init)
+    final = _Owlqn(*(t.clone() for t in final))
     return SolverResult(w=final.w, value=final.full_f, grad_norm=final.pgnorm,
                         iterations=final.it, reason=final.reason, tracker=tracker)

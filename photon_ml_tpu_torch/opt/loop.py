@@ -14,11 +14,15 @@ host read of every solver loop.
 (nested in tuples; any other argument is a constant).  On the card it is
 captured once as a CUDA graph per function, constants and tensor shapes,
 and each call copies the tensors into the graph's inputs and replays it:
-the many small launches of a scalar solver's bookkeeping become one.  Its
+the many small launches of a solver's bookkeeping become one.  Its
 outputs are the graph's own buffers: they hold until the same graph is
 replayed again, so a caller uses them before that, or copies them.  A
 body that reads nothing on the host and makes no tensor from host data is
-such a function.
+such a function.  Every solver of ``opt/`` (L-BFGS, single and over lanes;
+OWLQN; TRON; SoA Newton) replays its bookkeeping so on the card: the
+objectives, and the kernels they launch, run eagerly between the replays,
+and no design passes through a graph's inputs.  ``captured()`` counts the
+graphs.
 """
 
 from __future__ import annotations
@@ -84,6 +88,13 @@ def replay(fn: Callable, *args):
         dst.copy_(src)
     graph.replay()
     return outputs
+
+
+def captured() -> int:
+    """The graphs ``replay`` has captured in this process: one per function,
+    argument structure, constants and shapes, so a second fit over the same
+    shapes captures none."""
+    return len(_GRAPHS)
 
 
 def _capture(fn: Callable, leaves: list, structure, device: torch.device):

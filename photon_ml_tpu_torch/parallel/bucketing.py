@@ -204,27 +204,30 @@ def publish_stack(coeffs: Sequence[Tensor], lane_slots: Sequence[Tensor],
     """The [num_entities, dim] coefficient stack, built on the coefficients'
     device: lane l of bucket b goes to row ``lane_slots[b][l]``; a padding
     lane (slot -1) is dropped.  With
-    ``projections`` (one ``BucketProjection`` per bucket), each lane's
+    ``projections`` (one ``BucketProjection`` per bucket, or its [L, k]
+    column ids as a tensor), each lane's
     compact coefficients scatter to their full-width columns and every other
     column takes ``fill`` ([dim]; 0 without it), except in a lane that
     observes no column, which stays 0.  Padded compact slots are dropped, so
-    they never overwrite an observed column."""
+    they never overwrite an observed column.  What is dropped goes to a sink
+    row and column past the last, so no count is read on the host."""
     dev = coeffs[0].device if coeffs else torch.device("cpu")
     dt = coeffs[0].dtype if coeffs else torch.float32
-    out = torch.zeros((num_entities + 1, dim), dtype=dt, device=dev)  # last: sink
+    out = torch.zeros((num_entities + 1, dim + 1), dtype=dt, device=dev)  # last: sinks
     for b, (c, slots) in enumerate(zip(coeffs, lane_slots)):
         slots = slots.to(dev).long()
         rows = torch.where(slots < 0, num_entities, slots)
         if projections is None:
-            out[rows] = c
+            out[rows, :dim] = c
             continue
-        idx = torch.as_tensor(projections[b].indices, device=dev).long()
+        proj = projections[b]
+        idx = torch.as_tensor(proj if isinstance(proj, Tensor) else proj.indices,
+                              device=dev).long()
         keep = idx >= 0
         if fill is not None:
-            observes = keep.any(dim=1)
-            out[rows[observes]] = fill.to(dt)
-        out[rows[:, None].expand_as(idx)[keep], idx[keep]] = c[keep]
-    return out[:num_entities]
+            out[torch.where(keep.any(dim=1), rows, num_entities), :dim] = fill.to(dt)
+        out[rows[:, None].expand_as(idx), torch.where(keep, idx, dim)] = c
+    return out[:num_entities, :dim].contiguous()
 
 
 def score_samples(w_stack: Tensor, slots: Tensor, x: Tensor) -> Tensor:

@@ -18,9 +18,11 @@ Tensor = torch.Tensor
 
 def cholesky_inverse(a: Tensor) -> Tensor:
     """Inverse of symmetric positive-definite matrices [..., d, d] via
-    Cholesky."""
+    Cholesky.  A matrix that is not positive definite gives NaNs, as the
+    reference's factor does; its failure is not read on the host."""
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
-    chol = torch.linalg.cholesky(a)
+    chol, info = torch.linalg.cholesky_ex(a)
+    chol = torch.where((info == 0)[..., None, None], chol, float("nan"))
     inv_l = torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False)
     full_f32_matmul()
     return inv_l.mT @ inv_l

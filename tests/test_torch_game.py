@@ -134,8 +134,8 @@ def test_glmix_fit_matches_jax_host_paced(glmix, jax_fit):
     jres, jdata = jax_fit
     suite = TSuite.from_specs(["auc", "logistic_loss"])
     data = _data(GameData, glmix)
-    tres = GameEstimator(device="cpu", dtype=torch.float64, validation_suite=suite).fit(
-        data, [_torch_config()], validation_data=data)[0]
+    tres = GameEstimator(device="cpu", dtype=torch.float64, validation_suite=suite,
+                         fused=False).fit(data, [_torch_config()], validation_data=data)[0]
     jm, tm = jres.model, tres.model
 
     assert _rel(tm["fixed"].coefficients.means, jm["fixed"].coefficients.means) <= 1e-6

@@ -478,7 +478,8 @@ def test_descent_logs_the_tracker_summary_at_debug(caplog):
     """At DEBUG every update logs its coordinate's ``tracker_summary``."""
     _, tdata, _, _ = _game_parts("lanes")
     caplog.set_level(logging.DEBUG, logger=tdescent.logger.name)
-    GameEstimator(device="cpu", dtype=torch.float64).fit(tdata, [_small_fit_config(2)])
+    GameEstimator(device="cpu", dtype=torch.float64, fused=False).fit(
+        tdata, [_small_fit_config(2)])
     logged = [r.args for r in caplog.records if r.msg == "coord %s solvers: %s"]
     assert [cid for cid, _ in logged] == ["fixed", "per-user"] * 2
     fixed, user = logged[0][1], logged[1][1]
@@ -500,11 +501,11 @@ def test_descent_builds_no_summary_above_debug_and_survives_a_failing_one(caplog
     monkeypatch.setattr(tcoord.FixedEffectCoordinate, "tracker_summary", boom)
     monkeypatch.setattr(tcoord.RandomEffectCoordinate, "tracker_summary", boom)
     caplog.set_level(logging.INFO, logger=tdescent.logger.name)
-    quiet = GameEstimator(device="cpu", dtype=torch.float64).fit(
+    quiet = GameEstimator(device="cpu", dtype=torch.float64, fused=False).fit(
         tdata, [_small_fit_config()])[0].model
     assert calls == []
     caplog.set_level(logging.DEBUG, logger=tdescent.logger.name)
-    loud = GameEstimator(device="cpu", dtype=torch.float64).fit(
+    loud = GameEstimator(device="cpu", dtype=torch.float64, fused=False).fit(
         tdata, [_small_fit_config()])[0].model
     assert calls == ["fixed", "per-user"]
     assert sum("tracker summary unavailable" in r.getMessage() for r in caplog.records) == 2
@@ -796,7 +797,7 @@ def _fixed_results(storage, compute, scale=BF16_SCALES[0]):
         mp.setattr(JObjective, "value_and_grad", counted_jvg)
         JEstimator(fused=False, dtype=compute).fit(jdata, [jcfg])
         GameEstimator(device="cpu", dtype=torch.float32 if compute == np.float32
-                      else torch.float64).fit(tdata, [tcfg])
+                      else torch.float64, fused=False).fit(tdata, [tcfg])
     return kept["jax"], kept["port"], evals, jevals
 
 

@@ -263,13 +263,16 @@ def _refusal(call, item: int, *names):
 
 def test_estimator_refuses_what_is_not_ported():
     _refusal(lambda: GameEstimator(device="cpu", mesh=object()), 11, "mesh")
-    _refusal(lambda: GameEstimator(device="cpu", fused=True), 8, "fused=True")
-    for fused in (False, "auto"):
-        GameEstimator(device="cpu", fused=fused)
     part, held = _grid_data()
-    est = GameEstimator(device="cpu", dtype=torch.float64)
     configs = _grid(GameConfig, FixedEffectConfig, RandomEffectConfig, SolverConfig, TReg,
                     TaskType)[:1]
+    # the fused sweep's validated form is item 8, part (d)
+    suite = TSuite.from_specs(["auc"])
+    _refusal(lambda: GameEstimator(device="cpu", fused=True, validation_suite=suite).fit(
+        part(GameData, ~held), configs, part(GameData, held)), 8, "fused=True", "part (d)")
+    for fused in (False, "auto", True):
+        GameEstimator(device="cpu", fused=fused)
+    est = GameEstimator(device="cpu", dtype=torch.float64)
     res = est.fit(part(GameData, ~held), configs, None, None, set(), 3)
     assert len(res) == 1
     # the reference's positional order: data, configs, validation_data,
