@@ -235,9 +235,26 @@ Phases, each printing its result and wall time on its own line:
     host loop's, one sweep per sweep key (the down-sampled point is a key
     of its own, as in the reference), no graph captured after the first
     point.  Phases whose gates or logs read the host loop's per-update
-    history (11, 12, 17, 19, 23, 25 and ``--ab``) pin ``fused=False``; the
-    paths that ``_drive`` runs (5, 7, 8, 15, 18, 24) take the default;
-14. printed last, after phases 15-18 and 24-26: one JSON line describing each
+    history (11, 12, 17, 19, 23, 25 and ``--ab``) pin ``fused=False``, and
+    so do the host-loop sides of phases 26 and 27; the paths that
+    ``_drive`` runs (5, 7, 8, 15, 18, 24) and phase 21 take the default
+    (phase 21's validated fit runs ``FusedSweep.run_validated``);
+27. after phase 26, the validated fused sweep (``FusedSweep.run_validated``
+    with a ``ValidationPlan``, the default ``GameEstimator()`` path for a
+    fit with a validation suite): glmix_chip-grid's five points at full
+    width with GRID_SUITE on the 1,048,576 held-out rows (the down-sampled
+    point included), and glmix_sparse-held-out with GS_HELD_OUT_SUITE,
+    each through ``GameEstimator()`` and ``GameEstimator(fused=False)``.
+    Gates: every point's coefficients, every evaluation and ``best``
+    bitwise the host loop's; kernels 1-3 launched as often; one
+    ``ValidationPlan`` a sweep; the fused descents' host syncs (counted as
+    phase 25 counts them) fewer than the host loop's, each a solver loop's
+    read at ``opt/loop.while_loop``, a read inside a boundary evaluation
+    or the one export of each fit.  Reported: the plans' device bytes, the
+    first point's descent seconds both ways on one set of coordinates
+    (untraced, the median of five each, interleaved) and the card's idle
+    share over them, read as phase 26 reads it;
+14. printed last, after phases 15-18 and 24-27: one JSON line describing each
     kernel, with its launches on each path and its device time alone
     (``device_ms``) beside the event time (``ms``); the storage-width shapes
     sit under ``by_shape`` with the launches of the path that runs them.
@@ -2839,7 +2856,8 @@ def phase_glmix_chip_grid(stats: dict, train: dict, val: dict) -> dict:
     try:
         torch.cuda.reset_peak_memory_stats()
         t_start = time.perf_counter()
-        est = GameEstimator(device="cuda", validation_suite=suite)
+        # the host loop: the wrapper above times and counts each point
+        est = GameEstimator(device="cuda", validation_suite=suite, fused=False)
         results = est.fit(train, configs, validation_data=val)
         torch.cuda.synchronize()
         t_grid = time.perf_counter() - t_start
@@ -3317,6 +3335,24 @@ def phase_glmix_chip_reg_path(stats: dict, train: dict, val: dict):
                                         best=lam_best)
 
 
+def _gs_held_out_split(host: dict):
+    """glmix_sparse's (training, held-out) GameData and the held-out rows'
+    mask: the last GS_HELD_OUT_PER_USER rows of every user, in order of
+    appearance."""
+    from photon_ml_tpu_torch.data.synthetic import last_rows_per_entity
+    from photon_ml_tpu_torch.game import GameData, SparseShard
+
+    held = last_rows_per_entity(host["uids"], GS_HELD_OUT_PER_USER)
+
+    def part(rows):
+        return GameData(y=host["y"][rows], features={
+            k: SparseShard(indices=host[s]["indices"][rows], values=host[s]["values"][rows],
+                           dim=host[s]["dim"]) for k, s in (("g", "fixed"), ("u", "user"))},
+            id_tags={"userId": host["uids"][rows]})
+
+    return part(~held), part(held), held
+
+
 def phase_glmix_sparse_held_out(stats: dict, card: dict):
     """glmix_sparse held out: phase 12's data split inside each user (the
     last GS_HELD_OUT_PER_USER of its 32 rows, in order of appearance,
@@ -3328,24 +3364,14 @@ def phase_glmix_sparse_held_out(stats: dict, card: dict):
     within GS_COMPACT_AUC_TOL of its dense twin's."""
     import torch
 
-    from photon_ml_tpu_torch.data.synthetic import last_rows_per_entity
     from photon_ml_tpu_torch.evaluation.evaluator import EvaluationSuite
     from photon_ml_tpu_torch.evaluation.metrics import auc_roc
-    from photon_ml_tpu_torch.game import (GameData, GameEstimator, GameTransformer,
-                                          SparseShard)
+    from photon_ml_tpu_torch.game import GameEstimator, GameTransformer
     from photon_ml_tpu_torch.models.game import GameModel
     from photon_ml_tpu_torch.types import TaskType
 
     host = card["host"]
-    held = last_rows_per_entity(host["uids"], GS_HELD_OUT_PER_USER)
-
-    def part(rows):
-        return GameData(y=host["y"][rows], features={
-            k: SparseShard(indices=host[s]["indices"][rows], values=host[s]["values"][rows],
-                           dim=host[s]["dim"]) for k, s in (("g", "fixed"), ("u", "user"))},
-            id_tags={"userId": host["uids"][rows]})
-
-    train, val = part(~held), part(held)
+    train, val, held = _gs_held_out_split(host)
     suite = EvaluationSuite.from_specs(GS_HELD_OUT_SUITE)
     task = TaskType.LOGISTIC_REGRESSION
     kernels = _zero_launches()
@@ -3914,7 +3940,10 @@ def phase_narrow_card_vs_cpu(host: dict, xg):
 SYNC_TOP_SITES = 8  # sync sites listed per cell, most frequent first
 LOOP_FORM_BEFORE_SYNCS = 1552  # the four cells' update syncs before the solvers'
 # loop form (PERF.md section 5)
-SYNC_MESSAGE = "synchroniz"  # what torch's sync debug mode puts in each warning
+# what torch's sync debug mode puts in each sync's warning; its notice that the
+# mode is a prototype ("... synchronizing operations"), once a process on the
+# first switch to "warn", is no sync
+SYNC_MESSAGE = "called a synchronizing CUDA operation"
 MARK_KERNEL, MARK_CYCLES = "spin_kernel", 1000  # torch.cuda._sleep's kernel marks
 # where the descent starts and ends on the card's timeline
 LAUNCH_CALL = re.compile(r"^cu(da)?Launch\w*Kernel")  # the host's CUDA API
@@ -4056,14 +4085,16 @@ def _solve_trips(coord, results) -> list:
     return out
 
 
-def _syncs_during(fn, syncs=None):
+def _syncs_during(fn, syncs=None, stacks=None):
     """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")`` inside
     ``warnings.catch_warnings(record=True)`` with every warning let through:
     each sync's warning is kept (appended to ``syncs`` as it happens) with
     the port's frames on the stack when it was raised, innermost first, so
     a sync names the Python line that made the card wait and the lines that
-    called it.  The debug mode and the warning filters are restored in a
+    called it; ``stacks``, where given, takes each sync's whole stack as
+    text.  The debug mode and the warning filters are restored in a
     ``finally``.  Returns (its result, the syncs)."""
+    import traceback
     import warnings
 
     import torch
@@ -4073,6 +4104,8 @@ def _syncs_during(fn, syncs=None):
     def shown(message, *args, **kwargs):
         if SYNC_MESSAGE in str(message):
             syncs.append(_port_frames())
+            if stacks is not None:
+                stacks.append("".join(traceback.format_stack(limit=14)[:-1]))
 
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True):
@@ -4745,6 +4778,213 @@ def phase_fused_sweep(stats: dict, host: dict):
     log("phase 26: " + json.dumps(out))
 
 
+# -- phase 27: the validated fused sweep ---------------------------------------
+
+VALIDATED_KERNELS = ("fused_value_and_grad", "newton_step")  # glmix_chip-grid's
+
+
+def _validated_cells(host: dict):
+    """Phase 27's cells: (cell, a function making (training, held-out)
+    GameData, configurations, validation specs, the sweeps their keys
+    make, kernels that must launch)."""
+    from photon_ml_tpu_torch.data.synthetic import chip_design, synth_glmix_sparse
+
+    def grid():
+        xg = chip_design(host["n"], "cuda")
+        train, val = _per_user_split(host, xg)
+        del xg
+        return _part_data(train), _part_data(val)
+
+    return [("glmix_chip_grid", grid, _grid_configs(), GRID_SUITE, GRID_SWEEP_KEYS,
+             VALIDATED_KERNELS),
+            ("glmix_sparse_held_out", lambda: _gs_held_out_split(synth_glmix_sparse(1))[:2],
+             [_glmix_sparse_config()], GS_HELD_OUT_SUITE, 1, ())]
+
+
+def _validated_fit(train, val, configs, suite, fused) -> tuple:
+    """One validated ``GameEstimator.fit`` (``fused`` "auto" or False) with
+    each descent's syncs counted (``_syncs_during`` around
+    ``FusedSweep.run_validated`` or ``CoordinateDescent.run``), the sweeps
+    and plans built, and the kernels' launches; the wrappers are restored
+    in a ``finally``.  Returns (results, counts)."""
+    import torch
+
+    import photon_ml_tpu_torch.game.estimator as est_mod
+    from photon_ml_tpu_torch.game import FusedSweep, GameEstimator
+    from photon_ml_tpu_torch.game.descent import CoordinateDescent
+
+    real_sweep, real_plan = est_mod.FusedSweep, FusedSweep.validation_plan
+    real_validated, real_host = FusedSweep.run_validated, CoordinateDescent.run
+    sweeps, plans, descents = [], [], []
+
+    def counted_sweep(*args, **kwargs):
+        sweeps.append(real_sweep(*args, **kwargs))
+        return sweeps[-1]
+
+    def counted_plan(self, *args, **kwargs):
+        plans.append(real_plan(self, *args, **kwargs))
+        return plans[-1]
+
+    stacks = []
+
+    def counted(real):
+        def run(self, *args, **kwargs):
+            out, syncs = _syncs_during(lambda: real(self, *args, **kwargs), stacks=stacks)
+            descents.append(syncs)
+            return out
+        return run
+
+    est_mod.FusedSweep, FusedSweep.validation_plan = counted_sweep, counted_plan
+    FusedSweep.run_validated = counted(real_validated)
+    CoordinateDescent.run = counted(real_host)
+    try:
+        kernels = _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = GameEstimator(device="cuda", validation_suite=suite, fused=fused).fit(
+            train, configs, validation_data=val)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+    finally:
+        est_mod.FusedSweep, FusedSweep.validation_plan = real_sweep, real_plan
+        FusedSweep.run_validated, CoordinateDescent.run = real_validated, real_host
+    return results, dict(sweeps=len(sweeps), plans=len(plans), descents=descents,
+                         stacks=stacks, launches=launches, fit_s=fit_s,
+                         plan_bytes=[p.device_bytes for p in plans])
+
+
+def _evaluator_file() -> str:
+    import inspect
+    import os
+
+    from photon_ml_tpu_torch.evaluation import evaluator
+
+    return os.path.realpath(inspect.getsourcefile(evaluator))
+
+
+def phase_fused_validated(stats: dict, host: dict):
+    """Phase 27 (module docstring): per cell, the validated fit through
+    ``GameEstimator()`` and ``GameEstimator(fused=False)``, gated; then the
+    first configuration's descent timed both ways on one set of
+    coordinates."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from photon_ml_tpu_torch.evaluation.evaluator import EvaluationSuite
+    from photon_ml_tpu_torch.game import FusedSweep, GameEstimator
+    from photon_ml_tpu_torch.game.descent import CoordinateDescent
+
+    helper = _helper_site()
+    fused_file = str(Path(__file__).resolve().parent / "photon_ml_tpu_torch" / "game" /
+                     "fused.py")
+    evaluator_file = _evaluator_file()
+    dev = torch.device("cuda")
+    out = {}
+    for cell, make, configs, specs, keys, required in _validated_cells(host):
+        t_cell = time.perf_counter()
+        train, val = make()
+        suite = EvaluationSuite.from_specs(specs)
+        fused, fc = _validated_fit(train, val, configs, suite, "auto")
+        _record_launches(f"validated_{cell}", _counted_kernels(), stats, required)
+        host_fit, hc = _validated_fit(train, val, configs, suite, False)
+
+        # gates: every point fused and bitwise the host loop's, the same best
+        # and launches, one plan a sweep, fewer syncs, each a loop read, a
+        # boundary evaluation's or the one export
+        if any(r.history.steps for r in fused) or len(fc["descents"]) != len(configs):
+            raise AssertionError(f"{cell}: not every point ran the validated sweep")
+        for k, (f, h) in enumerate(zip(fused, host_fit)):
+            _fused_equal_host(f"{cell} point {k}", f.model, h.model)
+            if f.evaluation.values != h.evaluation.values:
+                raise AssertionError(f"{cell} point {k}: evaluations {f.evaluation.values} "
+                                     f"!= the host loop's {h.evaluation.values}")
+        est = GameEstimator(device="cuda", validation_suite=suite)
+        pick = (fused.index(est.best(fused)), host_fit.index(est.best(host_fit)))
+        if pick[0] != pick[1]:
+            raise AssertionError(f"{cell}: best point {pick[0]} fused, {pick[1]} host loop")
+        launches = {k: (fc["launches"][k], hc["launches"][k]) for k in FUSED_KERNELS}
+        if any(a != b for a, b in launches.values()):
+            raise AssertionError(f"{cell}: launches (fused, host loop) {launches}")
+        if fc["plans"] != fc["sweeps"] or fc["sweeps"] != keys:
+            raise AssertionError(f"{cell}: {fc['plans']} plans for {fc['sweeps']} sweeps "
+                                 f"({keys} sweep keys)")
+        fused_syncs = [s for d in fc["descents"] for s in d]
+        host_syncs = [s for d in hc["descents"] for s in d]
+        kinds = ["read" if s and s[0] == helper else
+                 "evaluation" if any(f[0] == evaluator_file for f in s) else
+                 "export" if s and s[0][0] == fused_file else "other" for s in fused_syncs]
+        reads, evals, export = (kinds.count(k) for k in ("read", "evaluation", "export"))
+        if "other" in kinds or export != len(configs):
+            others = [fc["stacks"][i] for i, k in enumerate(kinds) if k == "other"]
+            log(f"{cell}: the fused syncs that are no loop read, evaluation or export:\n"
+                + "\n".join(others))
+            raise AssertionError(f"{cell}: fused syncs {len(fused_syncs)}: {reads} loop reads, "
+                                 f"{evals} in evaluations, {export} at the exports, "
+                                 f"{len(others)} others")
+        if len(fused_syncs) >= len(host_syncs):
+            raise AssertionError(f"{cell}: {len(fused_syncs)} fused syncs, the host loop "
+                                 f"{len(host_syncs)}")
+        host_reads = sum(1 for s in host_syncs if s and s[0] == helper)
+
+        # reported: the first configuration's descent on one set of
+        # coordinates, untraced medians of five each, and the card's busy
+        # time of one traced descent each over the untraced median
+        config = configs[0]
+        order, iters = list(config.coordinates), config.num_outer_iterations
+        coords = {cid: est.build_one_coordinate(cid, train, c, config.task)
+                  for cid, c in config.coordinates.items()}
+        sweep = FusedSweep(coords, order, iters)
+        plan = sweep.validation_plan(val, suite)
+        host_run = lambda: CoordinateDescent(coords, order, iters,
+                                             validation=(val, suite)).run(dev)
+        fused_run = lambda: sweep.run_validated(plan)
+        seconds = {"host": [], "fused": []}
+        for side in FUSED_TIMING_ORDER:
+            run = host_run if side == "host" else fused_run
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            seconds[side].append(time.perf_counter() - t0)
+        median = {side: statistics.median(v) for side, v in seconds.items()}
+        busy = {"host": _profiled_busy(host_run), "fused": _profiled_busy(fused_run)}
+        idle = {side: 1.0 - b["busy_ms"] / (median[side] * 1e3) for side, b in busy.items()}
+        row = dict(points=len(configs), rows=dict(train=train.num_samples,
+                                                  held_out=val.num_samples),
+                   syncs=dict(host=len(host_syncs), fused=len(fused_syncs),
+                              host_loop_reads=host_reads, fused_loop_reads=reads,
+                              fused_evaluations=evals, fused_exports=export),
+                   launches=launches, sweeps=fc["sweeps"], plans=fc["plans"],
+                   plan_device_bytes=fc["plan_bytes"], best=pick[0],
+                   held_out=[r.evaluation.values for r in fused],
+                   fit_s=dict(fused=fc["fit_s"], host=hc["fit_s"]), seconds=seconds,
+                   median_s=median, busy=busy, idle_untraced=idle,
+                   cell_s=time.perf_counter() - t_cell)
+        out[cell] = row
+        log(f"{cell}: {len(configs)} validated points through GameEstimator() bitwise the "
+            f"host loop's (coefficients, every evaluation, best point {pick[0]}); launches "
+            f"(fused, host) {launches}; {fc['sweeps']} sweeps, {fc['plans']} plans holding "
+            f"{[b / 1e6 for b in fc['plan_bytes']]} MB on the card; syncs {len(fused_syncs)} "
+            f"fused ({reads} loop reads + {evals} in evaluations + {export} exports) against "
+            f"{len(host_syncs)} in the host loop ({host_reads} loop reads); fits "
+            f"{fc['fit_s']:.2f} s fused, {hc['fit_s']:.2f} s host, construction included; "
+            f"point 0's descent median of 5 {median['host'] * 1e3:.1f} ms host, "
+            f"{median['fused'] * 1e3:.1f} ms fused ({median['fused'] / median['host']:.3f}x); "
+            f"untraced idle share host {idle['host']:.4f}, fused {idle['fused']:.4f} (device "
+            f"busy {busy['host']['busy_ms']:.1f} / {busy['fused']['busy_ms']:.1f} ms in traced "
+            f"descents of {busy['host']['wall_ms']:.1f} / {busy['fused']['wall_ms']:.1f} ms); "
+            f"{row['cell_s']:.1f} s")
+        if not np.isfinite([v for r in fused for v in r.evaluation.values.values()]).all():
+            raise AssertionError(f"{cell}: an evaluation is not finite")
+        del train, val, coords, sweep, plan, fused, host_fit
+        torch.cuda.empty_cache()
+    stats["fused_validated"] = out
+    log("phase 27: " + json.dumps(out))
+
+
 KERNELS = {
     "fused_value_and_grad": dict(
         source="photon_ml_tpu_torch/csrc/fused_glm.cu",
@@ -5054,6 +5294,8 @@ def main() -> int:
         phase_sync_counts(stats, host)
     with Phase("26 fused sweep"):
         phase_fused_sweep(stats, host)
+    with Phase("27 validated fused sweep"):
+        phase_fused_validated(stats, host)
     del host
     with Phase("14 kernels"):
         checked = stats.get("lbfgs_solves_checked", {})

@@ -83,7 +83,12 @@ runs: the same solve as ``update`` on the same offsets and weights
 the device and nothing copied to the host, so that a fused descent is
 bitwise the host loop's.  Publishing, the compact variances and the FULL
 variances' Cholesky read nothing on the host either (sink rows and columns
-in place of boolean masks; ``cholesky_ex``).
+in place of boolean masks; ``cholesky_ex``).  A validated sweep
+(``FusedSweep.run_validated``) scores held-out data through
+``external_data`` (uploaded once), ``trace_score_external`` and
+``carry_through_scores_on``, which compute what the exported model's
+``score`` computes, with the same functions at the same dtype, so that its
+evaluations are bitwise the host loop's.
 
 The RANDOM projector, which the port does not carry yet, raises
 NotImplementedError naming the ROADMAP item that brings it.
@@ -98,7 +103,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.core.batch import DenseBatch, SparseBatch, narrow
+from photon_ml_tpu_torch.core.batch import DenseBatch, SparseBatch, narrow, widened_mv
 from photon_ml_tpu_torch.core.losses import loss_for_task
 from photon_ml_tpu_torch.core.normalization import NormalizationContext, no_normalization
 from photon_ml_tpu_torch.core.objective import GLMObjective, LaneObjective
@@ -107,8 +112,9 @@ from photon_ml_tpu_torch.game.config import (CoordinateConfig, FixedEffectConfig
                                              RandomEffectConfig, storage_torch_dtype)
 from photon_ml_tpu_torch.game.data import GameData, SparseShard
 from photon_ml_tpu_torch.models.game import (DatumScoringModel, FixedEffectModel,
-                                             RandomEffectModel, cached_device_copies,
-                                             dense_random_effect, seed_device_copies)
+                                             RandomEffectModel, _dense_shard, _sparse_shard,
+                                             cached_device_copies, dense_random_effect,
+                                             seed_device_copies)
 from photon_ml_tpu_torch.models.glm import Coefficients
 from photon_ml_tpu_torch.ops.fused_glm import storage_narrowing_ok
 from photon_ml_tpu_torch.opt.constraints import box_arrays
@@ -297,6 +303,35 @@ class Coordinate:
         untrained (``merge_carry_through``), None where nothing is carried."""
         return None
 
+    # -- external scoring: the held-out margins of a validated sweep
+    # (``FusedSweep.run_validated``).  A coordinate without it inherits these
+    # refusals, and the estimator runs the host loop for its validated fits
+
+    def external_data(self, data: GameData):
+        """``data``'s inputs for scoring this coordinate's published
+        coefficients (``trace_score_external``), on the device once."""
+        raise NotImplementedError
+
+    def trace_score_external(self, published: Tensor, vdata) -> Tensor:
+        """This coordinate's raw score of every sample of ``external_data``
+        from ``published`` (``trace_publish``), computed as the exported
+        model's ``score`` computes it."""
+        raise NotImplementedError
+
+    def carry_through_scores_on(self, init: Optional[DatumScoringModel],
+                                data: GameData) -> Optional[Tensor]:
+        """``carry_through_scores`` on the samples of ``data``: the scores of
+        the warm start's part that an update passes through, None where
+        nothing is carried."""
+        return None
+
+    def score_external(self, model: DatumScoringModel, vdata, data: GameData) -> Tensor:
+        """``model.score(data)`` on this coordinate's device, from the model's
+        device copy and ``vdata`` (``external_data(data)``) where the model
+        is laid out as this coordinate publishes, so that nothing crosses to
+        the device."""
+        return model.score(data, self.base_offset().device)
+
     def data_key(self) -> tuple:
         """The identity of the device data an update reads."""
         raise NotImplementedError
@@ -482,6 +517,30 @@ class FixedEffectCoordinate(Coordinate):
         return FixedEffectModel(coefficients=Coefficients(means=published),
                                 feature_shard=self.config.feature_shard, task=self.task)
 
+    # -- external scoring, as ``FixedEffectModel.score`` scores: the design at
+    # its own dtype (the reference uploads it at the compute dtype)
+
+    def external_data(self, data: GameData):
+        shard = data.features[self.config.feature_shard]
+        if isinstance(shard, SparseShard):
+            idx, vals = _sparse_shard(shard, self._device)
+            return {"x_idx": idx.long(), "x_val": vals}
+        return {"x": _dense_shard(data, self.config.feature_shard, self._device)}
+
+    def trace_score_external(self, published: Tensor, vdata) -> Tensor:
+        if "x" in vdata:
+            return widened_mv(vdata["x"], published)
+        vals = vdata["x_val"]
+        dt = torch.promote_types(published.dtype, vals.dtype)
+        return (vals.to(dt) * published.to(dt)[vdata["x_idx"]]).sum(dim=-1)
+
+    def score_external(self, model: FixedEffectModel, vdata, data: GameData) -> Tensor:
+        if (not isinstance(model, FixedEffectModel)
+                or model.feature_shard != self.config.feature_shard):
+            return super().score_external(model, vdata, data)
+        (w,) = cached_device_copies(model, self._device, model.coefficients.means)
+        return self.trace_score_external(w, vdata)
+
     def data_key(self) -> tuple:
         return "fixed", id(self._batch), id(self.norm_source)
 
@@ -655,9 +714,10 @@ class RandomEffectCoordinate(Coordinate):
         # multiplier (1 for padding lanes)
         mult = dict(config.per_entity_l2_multipliers or ())
         np_dtype = _numpy_dtype(self._dtype)
-        self._l2 = [config.reg.l2 * torch.as_tensor(
+        # uploaded without a wait: a sweep rebinds to each grid point's L2
+        self._l2 = [config.reg.l2 * _upload_without_wait(
             np.asarray([mult.get(int(e), 1.0) for e in b.entity_lanes], np_dtype),
-            device=self._device) for b in self.buckets.buckets]
+            self._device) for b in self.buckets.buckets]
 
     def rebind(self, config: RandomEffectConfig) -> "RandomEffectCoordinate":
         """A shallow copy over the same device buckets under ``config``'s
@@ -924,6 +984,52 @@ class RandomEffectCoordinate(Coordinate):
                          slots_from(init.slot_of, self._entity_ids), -1)
         (w,) = cached_device_copies(init, self._device, init.w_stack)
         return self._score_stack(w.to(self._dtype), torch.as_tensor(slots, device=self._device))
+
+    # -- external scoring, as ``RandomEffectModel.score`` scores: the design at
+    # its own dtype (the reference uploads it at the compute dtype); entities
+    # this coordinate does not train take slot -1 and score 0
+
+    def external_data(self, data: GameData):
+        shard = data.features[self.config.feature_shard]
+        ids = np.asarray(data.id_tags[self.config.random_effect_type], np.int64)
+        out = {"slots": torch.as_tensor(slots_from(self._slot_of, ids), device=self._device)}
+        if isinstance(shard, SparseShard):
+            out["x_idx"], out["x_val"] = _sparse_shard(shard, self._device)
+        else:
+            out["x"] = _dense_shard(data, self.config.feature_shard, self._device)
+        return out
+
+    def trace_score_external(self, published: Tensor, vdata) -> Tensor:
+        if "x" in vdata:
+            x = vdata["x"]
+            dt = torch.promote_types(x.dtype, published.dtype)
+            return score_samples(published.to(dt), vdata["slots"], x.to(dt))
+        return score_samples_sparse(published, vdata["slots"], vdata["x_idx"],
+                                    vdata["x_val"].to(published.dtype))
+
+    def carry_through_scores_on(self, init: Optional[RandomEffectModel],
+                                data: GameData) -> Optional[Tensor]:
+        """The carried rows as ``merge_carry_through`` publishes them (at the
+        published dtype), scored by ``RandomEffectModel.score``: on each
+        sample exactly one of this and the trained score is nonzero."""
+        if init is None:
+            return None
+        init = dense_random_effect(init)
+        carried = sorted(eid for eid in init.slot_of if eid not in self._slot_of)
+        if not carried:
+            return None
+        rows = np.stack([init.w_stack[init.slot_of[eid]] for eid in carried]
+                        ).astype(_numpy_dtype(self._dtype))
+        model = dataclasses.replace(init, w_stack=rows, variances=None,
+                                    slot_of={eid: i for i, eid in enumerate(carried)})
+        return model.score(data, self._device)
+
+    def score_external(self, model: RandomEffectModel, vdata, data: GameData) -> Tensor:
+        if (not isinstance(model, RandomEffectModel) or model.slot_of != self._slot_of
+                or model.feature_shard != self.config.feature_shard):
+            return super().score_external(model, vdata, data)
+        (w,) = cached_device_copies(model, self._device, model.w_stack)
+        return self.trace_score_external(w, vdata)
 
     def data_key(self) -> tuple:
         return "random", id(self.buckets), id(self.norm_source)

@@ -3,16 +3,20 @@
 Port of photon_ml_tpu/game/estimator.py: build the coordinates on the
 device once, run coordinate descent per configuration, and warm-start each
 configuration from the previous one's model.  ``fused`` picks the descent
-as the reference does (``photon_ml_tpu/game/estimator.py:160-215``): by
+as the reference does (``photon_ml_tpu/game/estimator.py:146-215``): by
 default (``"auto"``) a configuration with no per-update host work (no
-checkpoint hook, locked coordinate, resume or validation suite) runs as
-one ``game/fused.FusedSweep`` whose result carries an empty
-``DescentHistory``, and one that has such work runs the host-paced
-``CoordinateDescent``; ``False`` always runs the host loop, and ``True``
-requires the sweep (ValueError on per-update host work; a validation suite,
-whose fused form is ROADMAP item 8(d), NotImplementedError).  Consecutive
+checkpoint hook, locked coordinate or resume) runs as one
+``game/fused.FusedSweep`` (``run``, or ``run_validated`` with a validation
+suite) whose result carries an empty ``DescentHistory``, and one that has
+such work runs the host-paced ``CoordinateDescent``; ``False`` always runs
+the host loop, and ``True`` requires the sweep (ValueError on per-update
+host work).  As in the reference, a sweep that raises NotImplementedError
+(a validated fit with variances, a coordinate without the sweep or the
+external-scoring interface) runs the host loop instead, except under
+``True`` without a suite, which raises.  Consecutive
 configurations whose coordinates differ only in regularization values
-reuse one sweep (``Coordinate.sweep_key``); one that crosses the L1 regime
+reuse one sweep (``Coordinate.sweep_key``), and its ``ValidationPlan`` while
+the held-out data is the same object; one that crosses the L1 regime
 builds another.  Over a grid of
 configurations each coordinate's device data is built once: a later
 configuration that changes only optimization settings rebinds the previous
@@ -42,7 +46,7 @@ from photon_ml_tpu_torch.game.config import GameConfig
 from photon_ml_tpu_torch.game.coordinate import Coordinate, build_coordinate
 from photon_ml_tpu_torch.game.data import GameData
 from photon_ml_tpu_torch.game.descent import CoordinateDescent, DescentHistory
-from photon_ml_tpu_torch.game.fused import PART_D_REFUSAL, FusedSweep
+from photon_ml_tpu_torch.game.fused import FusedSweep
 from photon_ml_tpu_torch.game.scoring import raw_scores
 from photon_ml_tpu_torch.models.game import GameModel
 from photon_ml_tpu_torch.types import TaskType
@@ -124,6 +128,7 @@ class GameEstimator:
         tracking of the configuration resumed."""
         results: List[GameFitResult] = []
         prev_sweep = None  # (sweep key, FusedSweep)
+        prev_plan = None  # (sweep, validation data, ValidationPlan)
         warm = initial_model
         # only a warm start feeds the lower bound: on a resume, initial_model
         # is the checkpoint, and an under-bound entity that the run left out
@@ -157,27 +162,43 @@ class GameEstimator:
             # per-update host work keeps the host-paced loop
             fused_ok = (self.fused is not False and checkpoint_hook is None
                         and not locked_coordinates and resume_cursor is None)
-            if fused_ok and validation is not None:
-                if self.fused is True:
-                    raise NotImplementedError("GameEstimator(fused=True) with a validation "
-                                              "suite " + PART_D_REFUSAL)
-                fused_ok = False
             if fused_ok:
-                # regularization values are a run's inputs: a λ grid over the
-                # same data and solvers reuses one sweep
-                key = (tuple((cid, coordinates[cid].sweep_key()) for cid in config.coordinates),
-                       config.num_outer_iterations)
-                if prev_sweep is None or prev_sweep[0] != key:
-                    prev_sweep = (key, FusedSweep(coordinates, order=list(config.coordinates),
-                                                  num_iterations=config.num_outer_iterations))
-                model, _ = prev_sweep[1].run(
-                    initial=warm, regs=[coordinates[cid].config.reg
-                                        for cid in config.coordinates], seed=seed)
-                results.append(GameFitResult(model=model, config=config, evaluation=None,
-                                             history=DescentHistory()))
-                warm = model
-                continue
-            if self.fused is True:
+                fitted = None
+                try:
+                    # regularization values are a run's inputs: a λ grid over
+                    # the same data and solvers reuses one sweep
+                    key = (tuple((cid, coordinates[cid].sweep_key())
+                                 for cid in config.coordinates), config.num_outer_iterations)
+                    if prev_sweep is None or prev_sweep[0] != key:
+                        prev_sweep = (key, FusedSweep(
+                            coordinates, order=list(config.coordinates),
+                            num_iterations=config.num_outer_iterations))
+                    sweep = prev_sweep[1]
+                    regs = [coordinates[cid].config.reg for cid in config.coordinates]
+                    if validation is None:
+                        model, _ = sweep.run(initial=warm, regs=regs, seed=seed)
+                        fitted = (model, None)
+                    else:
+                        # the held-out inputs go to the device once a sweep
+                        if (prev_plan is None or prev_plan[0] is not sweep
+                                or prev_plan[1] is not validation_data):
+                            prev_plan = (sweep, validation_data, sweep.validation_plan(
+                                validation_data, self.validation_suite))
+                        model, _, best_ev, _ = sweep.run_validated(
+                            prev_plan[2], initial=warm, regs=regs, seed=seed)
+                        fitted = (model, best_ev)
+                except NotImplementedError:
+                    # a validated fit with variances, or a coordinate without
+                    # the sweep or external-scoring interface: the host loop
+                    if self.fused is True and validation is None:
+                        raise
+                if fitted is not None:
+                    model, ev = fitted
+                    results.append(GameFitResult(model=model, config=config, evaluation=ev,
+                                                 history=DescentHistory()))
+                    warm = model
+                    continue
+            elif self.fused is True:
                 raise ValueError("fused=True needs a fit with no per-update host work "
                                  "(no checkpoint hook, locked coordinates, or resume)")
             descent = CoordinateDescent(coordinates, order=list(config.coordinates),

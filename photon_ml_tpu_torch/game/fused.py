@@ -42,8 +42,21 @@ tensors on the device (the reference returns numpy arrays).  A λ grid
 reuses one sweep through ``regs``: the coordinates are rebound to each
 point's regularization (``Coordinate.rebind``) over the same device data,
 and the solvers' graphs, captured per shape, are replayed, not captured
-again.  The validated and grid forms (``run_validated``, ``run_grid``,
-``run_snapshots``, ``run_grid_snapshots``) are ROADMAP item 8, part (d).
+again.
+
+``run_snapshots`` publishes the model after every outer iteration, and
+``run_validated`` runs a fit with a validation suite: after each update it
+rescores that coordinate's held-out margin from its published coefficients
+on the device (``ValidationPlan``: the held-out inputs, uploaded once) and
+records the held-out mean loss; after the sweep the host evaluates the
+suite at each iteration's end and keeps the best model by the host loop's
+strict-improvement rule.  Its evaluations are bitwise the host loop's: each
+held-out score is what the exported model's ``score`` computes, summed from
+zero in the order of the host loop's ``GameModel`` as
+``game/scoring.raw_scores`` sums it.  The reference keeps a running
+held-out total instead (``vtotal - vscores[i] + vm``), whose float64
+rounding differs.  The grid forms (``run_grid``, ``run_grid_snapshots``)
+are ROADMAP item 8, part (f).
 """
 
 from __future__ import annotations
@@ -54,8 +67,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.core.losses import loss_for_task
+from photon_ml_tpu_torch.evaluation.evaluator import EvaluationResults, EvaluationSuite
 from photon_ml_tpu_torch.game.coordinate import (Coordinate, _upload_without_wait,
                                                  merge_carry_through)
+from photon_ml_tpu_torch.game.data import GameData
+from photon_ml_tpu_torch.game.scoring import additive_total
 from photon_ml_tpu_torch.models.game import (FixedEffectModel, GameModel, dense_random_effect,
                                              seed_device_copies)
 from photon_ml_tpu_torch.models.glm import Coefficients
@@ -63,8 +80,8 @@ from photon_ml_tpu_torch.types import VarianceComputationType
 
 Tensor = torch.Tensor
 
-PART_D_REFUSAL = ("is not ported yet (ROADMAP.md 'Modules still to port', item 8, part "
-                  "(d): the validated and grid forms of FusedSweep)")
+PART_F_REFUSAL = ("is not ported yet (ROADMAP.md 'Modules still to port', item 8, part "
+                  "(f): the grid forms of FusedSweep)")
 
 
 class FusedSweep:
@@ -112,12 +129,15 @@ class FusedSweep:
         return out
 
     def _sweep_iteration(self, coords: List[Coordinate], states: list, scores: list,
-                         total: Tensor, it: int, keys: list, carried: dict):
+                         total: Tensor, it: int, keys: list, carried: dict,
+                         on_update=None):
         """One outer iteration's coordinate loop, the descent's one
         definition (CoordinateDescent.scala:197-204): each coordinate
         trains against the residual of the others folded into its offsets,
         and the total takes its new score.  Returns (states, scores, total,
-        offsets): offsets[i] is what coordinate i solved against."""
+        offsets): offsets[i] is what coordinate i solved against.
+        ``on_update(i, state)`` runs after coordinate i's update (the
+        validated sweep's held-out bookkeeping)."""
         offsets = []
         for i, cid in enumerate(self.order):
             partial = total - scores[i]
@@ -128,6 +148,8 @@ class FusedSweep:
             scores[i] = new_score.double()
             total = partial + new_score
             offsets.append(offs)
+            if on_update is not None:
+                on_update(i, states[i])
         return states, scores, total, offsets
 
     def _init_carry(self, initial: Optional[GameModel]):
@@ -167,17 +189,23 @@ class FusedSweep:
                 self._device))
         return out
 
+    def _start(self, initial: Optional[GameModel], regs: Optional[Sequence], seed: int,
+               carry0):
+        """(coordinates, states, scores, total, carried scores, draws) at a
+        descent's start."""
+        coords = self._bound(regs)
+        states, scores, total = carry0 if carry0 is not None else self.init_carry(initial)
+        _, carried = self._base_with_carry_through(initial)
+        return coords, list(states), list(scores), total, carried, self._draws(seed)
+
     def run_device(self, initial: Optional[GameModel] = None,
                    regs: Optional[Sequence] = None, seed: int = 0, carry0=None):
         """One descent, its outputs on the device: (published coefficients,
         float64 scores and variances (None where not computed), one each per
         coordinate in order, and the carried scores by coordinate).  Nothing
         is brought to the host."""
-        coords = self._bound(regs)
-        states, scores, total = carry0 if carry0 is not None else self.init_carry(initial)
-        states, scores = list(states), list(scores)
-        _, carried = self._base_with_carry_through(initial)
-        keys = self._draws(seed)
+        coords, states, scores, total, carried, keys = self._start(initial, regs, seed,
+                                                                   carry0)
         variances: List[Optional[Tensor]] = [None] * len(self.order)
         for it in range(self.num_iterations):
             states, scores, total, offsets = self._sweep_iteration(
@@ -201,25 +229,29 @@ class FusedSweep:
         ``initial``'s.  The published coefficients and variances come to
         the host in one copy."""
         published, scores, variances, _ = self.run_device(initial, regs, seed, carry0)
-        parts = published + [v for v in variances if v is not None]
-        flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
-        host, at = [], 0
-        for p in parts:
-            host.append(flat[at:at + p.numel()].reshape(p.shape))
-            at += p.numel()
+        host = _to_host(published + [v for v in variances if v is not None])
+        host_vars = iter(host[len(published):])
+        model = self._export(published, host, initial, self.order,
+                             [next(host_vars) if v is not None else None for v in variances])
+        return model, {cid: scores[i] for i, cid in enumerate(self.order)}
+
+    def _export(self, published: List[Tensor], host: List[np.ndarray],
+                initial: Optional[GameModel], order: Sequence[str],
+                variances: Optional[list] = None) -> GameModel:
+        """The GameModel of one publication: each coordinate's host array
+        exported (its device copy kept for scoring), the variances
+        attached, the warm start's carried entities merged, the models in
+        ``order``."""
         models = {cid: self.coordinates[cid].export_model(host[i])
                   for i, cid in enumerate(self.order)}
-        host_vars = iter(host[len(published):])
-        models = self._attach_variances(
-            models, [next(host_vars) if v is not None else None for v in variances])
+        if variances is not None:
+            models = self._attach_variances(models, variances)
         for i, cid in enumerate(self.order):
-            # the published arrays keep their device copies for scoring
             m = models[cid]
             arr = m.coefficients.means if isinstance(m, FixedEffectModel) else m.w_stack
             seed_device_copies(m, (arr,), (published[i],))
         models = self._merge_carry_through(models, initial)
-        return (GameModel(models=models),
-                {cid: scores[i] for i, cid in enumerate(self.order)})
+        return GameModel(models={cid: models[cid] for cid in order})
 
     def _base_with_carry_through(self, initial: Optional[GameModel]):
         """(the base offsets [n], float64, and per coordinate the scores of
@@ -266,17 +298,162 @@ class FusedSweep:
                 out[cid] = dataclasses.replace(m, variances=v)
         return out
 
-    def run_snapshots(self, *args, **kwargs):
-        raise NotImplementedError("FusedSweep.run_snapshots " + PART_D_REFUSAL)
+    # -- the validated form and the snapshots
+
+    def validation_plan(self, data: GameData, suite: EvaluationSuite) -> "ValidationPlan":
+        """The held-out inputs of ``run_validated`` for ``data`` and
+        ``suite``, built once; NotImplementedError for a coordinate without
+        external scoring (the estimator then runs the host loop)."""
+        return ValidationPlan(self, data, suite)
+
+    def _host_order(self, initial: Optional[GameModel]) -> List[str]:
+        """The order of the host loop's GameModel: the warm-started
+        coordinates as the coordinates are given, then the others as they
+        are first updated."""
+        first = [cid for cid in self.coordinates if initial is not None and cid in initial]
+        return first + [cid for cid in self.order if cid not in first]
+
+    def run_snapshots(self, initial: Optional[GameModel] = None,
+                      regs: Optional[Sequence] = None, seed: int = 0,
+                      carry0=None) -> List[GameModel]:
+        """One descent, the full model after every outer iteration: snapshot
+        t is the host loop's fit of t + 1 iterations.  Every published array
+        comes to the host in one copy at the end."""
+        if any(self._needs_var):
+            raise NotImplementedError(
+                "run_snapshots does not compute coefficient variances; use "
+                "run() (final model only) or the host CoordinateDescent")
+        coords, states, scores, total, carried, keys = self._start(initial, regs, seed,
+                                                                   carry0)
+        pubs = []
+        for it in range(self.num_iterations):
+            states, scores, total, _ = self._sweep_iteration(coords, states, scores, total,
+                                                             it, keys, carried)
+            pubs.append([coords[i].trace_publish(st) for i, st in enumerate(states)])
+        host = _to_host([p for ps in pubs for p in ps])
+        c, order = len(self.order), self._host_order(initial)
+        return [self._export(ps, host[t * c:(t + 1) * c], initial, order)
+                for t, ps in enumerate(pubs)]
+
+    def run_validated(self, plan: "ValidationPlan", initial: Optional[GameModel] = None,
+                      regs: Optional[Sequence] = None, seed: int = 0, carry0=None
+                      ) -> Tuple[GameModel, List[EvaluationResults],
+                                 Optional[EvaluationResults], Tensor]:
+        """One descent with the validation suite of ``plan``: (the best
+        model, the evaluation at each outer iteration's end, the best's
+        evaluation, the held-out mean losses [T, C]).
+
+        After every update the coordinate's held-out margin is rescored from
+        its published coefficients and the weighted held-out mean loss
+        recorded, on the device; ``losses`` is a float64 tensor there (the
+        reference returns numpy).  After the sweep the suite evaluates each
+        iteration's end and the best is kept by the host loop's
+        strict-improvement rule in iteration order; only its model comes to
+        the host, in one copy.  Variances are refused, as the reference
+        refuses them (the estimator then runs the host loop)."""
+        if any(self._needs_var):
+            raise NotImplementedError(
+                "run_validated does not compute coefficient variances; use "
+                "the host CoordinateDescent for variance-computing validated "
+                "fits")
+        coords, states, scores, total, carried, keys = self._start(initial, regs, seed,
+                                                                   carry0)
+        margins, carried_on = plan.initial_state(initial)
+        order = self._host_order(initial)
+        at = [self.order.index(cid) for cid in order]
+        losses, ends, pubs = [], [], []
+
+        def on_update(i, state):
+            m = coords[i].trace_score_external(coords[i].trace_publish(state), plan.datas[i])
+            if carried_on[i] is not None:  # one side of each sample's sum is 0
+                m = m + carried_on[i]
+            margins[i] = m
+            losses.append(plan.mean_loss(plan.raw([margins[j] for j in at])))
+
+        for it in range(self.num_iterations):
+            states, scores, total, _ = self._sweep_iteration(
+                coords, states, scores, total, it, keys, carried, on_update=on_update)
+            ends.append([margins[j] for j in at])
+            pubs.append([coords[i].trace_publish(st) for i, st in enumerate(states)])
+        evals, best_t, best_ev = [], 0, None
+        for t, end in enumerate(ends):
+            ev = plan.suite.evaluate(plan.raw(end), plan.data.y, plan.data.weight,
+                                     group_ids=plan.data.id_tags)
+            evals.append(ev)
+            if plan.suite.better_than(ev, best_ev):
+                best_ev, best_t = ev, t
+        model = self._export(pubs[best_t], _to_host(pubs[best_t]), initial, order)
+        return (model, evals, best_ev,
+                torch.stack(losses).reshape(self.num_iterations, len(self.order)))
 
     def run_grid(self, *args, **kwargs):
-        raise NotImplementedError("FusedSweep.run_grid " + PART_D_REFUSAL)
+        raise NotImplementedError("FusedSweep.run_grid " + PART_F_REFUSAL)
 
     def run_grid_snapshots(self, *args, **kwargs):
-        raise NotImplementedError("FusedSweep.run_grid_snapshots " + PART_D_REFUSAL)
+        raise NotImplementedError("FusedSweep.run_grid_snapshots " + PART_F_REFUSAL)
 
-    def run_validated(self, *args, **kwargs):
-        raise NotImplementedError("FusedSweep.run_validated " + PART_D_REFUSAL)
 
-    def validation_plan(self, *args, **kwargs):
-        raise NotImplementedError("FusedSweep.validation_plan " + PART_D_REFUSAL)
+def _to_host(tensors: List[Tensor]) -> List[np.ndarray]:
+    """Tensors of one dtype on the host, in one copy, each its own array."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(t.shape))
+        at += t.numel()
+    return out
+
+
+class ValidationPlan:
+    """The held-out inputs of ``FusedSweep.run_validated``, built once per
+    (sweep, held-out data, suite): each coordinate's ``external_data`` on
+    the device, the offsets, labels and weights there, and the data and
+    suite that the host evaluation reads."""
+
+    def __init__(self, sweep: FusedSweep, data: GameData, suite: EvaluationSuite):
+        self.sweep, self.data, self.suite = sweep, data, suite
+        self.n = data.num_samples
+        dev = sweep._device
+        # NotImplementedError for a coordinate without external scoring
+        self.datas = [sweep.coordinates[cid].external_data(data) for cid in sweep.order]
+        self.loss = loss_for_task(sweep.coordinates[sweep.order[0]].task)
+        # the offsets as raw_scores adds them; labels and weights in float64
+        self.offset = torch.as_tensor(data.offset, device=dev)
+        self.y = torch.as_tensor(np.asarray(data.y), dtype=torch.float64, device=dev)
+        self.weight = torch.as_tensor(np.asarray(data.weight), dtype=torch.float64,
+                                      device=dev)
+        self.weight_sum = torch.clamp(self.weight.sum(), min=1e-30)
+
+    @property
+    def device_bytes(self) -> int:
+        """The bytes the plan holds on the device (tensors it shares with
+        the data included)."""
+        tensors = [self.offset, self.y, self.weight]
+        tensors += [t for d in self.datas for t in d.values()]
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def initial_state(self, initial: Optional[GameModel]):
+        """(each coordinate's held-out margin at the start: the warm start's
+        score, None where it has none; each coordinate's carried scores on
+        the held-out rows, or None), in the sweep's order."""
+        margins, carried = [], []
+        for cid, vdata in zip(self.sweep.order, self.datas):
+            coord = self.sweep.coordinates[cid]
+            init = initial[cid] if initial is not None and cid in initial else None
+            margins.append(None if init is None else coord.score_external(init, vdata,
+                                                                          self.data))
+            carried.append(coord.carry_through_scores_on(init, self.data))
+        return margins, carried
+
+    def raw(self, margins: Sequence[Optional[Tensor]]) -> Tensor:
+        """The held-out raw scores of ``margins`` (in the host loop's model
+        order; None for a coordinate not yet in its model), composed as
+        ``game/scoring.raw_scores`` composes them."""
+        total = additive_total(self.n, (m for m in margins if m is not None),
+                               device=self.offset.device)
+        return total + self.offset
+
+    def mean_loss(self, raw: Tensor) -> Tensor:
+        """The weighted held-out mean loss of ``raw``, a 0-d float64 tensor."""
+        return (self.weight * self.loss.loss(raw, self.y)).sum() / self.weight_sum

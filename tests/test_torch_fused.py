@@ -10,8 +10,9 @@ JAX package, on the CPU.
   coordinates, cold and warm started; variances; λ grids (one sweep reused
   per regime, another at the L1 switch, each point's λ in its variances);
   down-sampling (bitwise the host loop's draws; against the reference's
-  fused fit by the reference's own statistic); the dispatch's refusals;
-  and no design among the solvers' replayed arguments.
+  fused fit by the reference's own statistic); the dispatch's refusals
+  (the validated form is tests/test_torch_fused_validated.py's); and no
+  design among the solvers' replayed arguments.
 
 Everything runs in float64 on numpy inputs drawn from a seed, with the
 solvers run to the float64 plateau (tolerance 1e-14), as
@@ -378,9 +379,9 @@ def test_fused_down_sampling(data):
 
 def test_dispatch_refusals(data):
     """``fused=True`` with per-update host work raises the reference's
-    ValueError; with a validation suite, NotImplementedError naming item
-    8(d), while ``"auto"`` runs the host loop there; the default is
-    ``"auto"``."""
+    ValueError; with a validation suite, ``fused=True`` and ``"auto"`` run
+    the validated sweep (an empty history, the evaluation the host loop's);
+    the default is ``"auto"``."""
     config = _config(False, "soa", iters=1)
     gd = _game_data(data, False)
     est = GameEstimator(device="cpu", dtype=torch.float64, fused=True)
@@ -390,30 +391,30 @@ def test_dispatch_refusals(data):
         est.fit(gd, [config], initial_model=_prior(data, "u"),
                 locked_coordinates={"fixed"})
     suite = TSuite.from_specs(["auc"])
-    with pytest.raises(NotImplementedError) as err:
-        GameEstimator(device="cpu", dtype=torch.float64, fused=True,
-                      validation_suite=suite).fit(gd, [config], validation_data=gd)
-    assert "item 8, part (d)" in str(err.value)
     assert GameEstimator(device="cpu").fused == "auto"
-    (r,) = GameEstimator(device="cpu", dtype=torch.float64, validation_suite=suite).fit(
-        gd, [config], validation_data=gd)
-    assert len(r.history.steps) == 2 and r.evaluation is not None
+    (host,) = GameEstimator(device="cpu", dtype=torch.float64, fused=False,
+                            validation_suite=suite).fit(gd, [config], validation_data=gd)
+    assert len(host.history.steps) == 2
+    for fused in (True, "auto"):
+        (r,) = GameEstimator(device="cpu", dtype=torch.float64, fused=fused,
+                             validation_suite=suite).fit(gd, [config], validation_data=gd)
+        assert r.history.steps == [] and r.evaluation.values == host.evaluation.values
+        _assert_bitwise(r.model, host.model)
     assert est.fit(gd, [config])[0].history.steps == []
 
 
 def test_sweep_refusals(data):
-    """An order that is not the ids, and the forms of item 8(d)."""
+    """An order that is not the ids, and the grid forms, item 8(f)."""
     coords = _coords(data, _config(False, "soa", iters=1))
     with pytest.raises(ValueError):
         FusedSweep(coords, order=["fixed", "fixed"])
     with pytest.raises(ValueError):
         FusedSweep({})
     sweep = FusedSweep(coords)
-    for name in ("run_snapshots", "run_grid", "run_grid_snapshots", "run_validated",
-                 "validation_plan"):
+    for name in ("run_grid", "run_grid_snapshots"):
         with pytest.raises(NotImplementedError) as err:
             getattr(sweep, name)()
-        assert "item 8, part (d)" in str(err.value), name
+        assert "item 8, part (f)" in str(err.value), name
 
 
 @pytest.mark.parametrize("path", ["soa", "lanes", "tron", "owlqn"])
