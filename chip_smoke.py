@@ -254,7 +254,35 @@ Phases, each printing its result and wall time on its own line:
     first point's descent seconds both ways on one set of coordinates
     (untraced, the median of five each, interleaved) and the card's idle
     share over them, read as phase 26 reads it;
-14. printed last, after phases 15-18 and 24-27: one JSON line describing each
+28. after phase 27, the RANDOM projector (a per-user coordinate solved in
+    the span of one shared Gaussian matrix): glmix2-random (glmix2 at full
+    width, the per-user coordinate RANDOM at projected_dim 8 on lanes, the
+    fixed effect's L-BFGS on ``fused_value_and_grad``),
+    glmix_sparse-norm-random (glmix_sparse-norm-en's rows at full width, the
+    per-user shard standardized, RANDOM at projected_dim 16 with the
+    intercept's pass-through slot: solve width 17; up to RANDOM_GSN_ITERS
+    L-BFGS iterations; the fixed effect's sparse TRON) and the SoA branch
+    (glmix2 at scale 8, cap 32, projected_dim 7: ``newton_step`` at width 7),
+    each built once through ``GameEstimator.build_one_coordinate`` (its
+    seconds, and the projection's own apart: the matrix's draw, the designs'
+    projection and the context's) and fitted through ``GameEstimator()`` and
+    ``GameEstimator(fused=False)``.  Gates: the fits bitwise equal, kernels
+    launched as often (kernel 1 once an objective evaluation), the fused
+    sweep and the host loop bitwise equal on the built coordinates too; the
+    published stack bitwise the last update's solved lanes mapped to
+    original space and back-projected through Aᵀ, and the per-user scores
+    within RANDOM_MARGIN_RTOL of the projected designs' margins; the float64
+    gradient in the transformed projected space at the card's optimum at
+    most STATIONARY_RATIO of its norm at w = 0; and card against CPU at a
+    reduced size (glmix2-random at scale 8 and the SoA cell within
+    F32_PATH_RTOL; glmix_sparse-norm-random at scale 8, its coefficients,
+    scores and GAME objective within F32_PATH_RTOL / F32_OBJECTIVE_RTOL or
+    3x the CPU fit's own one-ulp spread where larger).  Reported:
+    construction, projection, fit and descent seconds (untraced descents
+    interleaved, three each way, one on the sparse cell), syncs of one
+    descent each way (counted as phase 25 counts them) and peak device
+    memory;
+14. printed last, after phases 15-18 and 24-28: one JSON line describing each
     kernel, with its launches on each path and its device time alone
     (``device_ms``) beside the event time (``ms``); the storage-width shapes
     sit under ``by_shape`` with the launches of the path that runs them.
@@ -4085,14 +4113,15 @@ def _solve_trips(coord, results) -> list:
     return out
 
 
-def _syncs_during(fn, syncs=None, stacks=None):
+def _syncs_during(fn, syncs=None, stacks=None, frames=True):
     """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")`` inside
     ``warnings.catch_warnings(record=True)`` with every warning let through:
     each sync's warning is kept (appended to ``syncs`` as it happens) with
     the port's frames on the stack when it was raised, innermost first, so
     a sync names the Python line that made the card wait and the lines that
-    called it; ``stacks``, where given, takes each sync's whole stack as
-    text.  The debug mode and the warning filters are restored in a
+    called it (with ``frames`` False an empty list, for a count of
+    thousands of syncs without walking each one's stack); ``stacks``, where
+    given, takes each sync's whole stack as text.  The debug mode and the warning filters are restored in a
     ``finally``.  Returns (its result, the syncs)."""
     import traceback
     import warnings
@@ -4103,7 +4132,7 @@ def _syncs_during(fn, syncs=None, stacks=None):
 
     def shown(message, *args, **kwargs):
         if SYNC_MESSAGE in str(message):
-            syncs.append(_port_frames())
+            syncs.append(_port_frames() if frames else [])
             if stacks is not None:
                 stacks.append("".join(traceback.format_stack(limit=14)[:-1]))
 
@@ -4985,6 +5014,403 @@ def phase_fused_validated(stats: dict, host: dict):
     log("phase 27: " + json.dumps(out))
 
 
+# -- phase 28: the RANDOM projector ----------------------------------------------
+
+RANDOM_GLMIX2_DIM = 8  # glmix2-random: the per-user coordinate's projected_dim
+RANDOM_GSN_DIM = 16  # glmix_sparse-norm-random's; with the intercept's pass-through
+# slot the solve width is 17
+RANDOM_GSN_ITERS = 200  # its per-user solver's iteration cap (tolerance 1e-7, as
+# glmix_sparse's): the STANDARDIZATION context pushed through the matrix has
+# factors from 1 to ~2,200 in magnitude, and the lanes leave the float64
+# gradient at 2.9e-2 of its start after 30 iterations, 9.3e-3 after 150,
+# 5.4e-3 after 200 (CPU fits at scale 8), 2.6e-3 after 300 (full width on
+# an H100)
+RANDOM_SOA_DIM = 7  # the SoA branch, glmix2 at REDUCED_GLMIX2_SCALE with cap
+# MAIN_CAP (32): 32 * 7^2 = 1,568 <= 2,560 keeps it inside the gate
+RANDOM_MARGIN_RTOL = 1e-4  # published per-user scores x·(A·w) against the
+# projected design's margins (x·A)·w, float32: the same products summed in
+# another order, against the largest score; the sparse cell's lanes take
+# projected factors in the thousands, whose cancellations cost digits
+RANDOM_TIMING_ORDER = ("host", "fused", "fused", "host", "host", "fused")  # untraced
+# descents on one set of coordinates, three each, or the first two (one
+# each) on the sparse cell, whose descent takes seconds
+
+
+def _random_user(config, **fields):
+    """``config`` with its per-user coordinate under the RANDOM projector."""
+    import dataclasses
+
+    from photon_ml_tpu_torch.types import ProjectorType
+
+    user = dataclasses.replace(config.coordinates["per-user"],
+                               projector=ProjectorType.RANDOM, **fields)
+    return dataclasses.replace(config, coordinates={**config.coordinates, "per-user": user})
+
+
+def _random_cells():
+    """Phase 28's cells: (cell, make(scale) -> (GameData, normalization map or
+    None), config, kernels that must launch, the cell's scale, whether the
+    per-user coordinate runs SoA Newton, untraced descents each way)."""
+    from photon_ml_tpu_torch.data.synthetic import synth_glmix, synth_glmix_sparse_norm
+    from photon_ml_tpu_torch.opt.types import SolverConfig
+    from photon_ml_tpu_torch.types import OptimizerType
+
+    def glmix2(scale):
+        return _baseline_data(synth_glmix(scale, three=False)), None
+
+    def gsn(scale):
+        host = synth_glmix_sparse_norm(scale)
+        return _glmix_sparse_data(host), {"u": _gsn_context(host)}
+
+    g2 = _baseline_config(False, OptimizerType.LBFGS)
+    gsn_solver = SolverConfig(max_iters=RANDOM_GSN_ITERS, tolerance=1e-7)
+    return [("glmix2_random", glmix2, _random_user(g2, projected_dim=RANDOM_GLMIX2_DIM),
+             ("fused_value_and_grad",), 1, False, 3),
+            ("glmix_sparse_norm_random", gsn,
+             _random_user(_glmix_sparse_config(), projected_dim=RANDOM_GSN_DIM,
+                          intercept_index=GSN_II, solver=gsn_solver), (), 1, False, 1),
+            ("glmix2_random_soa", glmix2,
+             _random_user(g2, projected_dim=RANDOM_SOA_DIM, active_cap=MAIN_CAP),
+             ("fused_value_and_grad", "newton_step"), REDUCED_GLMIX2_SCALE, True, 3)]
+
+
+class _ProjectionSeconds:
+    """Wall seconds of the RANDOM projection's own steps (drawing the
+    matrix, projecting the designs, pushing the context through it) while
+    open, each step ended by a device sync; the wrappers are restored on
+    exit."""
+
+    def __init__(self, device: str):
+        self.device, self.seconds, self._real = device, 0.0, []
+
+    def __enter__(self):
+        import photon_ml_tpu_torch.game.coordinate as coord_mod
+        import photon_ml_tpu_torch.parallel.projection as proj_mod
+
+        targets = [(proj_mod.RandomProjection, name)
+                   for name in ("project_x", "project_compact", "project_normalization")]
+        targets += [(proj_mod, "build_random_projection"),
+                    (coord_mod, "build_random_projection")]
+        for owner, name in targets:
+            real = getattr(owner, name)
+            self._real.append((owner, name, real))
+            setattr(owner, name, self._timed(real))
+        return self
+
+    def _timed(self, fn):
+        import torch
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if self.device == "cuda":
+                torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self._real):
+            setattr(owner, name, real)
+
+
+class _LastRandomUpdate:
+    """While open, keeps the last random-effect update's coordinate,
+    offsets, solver results and published stack (``coord``, ``offsets``,
+    ``results``, ``w_dev``), from ``RandomEffectCoordinate._solve_update``,
+    which the host loop and the fused sweep both call; the method is
+    restored on exit."""
+
+    def __enter__(self):
+        import photon_ml_tpu_torch.game.coordinate as coord_mod
+
+        cls = coord_mod.RandomEffectCoordinate
+        real = self._real = cls._solve_update
+
+        def kept(coord, offsets, start):
+            results, w_dev = real(coord, offsets, start)
+            self.coord, self.offsets, self.results, self.w_dev = (coord, offsets, results,
+                                                                   w_dev)
+            return results, w_dev
+
+        cls._solve_update = kept
+        return self
+
+    def __exit__(self, *exc):
+        import photon_ml_tpu_torch.game.coordinate as coord_mod
+
+        coord_mod.RandomEffectCoordinate._solve_update = self._real
+
+
+def _solver_lanes(coord, results) -> list:
+    """Each bucket's optimum [L, k] in the transformed projected space."""
+    return [r.w.T if coord.use_soa else r.w for r in results]
+
+
+def _random_stack_and_margins(coord, last: _LastRandomUpdate, model) -> dict:
+    """Gates on the last update of a RANDOM coordinate: the published stack
+    bitwise its solved lanes mapped to original space and back-projected
+    through Aᵀ, and the model's per-user scores within RANDOM_MARGIN_RTOL of
+    the projected designs' margins (x·A)·w at every active row."""
+    import torch
+
+    w_pub = torch.as_tensor(model.w_stack, device=last.w_dev.device)
+    if not torch.equal(w_pub, last.w_dev):
+        raise AssertionError("the published stack is not the last update's")
+    scores = coord.score(model)
+    err, top = 0.0, float(scores.abs().max())
+    for bi, lanes in enumerate(_solver_lanes(coord, last.results)):
+        orig = coord._lanes_to_original(lanes, bi)
+        slots = coord._lane_slots[bi]
+        valid = slots >= 0
+        if not torch.equal(coord._random.back_project(orig)[valid], w_pub[slots[valid]]):
+            raise AssertionError(f"bucket {bi}: the published rows are not its lanes "
+                                 f"back-projected through the matrix")
+        dev = coord._dev[bi]
+        x, rows, ok = dev["x"], dev["rows"], dev["valid"]
+        if coord.use_soa:  # [S, k, L], [S, L] -> [L, S, k], [L, S]
+            x, rows, ok = x.permute(2, 0, 1), rows.T, ok.T
+        margins = torch.einsum("lsk,lk->ls", x.to(orig.dtype), orig)
+        err = max(err, float(torch.where(ok, (scores[rows] - margins).abs(), 0.0).max()))
+    rel = err / max(top, 1e-30)
+    if rel > RANDOM_MARGIN_RTOL:
+        raise AssertionError(f"per-user scores differ from the projected margins by {rel:.2e} "
+                             f"of the largest score (tol {RANDOM_MARGIN_RTOL:g})")
+    return dict(margin_rel=rel, max_score=top)
+
+
+def _projected_rows(shard, rows, a):
+    """The raw rows ``rows`` [L, S] of a per-user shard projected through the
+    float64 matrix ``a`` [d, k], float64 [L, S, k] on a's device."""
+    import torch
+
+    from photon_ml_tpu_torch.game import SparseShard
+
+    if isinstance(shard, SparseShard):
+        idx = torch.as_tensor(shard.indices, device=a.device)[rows].long()
+        val = torch.as_tensor(shard.values, device=a.device)[rows].double()
+        return (val[..., None] * a[idx]).sum(dim=-2)
+    return torch.as_tensor(shard, device=a.device)[rows].double() @ a
+
+
+def _random_gradient_ratio(coord, shard, last: _LastRandomUpdate) -> float:
+    """The float64 gradient norm of the per-user objective in the
+    transformed projected space at the last update's optimum, over its norm
+    at w' = 0, recomputed from the raw rows, the matrix and the projected
+    context: per lane Σ wt·logloss(off + x'·(w'∘f) - (w'∘f)·s) + l2/2·||w'||²
+    with x' = x·A."""
+    import torch
+
+    a = coord._random.matrix.double()
+    ctx, _ = coord._shared_norm
+    k = a.shape[1]
+    f = ctx.factors.double() if ctx.factors is not None else torch.ones(k, device=a.device,
+                                                                        dtype=a.dtype)
+    s = ctx.shifts.double() if ctx.shifts is not None else torch.zeros_like(f)
+    offsets = torch.as_tensor(last.offsets, device=a.device).double()
+    sq = {"w": 0.0, "zero": 0.0}
+    for b, lanes, l2 in zip(coord.buckets.buckets, _solver_lanes(coord, last.results),
+                            coord._l2):
+        on = lambda v: torch.as_tensor(v, device=a.device)
+        valid = on(b.rows >= 0)
+        rows = torch.where(valid, on(b.rows).long(), 0)
+        x = _projected_rows(shard, rows, a)
+        y, wt, off = on(b.y).double(), on(b.weight).double(), offsets[rows]
+        lane = on(b.entity_lanes >= 0)
+
+        def gradient(w):
+            eff = w * f
+            z = off + torch.einsum("lsk,lk->ls", x, eff) - (eff * s).sum(-1, keepdim=True)
+            r = torch.where(valid, wt * (torch.sigmoid(z) - y), 0.0)
+            g = f * (torch.einsum("ls,lsk->lk", r, x) - s * r.sum(-1, keepdim=True))
+            return (g + l2.double()[:, None] * w)[lane]
+
+        w = lanes.double()
+        sq["w"] += float((gradient(w) ** 2).sum())
+        sq["zero"] += float((gradient(torch.zeros_like(w)) ** 2).sum())
+    return (sq["w"] / sq["zero"]) ** 0.5
+
+
+def _fit_random(data, device: str, config, norms) -> tuple:
+    """``_fit_and_score`` through ``GameEstimator()`` with the per-user
+    coordinate's last update kept, and the fit's GAME objective in float64:
+    Σ logloss(total score) + the fixed effect's (l2 / 2)·||w||² + each
+    entity's (l2 / 2)·||w'||² over its transformed projected lanes.
+    Returns (result, scores, AUC, fit seconds, objective)."""
+    import torch
+
+    with _LastRandomUpdate() as last:
+        res, scores, auc, t_fit, _ = _fit_and_score(data, device, config, norms)
+    coord = last.coord
+    lanes = [w[torch.as_tensor(b.entity_lanes >= 0, device=w.device)] for b, w in
+             zip(coord.buckets.buckets, _solver_lanes(coord, last.results))]
+    penalties = [(config.coordinates["fixed"].reg.l2, res.model["fixed"].coefficients.means)]
+    penalties += [(config.coordinates["per-user"].reg.l2, w) for w in lanes]
+    return res, scores, auc, t_fit, _logistic_objective(scores, data, penalties)
+
+
+def _gsn_random_card_vs_cpu(config) -> dict:
+    """glmix_sparse-norm-random at L1_CHOICE_SCALE, card against CPU, by the
+    bound of PERF.md section 2: coefficients and scores within
+    F32_PATH_RTOL and the GAME objective within F32_OBJECTIVE_RTOL, or
+    F32_SPREAD_MULTIPLE x the CPU fit's own spread under one-ulp nudges of
+    the per-user values where larger.  Its lanes are not determined to
+    more than a few digits (the nudges move them by tens of percent, and
+    the per-user coordinate alone in float64 read 4.6e-1 apart card against
+    CPU), so no float64 comparison is made."""
+    import numpy as np
+
+    from photon_ml_tpu_torch.data.synthetic import synth_glmix_sparse_norm
+
+    host = synth_glmix_sparse_norm(L1_CHOICE_SCALE)
+    data, norms = _glmix_sparse_data(host), {"u": _gsn_context(host)}
+    label = f"glmix_sparse-norm-random at scale {L1_CHOICE_SCALE} ({data.num_samples} rows)"
+    rg, sg, auc_g, t_card, f_card = _fit_random(data, "cuda", config, norms)
+    rc, sc, auc_c, t_cpu, f_cpu = _fit_random(data, "cpu", config, norms)
+
+    def errors(a, sa, fa):
+        e = _model_errors(label, a.model, rc.model, ["per-user"])
+        e["scores"] = rel_err(sa.cpu(), sc)
+        e["objective"] = abs(fa - f_cpu) / abs(f_cpu)
+        return e
+
+    errs = errors(rg, sg, f_card)
+    spreads = []
+    for seed in F32_SPREAD_SEEDS:
+        values = host["user"]["values"]
+        values = values * (1 + np.float32(2 ** -23) * np.random.default_rng(seed).choice(
+            np.float32([-1, 1]), values.shape))
+        nudged = _glmix_sparse_data(dict(host, user=dict(host["user"], values=values)))
+        rn, sn, _, _, fn = _fit_random(nudged, "cpu", config, norms)
+        spreads.append(errors(rn, sn, fn))
+    base = {k: F32_OBJECTIVE_RTOL if k == "objective" else F32_PATH_RTOL for k in errs}
+    tol = {k: max(base[k], F32_SPREAD_MULTIPLE * max(sp[k] for sp in spreads)) for k in errs}
+    fmt = lambda e: ", ".join(f"{k} {v:.2e}" for k, v in e.items())
+    ok = all(errs[k] <= tol[k] for k in errs) and abs(auc_g - auc_c) <= 1e-3
+    log(f"card vs CPU, {label}: fit {t_card:.2f} s vs {t_cpu:.2f} s; objective {f_card:.6f} vs "
+        f"{f_cpu:.6f}; max rel diff {fmt(errs)} (tol {fmt(tol)}: {F32_SPREAD_MULTIPLE:g} x the "
+        f"largest of the CPU fit's own spreads under one-ulp nudges of the per-user values, "
+        f"seeds {F32_SPREAD_SEEDS}: " + "; ".join(fmt(sp) for sp in spreads)
+        + f"); AUC {auc_g:.5f} vs {auc_c:.5f} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{label}: card and CPU disagree beyond the tolerance")
+    return dict(f32=errs, f32_tol=tol, f32_spreads=spreads, objective=(f_card, f_cpu),
+                auc=(auc_g, auc_c))
+
+
+def phase_random_projector(stats: dict):
+    """Phase 28 (module docstring): per cell, construction with the
+    projection timed apart, ``GameEstimator()`` and ``fused=False`` fits,
+    descents both ways on one set of coordinates, and the gates; then the
+    cells at a reduced size on the card and the CPU."""
+    import statistics
+
+    import torch
+
+    from photon_ml_tpu_torch.game import FusedSweep, GameEstimator
+    from photon_ml_tpu_torch.game.descent import CoordinateDescent
+
+    dev = torch.device("cuda")
+    out = {}
+    for cell, make, config, required, scale, soa, repeats in _random_cells():
+        t_cell = time.perf_counter()
+        data, norms = make(scale)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        est = GameEstimator(device="cuda", normalization=norms)
+        with _ProjectionSeconds("cuda") as projection:
+            t0 = time.perf_counter()
+            coords = {cid: est.build_one_coordinate(cid, data, c, config.task)
+                      for cid, c in config.coordinates.items()}
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+        user = coords["per-user"]
+        ucfg = config.coordinates["per-user"]
+        width = ucfg.projected_dim + (ucfg.intercept_index is not None)
+        widths = {dv["x"].shape[1 if user.use_soa else 2] for dv in user._dev}
+        if user._random is None or user.use_soa != soa or widths != {width}:
+            raise AssertionError(f"{cell}: the per-user coordinate solves at widths {widths} "
+                                 f"(SoA {user.use_soa}), not RANDOM at {width} (SoA {soa})")
+
+        # the estimator both ways, kernels counted from 0 for each
+        fits, launches = {}, {}
+        for side, fused in (("fused", "auto"), ("host", False)):
+            kernels = _zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = GameEstimator(device="cuda", normalization=norms, fused=fused).fit(
+                data, [config])[0]
+            torch.cuda.synchronize()
+            fits[side] = (res, time.perf_counter() - t0)
+            launches[side] = {k: v for k, v in _record_launches(
+                cell if side == "fused" else f"{cell}_host", kernels, stats, required).items()
+                if k in FUSED_KERNELS}
+        if fits["fused"][0].history.steps or not fits["host"][0].history.steps:
+            raise AssertionError(f"{cell}: GameEstimator() did not run the fused sweep")
+        _fused_equal_host(cell, fits["fused"][0].model, fits["host"][0].model)
+        if launches["fused"] != launches["host"]:
+            raise AssertionError(f"{cell}: fused launches {launches['fused']} != the host "
+                                 f"loop's {launches['host']}")
+
+        # descents on the coordinates built above: counted, kept, timed
+        order, iters = list(config.coordinates), config.num_outer_iterations
+        host_run = lambda: CoordinateDescent(coords, order, iters).run(dev)[0]
+        fused_run = lambda: FusedSweep(coords, order, iters).run()[0]
+        with _LastRandomUpdate() as last:
+            host_model, host_syncs = _syncs_during(host_run, frames=False)
+        fused_model, fused_syncs = _syncs_during(fused_run, frames=False)
+        _fused_equal_host(f"{cell} descents", fused_model, host_model)
+        _fused_equal_host(f"{cell} estimator against descent", fits["fused"][0].model,
+                          host_model)
+        gates = _random_stack_and_margins(user, last, host_model["per-user"])
+        ratio = _random_gradient_ratio(user, data.features[ucfg.feature_shard], last)
+        if ratio > STATIONARY_RATIO:
+            raise AssertionError(f"{cell}: float64 projected gradient ratio {ratio:.2e} > "
+                                 f"{STATIONARY_RATIO:g}")
+        seconds = {"host": [], "fused": []}
+        for side in RANDOM_TIMING_ORDER[:2 * repeats]:
+            run = host_run if side == "host" else fused_run
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            seconds[side].append(time.perf_counter() - t0)
+        median = {side: statistics.median(v) for side, v in seconds.items()}
+        row = dict(scale=scale, solve_width=width, soa=user.use_soa,
+                   construction_s=t_build, projection_s=projection.seconds,
+                   fit_s={side: f[1] for side, f in fits.items()}, descent_s=seconds,
+                   descent_median_s=median, syncs=dict(host=len(host_syncs),
+                                                       fused=len(fused_syncs)),
+                   launches=launches["fused"], projected_gradient_ratio=ratio,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9, **gates)
+        log(f"{cell}: {data.num_samples} rows, per-user RANDOM at width {width} "
+            f"({'SoA Newton' if user.use_soa else 'lanes'}); construction {t_build:.3f} s, of "
+            f"which the projection {projection.seconds:.3f} s; fit {fits['fused'][1]:.2f} s "
+            f"through GameEstimator() (the fused sweep) and {fits['host'][1]:.2f} s with "
+            f"fused=False, bitwise equal, launches {launches['fused']} both; descents on one "
+            f"set of coordinates bitwise equal, median of {repeats} {median['host'] * 1e3:.1f} "
+            f"ms host, "
+            f"{median['fused'] * 1e3:.1f} ms fused; syncs {len(host_syncs)} host, "
+            f"{len(fused_syncs)} fused; published stack bitwise the solved lanes back-"
+            f"projected, scores vs projected margins {gates['margin_rel']:.2e} (tol "
+            f"{RANDOM_MARGIN_RTOL:g}); float64 projected gradient ratio {ratio:.2e} (tol "
+            f"{STATIONARY_RATIO:g}); peak device memory {row['peak_gb']:.2f} GB")
+
+        # card against CPU at a reduced size (the SoA cell is reduced already)
+        if cell == "glmix_sparse_norm_random":
+            row["card_vs_cpu"] = _gsn_random_card_vs_cpu(config)
+        else:
+            small, _ = make(REDUCED_GLMIX2_SCALE)
+            _compare_fits(f"{cell} at scale {REDUCED_GLMIX2_SCALE} ({small.num_samples} rows)",
+                          small, small, config, ["per-user"])
+        row["cell_s"] = time.perf_counter() - t_cell
+        out[cell] = row
+        del data, coords, est, fits, host_model, fused_model, last
+        torch.cuda.empty_cache()
+    stats["random_projector"] = out
+    log("phase 28: " + json.dumps(out))
+
+
 KERNELS = {
     "fused_value_and_grad": dict(
         source="photon_ml_tpu_torch/csrc/fused_glm.cu",
@@ -5297,6 +5723,8 @@ def main() -> int:
     with Phase("27 validated fused sweep"):
         phase_fused_validated(stats, host)
     del host
+    with Phase("28 the RANDOM projector: glmix2-random, glmix_sparse-norm-random, SoA"):
+        phase_random_projector(stats)
     with Phase("14 kernels"):
         checked = stats.get("lbfgs_solves_checked", {})
         log(f"fixed-effect L-BFGS solves on kernel 1's path held against their own "

@@ -2,16 +2,16 @@
 
 Port of photon_ml_tpu/game/config.py, holding the fields the port trains
 with: variances, each coordinate's ``intercept_index`` (the column that
-absorbs a shift normalization and that the INDEX_MAP filter keeps), box
-constraints with their ``constraint_space``, the fixed effect's
-``down_sampling_rate``, and the projector field, whose RANDOM value the
-random-effect coordinate refuses (NotImplementedError naming the ROADMAP
-item that brings it), and ``storage_dtype``: the design held at a narrower
-float ("bfloat16", "float16") while the solver state, labels, offsets,
-weights and the published coefficients stay at the compute dtype
-(``storage_torch_dtype`` resolves the name).  The rest of the reference's
-fields (``projected_dim`` of the RANDOM projector, feature sharding) arrive
-with the slices that carry them.
+absorbs a shift normalization, that the INDEX_MAP filter keeps and that
+the RANDOM projection passes through), box constraints with their
+``constraint_space``, the fixed effect's ``down_sampling_rate``, the
+projector with the RANDOM projector's ``projected_dim`` (refused at
+construction under any other projector, as the reference refuses it), and
+``storage_dtype``: the design held at a narrower float ("bfloat16",
+"float16") while the solver state, labels, offsets, weights and the
+published coefficients stay at the compute dtype (``storage_torch_dtype``
+resolves the name).  The reference's feature sharding arrives with the
+multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -88,8 +88,10 @@ class RandomEffectConfig:
     active_cap: Optional[int] = None  # per-entity sample cap (reservoir)
     min_active_samples: int = 1  # lower-bound entity filter
     # Feature projection: INDEX_MAP (and any sparse shard) solves each entity
-    # in the compact space of its observed columns
+    # in the compact space of its observed columns; RANDOM solves every
+    # entity in the span of one shared Gaussian matrix of projected_dim columns
     projector: ProjectorType = ProjectorType.IDENTITY
+    projected_dim: Optional[int] = None  # required for ProjectorType.RANDOM
     features_to_samples_ratio: Optional[float] = None  # per-entity Pearson top-k cap
     # column the Pearson filter must keep, and that absorbs a shift normalization
     intercept_index: Optional[int] = None
@@ -110,6 +112,9 @@ class RandomEffectConfig:
             pairs = m.items() if isinstance(m, dict) else m
             object.__setattr__(self, "per_entity_l2_multipliers",
                                tuple(sorted((int(k), float(v)) for k, v in pairs)))
+        if self.projected_dim is not None and self.projector != ProjectorType.RANDOM:
+            raise ValueError("projected_dim applies only to ProjectorType.RANDOM "
+                             f"(got projector={self.projector.name})")
         _canonicalize_constraints(self)
 
 

@@ -39,6 +39,20 @@ Port of photon_ml_tpu/game/coordinate.py:
   lanes with per-lane bounds gathered the same way (padded slots pinned to
   [0, 0]), and unobserved features publish clip(0, lo, hi).  The SoA gate
   excludes normalization, box constraints and L1, as in the reference.
+  Under the RANDOM projector every entity solves in the span of one shared
+  Gaussian matrix A [d, k] (``parallel/projection.RandomProjection``,
+  drawn from the coordinate's seed): a dense shard's buckets are projected
+  as x·A on the device, a sparse shard's compact lanes through A's rows at
+  their column ids (the [E, S, d] tensor never exists), and the lanes
+  publish as lanes·Aᵀ at full width.  A normalization context is then one
+  context shared by every entity, pushed through A, with the intercept
+  pass-through slot as its intercept, even on a sparse shard.  The Gaussian
+  projection has no exact inverse, so every update under RANDOM starts cold
+  in the projected space, from a prior model and in a fused sweep alike
+  (the reference's fused sweep starts from the previous update's projected
+  lanes, and agrees with its host loop only to ~2e-3).  Variances and box
+  constraints have no meaning there and are refused, as the reference
+  refuses them.
 
 Coefficient variances (SIMPLE: 1 / diag(H); FULL: diag(H⁻¹)) are computed at
 the transformed-space optimum of each solve, with the update's offsets, and
@@ -89,9 +103,6 @@ in place of boolean masks; ``cholesky_ex``).  A validated sweep
 ``carry_through_scores_on``, which compute what the exported model's
 ``score`` computes, with the same functions at the same dtype, so that its
 evaluations are bitwise the host loop's.
-
-The RANDOM projector, which the port does not carry yet, raises
-NotImplementedError naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -127,7 +138,9 @@ from photon_ml_tpu_torch.parallel.bucketing import (bucket_by_entity,
                                                     bucket_by_entity_sparse, publish_stack,
                                                     score_samples, score_samples_sparse,
                                                     slots_from)
-from photon_ml_tpu_torch.parallel.projection import RANDOM_REFUSAL, project_buckets
+from photon_ml_tpu_torch.parallel.projection import (RandomProjection,
+                                                     build_random_projection,
+                                                     check_projector, project_buckets)
 from photon_ml_tpu_torch.types import (OptimizerType, ProjectorType, TaskType,
                                        VarianceComputationType)
 
@@ -139,10 +152,9 @@ SOA_MAX_CAP_D2 = 2 * 1280
 
 
 def _refuse_unported(coordinate_id: str, config: CoordinateConfig) -> None:
-    """Refuse the RANDOM projector, which the port does not carry yet
-    (NotImplementedError naming its ROADMAP item), after the reference's own
-    ValueErrors for it: variances and box constraints have no meaning in a
-    space whose projection mixes features.  Then the optimizer check."""
+    """The reference's ValueErrors for the RANDOM projector (variances and
+    box constraints have no meaning in a space whose projection mixes
+    features), then the optimizer check."""
     where = f"coordinate {coordinate_id!r}: "
     if getattr(config, "projector", None) == ProjectorType.RANDOM:
         if config.variance != VarianceComputationType.NONE:
@@ -152,7 +164,6 @@ def _refuse_unported(coordinate_id: str, config: CoordinateConfig) -> None:
             raise ValueError(where + "box constraints have no meaning in a "
                              "RANDOM-projected solve space (the Gaussian matrix mixes "
                              "features); use IDENTITY or INDEX_MAP")
-        raise NotImplementedError(where + RANDOM_REFUSAL)
     check_supported(config.optimizer, config.reg.l1)
 
 
@@ -563,7 +574,7 @@ def _re_data_key(config: RandomEffectConfig) -> tuple:
     buckets, the projection and the per-lane contexts); configs that differ
     elsewhere share it through ``rebind``."""
     return (config.random_effect_type, config.feature_shard, config.active_cap,
-            config.min_active_samples, config.projector,
+            config.min_active_samples, config.projector, config.projected_dim,
             config.features_to_samples_ratio, config.intercept_index,
             config.storage_dtype)
 
@@ -582,7 +593,8 @@ def _refuse_lane_context_variances(coordinate_id: str, config: RandomEffectConfi
 class RandomEffectCoordinate(Coordinate):
     """Per-entity GLM coordinate over a dense or sparse shard: SoA Newton
     lanes inside the reference's gate, lane-batched L-BFGS / TRON outside
-    it; compact solve spaces for INDEX_MAP and every sparse shard."""
+    it; compact solve spaces for INDEX_MAP and every sparse shard not under
+    RANDOM, and the shared Gaussian space under RANDOM."""
 
     def __init__(self, coordinate_id: str, data: GameData, config: RandomEffectConfig,
                  task: TaskType, seed: int, dtype: torch.dtype, device: torch.device,
@@ -591,7 +603,19 @@ class RandomEffectCoordinate(Coordinate):
         _refuse_unported(coordinate_id, config)
         shard = data.features[config.feature_shard]
         self._sparse = isinstance(shard, SparseShard)
-        compact = self._sparse or config.projector == ProjectorType.INDEX_MAP
+        random = config.projector == ProjectorType.RANDOM
+        if random:
+            check_projector(config.projector, config.projected_dim,
+                            config.features_to_samples_ratio)
+            if (norm is not None and norm.shifts is not None
+                    and config.intercept_index is None):
+                raise ValueError(
+                    f"coordinate {coordinate_id!r}: shift normalization under a RANDOM "
+                    "projection needs intercept_index (the Gaussian matrix then carries "
+                    "the reference's intercept pass-through slot)")
+        # compact solve spaces: the observed columns of each entity, which
+        # RANDOM projects further into its shared space
+        compact = not random and (self._sparse or config.projector == ProjectorType.INDEX_MAP)
         self.norm_source = norm
         self._norm = _coordinate_norm(coordinate_id, norm, config.intercept_index, dtype,
                                       device)
@@ -622,8 +646,11 @@ class RandomEffectCoordinate(Coordinate):
                     dtype=np_dtype, existing_model_keys=existing_model_keys)
 
         # solve_buckets: the buckets in the space the solvers see (compact
-        # for sparse shards and INDEX_MAP); projections map them back
+        # for sparse shards and INDEX_MAP, Gaussian under RANDOM);
+        # projections (or the shared matrix) map them back
         projections = None
+        self._random: Optional[RandomProjection] = None
+        sd = _storage(config, dtype)
         if self._sparse:
             # full-sample scoring stays sparse: [n, k] arrays on the device
             self._x_idx = _as_device(shard.indices, torch.int64, device)
@@ -635,6 +662,16 @@ class RandomEffectCoordinate(Coordinate):
                 features_to_samples_ratio=ratio,
                 intercept_index=config.intercept_index, **rows)
             solve_buckets = self.buckets.buckets
+            if random:
+                # the compact lanes go to the device at the compute dtype and
+                # are projected there, then narrowed, as the reference narrows
+                # the projected bucket
+                self._random = build_random_projection(
+                    self.dim, config.projected_dim, seed, dtype=dtype,
+                    intercept_index=config.intercept_index, device=device)
+                solve_buckets = [dataclasses.replace(b, x=narrow(self._random.project_compact(
+                    b.x.to(device), p.indices), sd)) for b, p in zip(solve_buckets, projections)]
+                projections = None
         else:
             # the design moves to the device once; the buckets are gathered
             # there.  A device tensor at a narrower width keeps it (scoring
@@ -645,9 +682,16 @@ class RandomEffectCoordinate(Coordinate):
             solve_buckets = self.buckets.buckets
             if config.projector == ProjectorType.INDEX_MAP:
                 proj = project_buckets(self.buckets, config.projector,
-                                       config.features_to_samples_ratio,
-                                       config.intercept_index)
+                                       features_to_samples_ratio=config.features_to_samples_ratio,
+                                       intercept_index=config.intercept_index)
                 solve_buckets, projections = proj.buckets, proj.projections
+            elif random:
+                proj = project_buckets(self.buckets, config.projector,
+                                       projected_dim=config.projected_dim,
+                                       intercept_index=config.intercept_index, seed=seed)
+                self._random = next(iter(proj.projections), None)
+                solve_buckets = [dataclasses.replace(b, x=narrow(b.x, sd))
+                                 for b in proj.buckets]
 
         # compact lanes' column ids on the device: they gather the per-lane
         # contexts and bounds, publish the lanes and expand the variances
@@ -657,6 +701,12 @@ class RandomEffectCoordinate(Coordinate):
         if per_lane:
             self._lane_norms = [self._lane_context(idx, b.entity_lanes)
                                 for idx, b in zip(self._proj_idx, self.buckets.buckets)]
+        # the (context, intercept position) every bucket shares otherwise:
+        # the shard's, or under RANDOM the shard's pushed through the matrix
+        # with the pass-through slot as its intercept
+        self._shared_norm = (self._norm, config.intercept_index)
+        if self._random is not None:
+            self._shared_norm = self._random.project_normalization(self._norm)
         # (capacity, solve width) of every bucket: the SoA gate's shapes
         self._solve_shapes = [(b.capacity, b.x.shape[2]) for b in solve_buckets]
 
@@ -673,7 +723,7 @@ class RandomEffectCoordinate(Coordinate):
         # storage width; y / wt at the compute dtype; rows / valid [L, cap]);
         # ``_bind_solver`` lays them lanes-last (x [cap, d, L]; the rest
         # [cap, L]) for SoA Newton
-        widths = dict(x=_storage(config, dtype), y=dtype, wt=dtype)
+        widths = dict(x=sd, y=dtype, wt=dtype)
         self._dev = [
             {k: _as_device(v, widths.get(k), device)
              for k, v in dict(x=b.x, y=b.y, wt=b.weight,
@@ -803,10 +853,10 @@ class RandomEffectCoordinate(Coordinate):
 
     def _bucket_norm(self, bucket_index: int):
         """(context, intercept position) of a bucket's solves: the shared
-        context and the coordinate's intercept column, or the bucket's
-        per-lane rows and positions."""
+        context and its intercept (under RANDOM the projected ones), or the
+        bucket's per-lane rows and positions."""
         if self._lane_norms is None:
-            return self._norm, self.config.intercept_index
+            return self._shared_norm
         return self._lane_norms[bucket_index]
 
     def _solve_extras(self, bucket_index: int) -> dict:
@@ -869,16 +919,18 @@ class RandomEffectCoordinate(Coordinate):
     def _solve_update(self, offsets: Tensor, start: Optional[Tuple[Tensor, List[Tensor]]]
                       ) -> Tuple[List[SolverResult], Tensor]:
         """Every bucket's solve from the rows ``start`` (a stack and each
-        bucket's slots in it; None: zeros) against ``offsets``: (the solver
-        results, the published [E, d] stack on the device: lanes
-        back-projected where compact, unobserved features at the box fill,
-        scattered into the stack)."""
+        bucket's slots in it; None, and always under RANDOM: zeros) against
+        ``offsets``: (the solver results, the published [E, d] stack on the
+        device: lanes back-projected where compact or projected, unobserved
+        features at the box fill, scattered into the stack)."""
         offs = _as_device(offsets, self._dtype, self._device)
         coeffs, results = [], []
         for bi, (b, dev, l2) in enumerate(zip(self.buckets.buckets, self._dev, self._l2)):
-            if start is not None:
+            if start is not None and self._random is None:
                 w0 = self._warm_start(bi, start[0], start[1][bi])
             else:
+                # cold; under RANDOM always, as the Gaussian projection has no
+                # exact inverse (and zeros are zeros in any transformed space)
                 solve_dim = dev["x"].shape[1 if self.use_soa else 2]
                 w0 = torch.zeros((b.num_lanes, solve_dim), dtype=self._dtype,
                                  device=self._device)
@@ -891,7 +943,8 @@ class RandomEffectCoordinate(Coordinate):
                 batch = DenseBatch(x=dev["x"], y=dev["y"], offset=off, weight=dev["wt"])
                 res = self._solve_lanes(w0, batch, l2, **self._solve_extras(bi))
                 w_lanes = res.w
-            coeffs.append(self._lanes_to_original(w_lanes, bi))
+            lanes = self._lanes_to_original(w_lanes, bi)
+            coeffs.append(lanes if self._random is None else self._random.back_project(lanes))
             results.append(res)
         w_dev = publish_stack(coeffs, self._lane_slots, len(self._slot_of), self.dim,
                               self._proj_idx, fill=self._box_fill)

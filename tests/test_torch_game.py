@@ -219,13 +219,12 @@ def test_glmix_chip_generator_matches_bench():
 
 def test_out_of_slice_configurations_raise(glmix):
     """What earlier slices refused now follows the reference: L1 (OWLQN),
-    OWLQN itself, box constraints and normalization under compaction fit,
-    each update held against the JAX coordinate's within rtol 1e-6 in
-    float64.  The reference's errors stay ValueErrors (TRON with L1,
-    variances under the RANDOM projector); the RANDOM projector itself is
-    not ported yet (NotImplementedError naming its ROADMAP item), and a
-    shard that is neither an array, a tensor nor a SparseShard is a
-    TypeError."""
+    OWLQN itself, box constraints, normalization under compaction and the
+    RANDOM projector (with a context pushed through its matrix) fit, each
+    update held against the JAX coordinate's within rtol 1e-6 in float64.
+    The reference's errors stay ValueErrors (TRON with L1, variances under
+    the RANDOM projector, RANDOM without projected_dim), and a shard that is
+    neither an array, a tensor nor a SparseShard is a TypeError."""
     from photon_ml_tpu.core.normalization import NormalizationContext as JNorm
     from photon_ml_tpu.game.coordinate import build_coordinate as j_build_coordinate
     from photon_ml_tpu.types import ProjectorType as JProj
@@ -252,6 +251,11 @@ def test_out_of_slice_configurations_raise(glmix):
          RandomEffectConfig(random_effect_type="userId", feature_shard="u",
                             solver=SolverConfig(**s), reg=TReg(l2=1.0),
                             constraints=((0, -0.2, 0.2),)), False),
+        (JRandom(random_effect_type="userId", feature_shard="u", solver=JSolver(**s),
+                 reg=JReg(l2=1.0), projector=JProj.RANDOM, projected_dim=3),
+         RandomEffectConfig(random_effect_type="userId", feature_shard="u",
+                            solver=SolverConfig(**s), reg=TReg(l2=1.0),
+                            projector=ProjectorType.RANDOM, projected_dim=3), True),
     ]
     for jcfg, tcfg, normalized in fits:
         jnorm = JNorm(factors=half, shifts=None) if normalized else None
@@ -277,7 +281,7 @@ def test_out_of_slice_configurations_raise(glmix):
             random_effect_type="userId", feature_shard="u",
             projector=ProjectorType.RANDOM,
             variance=VarianceComputationType.FULL), task, device="cpu")
-    with pytest.raises(NotImplementedError, match="projector"):
+    with pytest.raises(ValueError, match="RANDOM projection requires projected_dim"):
         build_coordinate("u", data, RandomEffectConfig(
             random_effect_type="userId", feature_shard="g",
             projector=ProjectorType.RANDOM), task, device="cpu")

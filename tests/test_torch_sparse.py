@@ -184,8 +184,10 @@ def test_index_map_projection_bitwise(ratio):
         np.testing.assert_array_equal(
             tbucketing.publish_stack([torch.from_numpy(w)], [slots], t.num_lanes, d,
                                      [tpp]).numpy(), jpp.back_project(w))
-    with pytest.raises(NotImplementedError, match="RANDOM"):
-        tprojection.project_buckets(tb, ProjectorType.RANDOM)
+    for project, kind in ((jprojection.project_buckets, JProj.RANDOM),
+                          (tprojection.project_buckets, ProjectorType.RANDOM)):
+        with pytest.raises(ValueError, match="RANDOM projection requires projected_dim"):
+            project(jb if kind is JProj.RANDOM else tb, kind)
 
 
 def test_publish_stack_matches_jax_back_project_and_stack():
@@ -331,10 +333,11 @@ def test_index_map_dense_random_effect_fit_matches_jax():
 
 
 def test_sparse_random_effect_refusals():
-    """RANDOM on a sparse shard raises NotImplementedError naming its
-    ROADMAP item; a scaling context (per-lane rows on the compact lanes) and
-    box constraints now fit, held against the JAX coordinate within
-    FIT_RTOL."""
+    """RANDOM on a sparse shard without projected_dim raises the reference's
+    ValueError; a scaling context (per-lane rows on the compact lanes), box
+    constraints and RANDOM with projected_dim (under the same context, one
+    context pushed through the shared matrix) now fit, held against the JAX
+    coordinate within FIT_RTOL."""
     idx, vals, uids, y = _re_data(2, n=256, dim=64, k=4, n_users=8)
     data = GameData(y=y, features={"u": SparseShard(indices=idx, values=vals, dim=64)},
                     id_tags={"userId": uids})
@@ -343,13 +346,16 @@ def test_sparse_random_effect_refusals():
         return build_coordinate("c", data, RandomEffectConfig("userId", "u", **kw),
                                 TaskType.LOGISTIC_REGRESSION, device="cpu")
 
-    with pytest.raises(NotImplementedError, match=r"random-effect projectors \(RANDOM\)"):
+    with pytest.raises(ValueError, match="RANDOM projection requires projected_dim"):
         build(projector=ProjectorType.RANDOM)
     half = np.full(64, 0.5)
     for cfg, jnorm, tnorm in (
             (dict(), JNorm(factors=jnp.asarray(half), shifts=None),
              TNorm(factors=torch.from_numpy(half), shifts=None)),
-            (dict(constraints=((1, -0.1, 0.1), (2, 0.05, 1.0))), None, None)):
+            (dict(constraints=((1, -0.1, 0.1), (2, 0.05, 1.0))), None, None),
+            (dict(projector=ProjectorType.RANDOM, projected_dim=5),
+             JNorm(factors=jnp.asarray(half), shifts=None),
+             TNorm(factors=torch.from_numpy(half), shifts=None))):
         jc, tc = _re_pair(JShard(indices=idx, values=vals, dim=64),
                           SparseShard(indices=idx, values=vals, dim=64), uids, y,
                           jnorm=jnorm, tnorm=tnorm, **cfg)

@@ -553,22 +553,29 @@ def _assert_names_roadmap_item(err: BaseException) -> None:
 
 
 def test_remaining_refusals_name_an_existing_roadmap_item():
-    """The port's own refusal, the RANDOM projector, raises
-    NotImplementedError naming an item of ROADMAP.md's 'Modules still to
-    port' that exists.  L1 / OWLQN, box constraints and normalization under
-    compaction now build, as in the reference, and so do their variances
-    except the reference's own NotImplementedError: variances under
-    compaction with a per-entity context."""
+    """The port's own refusals, ``GameEstimator(mesh=...)`` and the grid
+    forms of ``FusedSweep``, raise NotImplementedError naming an item of
+    ROADMAP.md's 'Modules still to port' that exists.  L1 / OWLQN, box
+    constraints, normalization under compaction and the RANDOM projector now
+    build, as in the reference, and so do their variances except the
+    reference's own NotImplementedError: variances under compaction with a
+    per-entity context."""
     g = _glmix_data(29, d_u=6)
     data = GameData(y=g["y"], features={"g": g["xg"], "u": g["u"]},
                     id_tags={"userId": g["uids"]})
     task = TaskType.LOGISTIC_REGRESSION
     ctx = tn.NormalizationContext(factors=torch.full((6,), 0.5), shifts=None)
-    with pytest.raises(NotImplementedError, match="RANDOM") as err:
-        build_coordinate("u", data, RandomEffectConfig("userId", "u",
-                                                       projector=ProjectorType.RANDOM),
-                         task, device="cpu")
+    from photon_ml_tpu_torch.game import FusedSweep
+
+    with pytest.raises(NotImplementedError, match="mesh") as err:
+        GameEstimator(device="cpu", mesh=object())
     _assert_names_roadmap_item(err.value)
+    sweep = FusedSweep({"u": build_coordinate("u", data, RandomEffectConfig("userId", "u"),
+                                              task, device="cpu")})
+    for run in (sweep.run_grid, sweep.run_grid_snapshots):
+        with pytest.raises(NotImplementedError, match="grid forms") as err:
+            run()
+        _assert_names_roadmap_item(err.value)
     simple = VarianceComputationType.SIMPLE
     builds = [
         ("f", FixedEffectConfig("g", optimizer=OptimizerType.OWLQN, variance=simple), None),
@@ -578,6 +585,8 @@ def test_remaining_refusals_name_an_existing_roadmap_item():
         ("u", RandomEffectConfig("userId", "u", constraints=((1, -1.0, 1.0),),
                                  variance=simple), None),
         ("u", RandomEffectConfig("userId", "u", projector=ProjectorType.INDEX_MAP), ctx),
+        ("u", RandomEffectConfig("userId", "u", projector=ProjectorType.RANDOM,
+                                 projected_dim=3), ctx),
     ]
     for cid, cfg, norm in builds:
         coord = build_coordinate(cid, data, cfg, task, device="cpu", norm=norm)
